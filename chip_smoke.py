@@ -22,7 +22,12 @@ from a seed) and checks that it really ran through the kernels.  Phases:
 6. prefill vs decode: ``make_prefill_step`` (K1 at Sq=256, causal) against
    the decode path's logits after the same 256 prompt tokens, in fp32
    (tight) and in bf16 (each against the fp32 logits);
-7. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
+7. where a decode step's time goes: ``make_serve_step`` at the path's
+   shapes (cache index 383 of 512), an untimed warm-up, a window timed on
+   the host clock, then a window of as many steps under ``torch.profiler``
+   whose device busy time, idle share and largest device kernels all come
+   from that one traced window;
+8. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
    and times (kernel, plain version, bound, library yardstick) at the
    path's shapes, then the contract line ``{"ok": true, "device": ...}``.
 
@@ -48,6 +53,7 @@ DEVICE = "cuda:0"
 ARCH = "granite-3-2b"
 BATCH, PROMPT, DECODE, CACHE, WORKERS = 16, 256, 128, 512, 8
 SCHEDULE = {272: 8, 320: 2}
+PROFILE_WARMUP, PROFILE_STEPS, PROFILE_TOP = 5, 20, 8
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # as the JAX kernel tests
 #: prefill (K1 at Sq=256) vs decode (K1 at Sq=1 over the cache) logits after
 #: the same 256 tokens.  In fp32 the two paths differ only in summation
@@ -113,7 +119,8 @@ def main() -> None:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.ref import attention_reference, repack_reference
     from repro_torch.models import model as M
-    from repro_torch.models.train import make_prefill_step, prefill_logits
+    from repro_torch.models.train import (make_prefill_step, make_serve_step,
+                                          prefill_logits)
     from repro_torch.serve import decode_demo
 
     dev = torch.device(DEVICE)
@@ -345,9 +352,62 @@ def main() -> None:
           bf16_prefill_vs_decode=f"{(lp - ld).abs().max().item():.4e}",
           bf16_tol=BF16_LOGITS_ATOL, logits_std=f"{lp32.std().item():.3f}",
           first_token_agreement=f"{agree:.3f}")
-    del params
 
-    # -- 7. kernels line: times at the path's shapes ------------------------
+    # -- 7. where a decode step's time goes -------------------------------
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    serve = make_serve_step(cfg)
+    cache = M.init_cache(cfg, BATCH, CACHE, device=dev)
+    tok = prompts[:, :1]
+    pos = torch.tensor(PROMPT + DECODE - 1, dtype=torch.int32, device=dev)
+
+    def steps(n):
+        nonlocal tok, cache
+        with torch.no_grad():
+            for _ in range(n):
+                tok, cache = serve(params, cache, tok, pos)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return getattr(e, attr)
+        return 0.0
+
+    steps(PROFILE_WARMUP)
+    t0 = time.perf_counter()
+    steps(PROFILE_STEPS)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        steps(PROFILE_STEPS)
+        traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+    # device-side events only: an operator's own device time repeats the
+    # time of the kernels it launched, which are listed as events too
+    events = prof.key_averages()
+    dev_events = sorted((e for e in events if e.device_type ==
+                         DeviceType.CUDA and dev_us(e) > 0),
+                        key=dev_us, reverse=True)
+    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / PROFILE_STEPS
+    if busy_ms <= 0:
+        fail("the profiler saw no device time in the traced decode steps")
+    top = [{"kernel": e.key[:80],
+            "ms_per_step": dev_us(e) / 1e3 / PROFILE_STEPS,
+            "calls_per_step": e.count / PROFILE_STEPS}
+           for e in dev_events[:PROFILE_TOP]]
+    phase("profile", cache_index=int(pos), steps=PROFILE_STEPS,
+          untraced_ms_per_step=f"{wall_ms:.3f}",
+          traced_ms_per_step=f"{traced_ms:.3f}",
+          traced_device_busy_ms_per_step=f"{busy_ms:.3f}",
+          traced_idle_share=f"{1 - busy_ms / traced_ms:.4f}",
+          aten_ops_per_step=sum(e.count for e in events
+                                if e.key.startswith("aten::"))
+          / PROFILE_STEPS,
+          top=json.dumps(top, separators=(",", ":")))
+    del params, cache, prof, events
+
+    # -- 8. kernels line: times at the path's shapes ------------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
     n = PROMPT + DECODE
@@ -393,19 +453,22 @@ def main() -> None:
     src = table.reshape(nblk, blk, vp_rows[1])
     idx_dev = torch.from_numpy(idx).to(dev)
     b_rep, by_rep = bound_ms(2 * table.nbytes + 4 * idx.size, 0, "float32")
+    err_rep = (ops.repack(src, idx) - repack_reference(src, idx_dev)
+               ).abs().max().item()
+    if err_rep != 0.0:
+        fail(f"repack of the table differs from its plain version by "
+             f"{err_rep:.3e}")
     kernels.append({
         "name": "blockcyclic_repack", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/blockcyclic.cu",
         "replaces": "src/repro/kernels/blockcyclic.py:22",
-        "launches": repack_launches, "max_abs_err": 0.0,
+        "launches": repack_launches, "max_abs_err": err_rep,
         "ms": time_ms(lambda: ops.repack(src, idx), iters=20),
         "plain_ms": time_ms(lambda: repack_reference(src, idx_dev), iters=20),
         "bound_ms": b_rep, "bound_by": by_rep,
         "library_ms": time_ms(lambda: torch.index_select(src, 0, idx_dev),
                               iters=20),
         "shape": f"src=({nblk},{blk},{vp_rows[1]}) fp32 idx={idx.size}"})
-    for kern in kernels:
-        kern["kernel_ms"] = kern["ms"]
     print(json.dumps({"kernels": kernels, "card": smi_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -19,10 +19,9 @@ from repro_torch.dmr.app import App, MalleableApp, ensure_app
 from repro_torch.dmr.connectors import (FileRMS, PolicyRMS, RMSConnector,
                                         ScriptedRMS, connect)
 from repro_torch.dmr.patterns import (PATTERNS, BlockCyclicPattern,
-                                      CallablePattern, DefaultPattern, Pattern,
+                                      DefaultPattern, Pattern,
                                       ReplicatePattern, ResizeContext,
-                                      get_pattern, redistribute_tree,
-                                      register_pattern)
+                                      get_pattern, redistribute_tree)
 from repro_torch.dmr.runner import MalleableRunner, ResizeEvent, reconfig
 
 
@@ -39,8 +38,7 @@ def set_parameters(min_procs: int, max_procs: int, preferred: int, *,
 __all__ = [
     "App", "set_parameters", "reconfig", "MalleableRunner",
     "Pattern", "DefaultPattern", "BlockCyclicPattern", "ReplicatePattern",
-    "CallablePattern", "ResizeContext", "PATTERNS", "get_pattern",
-    "register_pattern", "redistribute_tree",
+    "ResizeContext", "PATTERNS", "get_pattern", "redistribute_tree",
     "RMSConnector", "ScriptedRMS", "PolicyRMS", "FileRMS", "connect",
     "MalleableApp", "ensure_app", "MalleabilityParams", "Action",
     "ClusterView", "Policy", "get_policy", "TransferStats", "ResizeEvent",

@@ -32,7 +32,7 @@ from repro_torch.core.redistribute import (TransferStats,
                                            blockcyclic_redistribute,
                                            default_redistribution)
 
-PatternSpec = Union[str, "Pattern", Callable]
+PatternSpec = Union[str, "Pattern"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,7 +40,6 @@ class ResizeContext:
     """What a pattern may know about the resize it is serving."""
     from_procs: int
     to_procs: int
-    donate: bool = True
 
 
 def _leaf_nbytes(leaf) -> int:
@@ -199,23 +198,6 @@ class ReplicatePattern(Pattern):
                                   seconds=dt, n_leaves=new_nprocs)
 
 
-class CallablePattern(Pattern):
-    """Adapter for a user function ``fn(leaf, new_placement, ctx) -> leaf``
-    (the paper's user-supplied send/recv functions, leaf-at-a-time)."""
-
-    name = "custom"
-
-    def __init__(self, fn: Callable, name: Optional[str] = None):
-        self.fn = fn
-        if name:
-            self.name = name
-        elif getattr(fn, "__name__", None) not in (None, "<lambda>"):
-            self.name = f"custom:{fn.__name__}"
-
-    def move(self, leaf, placement, ctx):
-        return self.fn(leaf, placement, ctx)
-
-
 # ----------------------------------------------------------------------
 # Registry
 # ----------------------------------------------------------------------
@@ -228,23 +210,11 @@ PATTERNS: Dict[str, Callable[[Optional[str]], Pattern]] = {
 }
 
 
-def register_pattern(name: str,
-                     factory: Callable[[Optional[str]], Pattern]) -> None:
-    """Register a custom pattern family under ``name`` (``factory`` receives
-    the text after ``name:`` in the spec, or ``None``)."""
-    if ":" in name:
-        raise ValueError(f"pattern name must not contain ':': {name!r}")
-    PATTERNS[name] = factory
-
-
 def get_pattern(spec: PatternSpec) -> Pattern:
-    """Resolve a pattern spec: a Pattern instance, a registry name such as
-    ``"default"`` / ``"blockcyclic:4"`` / ``"replicate"``, or a callable
-    ``fn(leaf, new_placement, ctx) -> leaf``."""
+    """Resolve a pattern spec: a Pattern instance or a registry name such
+    as ``"default"`` / ``"blockcyclic:4"`` / ``"replicate"``."""
     if isinstance(spec, Pattern):
         return spec
-    if callable(spec):
-        return CallablePattern(spec)
     name, _, arg = str(spec).partition(":")
     try:
         factory = PATTERNS[name]
@@ -275,8 +245,7 @@ def _match_spec(path: str, patterns: Dict[str, PatternSpec],
 def redistribute_tree(state, new_placements, *,
                       patterns: Optional[Dict[str, PatternSpec]] = None,
                       default: PatternSpec = "default",
-                      from_procs: int = 0, to_procs: int = 0,
-                      donate: bool = True
+                      from_procs: int = 0, to_procs: int = 0
                       ) -> Tuple[Any, TransferStats,
                                  Dict[str, TransferStats]]:
     """Move a state tree onto new placements, pattern-by-pattern.
@@ -286,8 +255,7 @@ def redistribute_tree(state, new_placements, *,
     ``(new_state, aggregate_stats, per_pattern_stats)`` where the breakdown
     is keyed by each pattern's ``spec()`` string.
     """
-    ctx = ResizeContext(from_procs=from_procs, to_procs=to_procs,
-                        donate=donate)
+    ctx = ResizeContext(from_procs=from_procs, to_procs=to_procs)
     paths_leaves = T.flatten(state)
     place_leaves = T.leaves(new_placements)
     if len(place_leaves) != len(paths_leaves):

@@ -58,12 +58,7 @@ class MalleableRunner:
                  rms: Optional[RMSConnector] = None, *,
                  devices: Optional[List] = None,
                  patterns: Optional[Dict[str, PatternSpec]] = None,
-                 max_model_axis: int = 16,
-                 policy=None,
-                 cluster_view: Optional[Callable[[], ClusterView]] = None,
-                 initial_procs: Optional[int] = None,
-                 allow_partial: bool = False,
-                 event_listener: Optional[Callable] = None):
+                 policy=None):
         self.app = ensure_app(app)
         self.params = params
         # default pool: max_procs logical workers on the card (raises when
@@ -72,45 +67,25 @@ class MalleableRunner:
             else logical_workers(params.max_procs)
         self.patterns = patterns if patterns is not None \
             else getattr(self.app, "patterns", None)
-        self.max_model_axis = max_model_axis
-        self.current = params.clamp(initial_procs) \
-            if initial_procs is not None else params.preferred
-        # ``allow_partial``: the pool may start below max_procs (under
-        # a cluster manager a job begins with whatever the scheduler granted and
-        # grows via grant_devices) — it only has to cover the starting
-        # size.  Standalone runners keep the fail-fast default: an
-        # undersized pool would otherwise silently collapse every expand.
-        if len(self.devices) < self.current:
-            raise ValueError(
-                f"need {self.current} workers to start, have "
-                f"{len(self.devices)} devices in the pool")
-        if not allow_partial and len(self.devices) < params.max_procs:
+        self.current = params.preferred
+        # fail fast: an undersized pool would silently collapse every expand
+        if len(self.devices) < params.max_procs:
             raise ValueError(
                 f"device pool ({len(self.devices)}) cannot reach "
-                f"max_procs={params.max_procs}; pass allow_partial=True if "
-                f"the pool grows later via grant_devices (a cluster manager does)")
+                f"max_procs={params.max_procs}")
         rms = connect(rms)
         if rms is None:
-            # policy selection: run a named/custom Policy locally against a
-            # cluster view (default: this runner owns every local device and
-            # there is no queue — the single-tenant standalone case).
-            view = cluster_view or (lambda: ClusterView(
+            # run a named/custom Policy locally: this runner owns every
+            # worker of its pool and there is no queue
+            rms = PolicyRMS(lambda: ClusterView(
                 available=len(self.devices) - self.current,
-                pending_min_sizes=[]))
-            rms = PolicyRMS(view, policy=get_policy(policy))
-        elif policy is not None or cluster_view is not None:
-            raise ValueError(
-                "pass either rms= or policy=/cluster_view=, not both")
+                pending_min_sizes=[]), policy=get_policy(policy))
+        elif policy is not None:
+            raise ValueError("pass either rms= or policy=, not both")
         self.rms = rms
         self.mesh = self._mesh_for(self.current)
         self._step_cache: Dict[int, Callable] = {}
         self.events: List[ResizeEvent] = []
-        #: optional pure observer ``fn(event)`` invoked on every appended
-        #: ResizeEvent — *after* pool clamping, so it sees the resize that
-        #: actually happened, including forced migrations and cosim
-        #: boundary-drain replays.  A cluster manager hooks its schedule
-        #: trail / live sanitizer here; listeners must not mutate state.
-        self.event_listener = event_listener
         self._last_query_step = -10 ** 9
         self._last_query_time = 0.0
 
@@ -119,14 +94,14 @@ class MalleableRunner:
         if n > len(self.devices):
             raise RuntimeError(
                 f"cannot build a {n}-worker mesh: only {len(self.devices)} "
-                f"devices in the live pool (shrunk by handle_failure, or a "
-                f"partial grant?) — a still-legal size must be "
-                f"clamped to the pool before building its mesh")
-        return make_job_mesh(self.devices[:n], max_model=self.max_model_axis)
+                f"devices in the live pool (shrunk by handle_failure) — a "
+                f"still-legal size must be clamped to the pool first")
+        return make_job_mesh(self.devices[:n])
 
     def _pool_clamp(self, target: int) -> int:
         """Largest legal size that both satisfies ``params`` and fits the
-        *live* device pool (which may have shrunk below ``max_procs``).
+        *live* device pool (which handle_failure may have shrunk below
+        ``max_procs``).
 
         A target beyond the pool collapses to the current size when
         nothing larger fits (an unhonorable expand is a no-op, never an
@@ -154,74 +129,15 @@ class MalleableRunner:
     def init(self) -> Any:
         return self.app.init_state(self.mesh)
 
-    def prewarm(self, sizes: Optional[List[int]] = None):
-        """Build the step closures of candidate meshes (min/pref/max by
-        default) so a later resize costs only the state transfer — the
-        analogue of hiding MPI_Comm_spawn latency. Returns seconds spent.
-
-        Candidates are clamped to the *live* pool: a size that no longer
-        fits (post-failure, or under a partial grant) is skipped
-        rather than silently built against an undersized mesh."""
-        t0 = time.perf_counter()
-        pool = len(self.devices)
-        for n in sizes or [self.params.min_procs, self.params.preferred,
-                           self.params.max_procs]:
-            n = self.params.clamp(n)
-            if n <= pool:
-                self._step_fn(n)
-        return time.perf_counter() - t0
-
-    # -- device pool management (the MalleableTenant contract) ---------
-    @property
-    def current_size(self) -> int:
-        """Workers actually running — the ``MalleableTenant`` spelling of
-        ``self.current``; ``len(devices) - current_size`` is the excess a
-        manager may reclaim."""
-        return self.current
-
-    def grant_devices(self, new_devices: List) -> None:
-        """Extend the live pool.  The grant may be non-contiguous — any
-        workers idle.  Appending preserves the ``devices[:n]`` prefix every
-        cached step closure was built on, so they stay valid."""
-        ids = {d.id for d in self.devices}
-        dup = [d.id for d in new_devices if d.id in ids]
-        if dup:
-            raise ValueError(f"devices {dup} already in this runner's pool")
-        self.devices.extend(new_devices)
-
-    def release_devices(self) -> List:
-        """Trim the live pool to the current size, returning the released
-        tail.  Cached step closures for sizes beyond the new pool are
-        dropped — their meshes are stale."""
-        released = self.devices[self.current:]
-        self.devices = self.devices[:self.current]
-        for n in [k for k in self._step_cache if k > self.current]:
-            del self._step_cache[n]
-        return released
-
-    def shutdown(self) -> List:
-        """Release the whole pool (job complete); returns every device."""
-        released, self.devices = self.devices, []
-        self._step_cache.clear()
-        return released
-
     # ------------------------------------------------------------------
-    def query_due(self, step: int) -> bool:
-        """True iff ``maybe_reconfig`` at this step would actually query
-        the RMS — both §3.2 inhibitor guards pass.  Schedulers that track
-        inhibitor windows externally (a cluster manager)
-        use this to skip the call entirely for quiescent tenants."""
+    def maybe_reconfig(self, state, step: int):
+        """Algorithm 1: check the §3.2 inhibitors, query the RMS, resize if
+        told to."""
         p = self.params
         if step - self._last_query_step < max(p.sched_iterations, 1):
-            return False
+            return state
         if p.sched_period_s and \
                 time.monotonic() - self._last_query_time < p.sched_period_s:
-            return False
-        return True
-
-    def maybe_reconfig(self, state, step: int):
-        """Algorithm 1: check role/inhibitors, query RMS, resize if told to."""
-        if not self.query_due(step):
             return state
         self._last_query_step = step
         self._last_query_time = time.monotonic()
@@ -232,20 +148,15 @@ class MalleableRunner:
             return state
         return self.apply_resize(state, step, action)
 
-    def _redistribute(self, state, new_shardings, target: int):
-        return redistribute_tree(state, new_shardings,
-                                 patterns=self.patterns,
-                                 from_procs=self.current, to_procs=target)
-
     def apply_resize(self, state, step: int, action: Action, *,
                      force: bool = False):
         """Expand/shrink to action.target: reshard state, swap step closure.
 
         The target is re-checked after ``params.clamp`` — and clamped to
         the *live* device pool, which may have shrunk below ``max_procs``
-        (handle_failure) or not yet cover it (a partial grant): a
-        clamped action that collapses to the current size is a no-op — no
-        redistribution runs and no ResizeEvent is logged.  ``force=True``
+        (handle_failure): a clamped action that collapses to the current
+        size is a no-op — no redistribution runs and no ResizeEvent is
+        logged.  ``force=True``
         overrides the guard for same-size *migrations* (the device set
         changed under the job, e.g. after a failure), which do move state
         and are logged.
@@ -255,8 +166,9 @@ class MalleableRunner:
             return state
         new_mesh = self._mesh_for(target)
         new_shardings = self.app.state_shardings(new_mesh)
-        state, stats, per_pattern = self._redistribute(state, new_shardings,
-                                                       target)
+        state, stats, per_pattern = redistribute_tree(
+            state, new_shardings, patterns=self.patterns,
+            from_procs=self.current, to_procs=target)
         t0 = time.perf_counter()
         self._step_fn(target)          # build (cached across resizes)
         recompile = time.perf_counter() - t0
@@ -266,8 +178,6 @@ class MalleableRunner:
             to_procs=target, transfer=stats, recompile_s=recompile,
             per_pattern=per_pattern)
         self.events.append(event)
-        if self.event_listener is not None:
-            self.event_listener(event)
         self.current = target
         self.mesh = new_mesh
         return state

@@ -144,3 +144,52 @@ def test_runner_failure_shrinks_onto_survivors():
                                   np.arange(24).reshape(8, 3) + 3)
     # the live pool no longer fits 8: an expand collapses to a no-op
     assert runner.apply_resize(state, 4, dmr.Action("expand", 8)) is state
+
+
+@pytest.mark.parametrize("policy", ["algorithm2", "throughput-greedy"])
+def test_runner_policy_matches_jax(policy):
+    """With ``policy=`` the runner runs the policy against its own pool
+    (every worker it does not use is free, no queue) and resizes where the
+    JAX package's policy decides."""
+    from repro import dmr as jdmr
+    params = dmr.set_parameters(1, 8, 2)
+    runner = dmr.MalleableRunner(_toy_app(), params, policy=policy,
+                                 devices=logical_workers(8, "cpu"))
+    state = runner.init()
+    want, cur = [], 2
+    for i in range(3):
+        act = jdmr.get_policy(policy).decide(
+            cur, jdmr.set_parameters(1, 8, 2),
+            jdmr.ClusterView(available=8 - cur, pending_min_sizes=[]))
+        if act.kind != "none" and act.target != cur:
+            want.append((i, act.kind, cur, act.target))
+            cur = act.target
+        state = dmr.reconfig(runner, state, i)
+        state, n = runner.step(state, i)
+        assert n == cur
+    assert [(e.step, e.action, e.from_procs, e.to_procs)
+            for e in runner.events] == want
+
+
+def test_runner_inhibitor_defers_a_scripted_resize():
+    """``sched_iterations=3`` lets the runner query at steps 0, 3, 6, ...:
+    a resize scheduled for step 1 fires at step 3."""
+    runner = dmr.MalleableRunner(
+        _toy_app(), dmr.set_parameters(1, 8, 4, sched_iterations=3),
+        rms={1: 8}, devices=logical_workers(8, "cpu"))
+    state = runner.init()
+    for i in range(6):
+        state = dmr.reconfig(runner, state, i)
+        state, n = runner.step(state, i)
+        assert n == (4 if i < 3 else 8)
+    assert [(e.step, e.action) for e in runner.events] == [(3, "expand")]
+
+
+def test_runner_rejects_a_short_pool_and_two_deciders():
+    with pytest.raises(ValueError, match="cannot reach max_procs=8"):
+        dmr.MalleableRunner(_toy_app(), dmr.set_parameters(1, 8, 4),
+                            devices=logical_workers(4, "cpu"))
+    with pytest.raises(ValueError, match="either rms= or policy="):
+        dmr.MalleableRunner(_toy_app(), dmr.set_parameters(1, 8, 4),
+                            rms={1: 8}, policy="algorithm2",
+                            devices=logical_workers(8, "cpu"))
