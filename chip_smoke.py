@@ -3,10 +3,12 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each against its plain PyTorch version, then drives the port's serving path
-at the full width and depth of ``granite-3-2b`` (40 layers, random weights
-from a seed) and checks that it really ran through the kernels.  Phases:
+Builds the port's three CUDA kernels from ``src/repro_torch/kernels/csrc``,
+holds each against its plain PyTorch version, then drives the port's two
+serving paths at full width with random weights from a seed --
+``granite-3-2b`` (dense, K1; 10 of its 40 layers, see ``GRANITE_LAYERS``)
+and ``mamba2-370m`` (SSM, K3; all 48 layers) -- and checks that each
+really ran through its kernels.  Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: compile every kernel (one nvcc per source, in parallel);
@@ -16,20 +18,37 @@ from a seed) and checks that it really ran through the kernels.  Phases:
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
    ``BlockCyclicPattern.host_redistribute`` — K2's own path;
-5. the serving path: ``decode_demo`` (batch 16, prompt 256, 128 decoded
-   tokens, cache 512, 8 workers) without and with a 4 -> 8 -> 2 resize
-   schedule; tokens must agree and each run must launch K1 40 x 384 times;
-6. prefill vs decode: ``make_prefill_step`` (K1 at Sq=256, causal) against
-   the decode path's logits after the same 256 prompt tokens, in fp32
-   (tight) and in bf16 (each against the fp32 logits);
-7. where a decode step's time goes: ``make_serve_step`` at the path's
-   shapes (cache index 383 of 512), an untimed warm-up, a window timed on
-   the host clock, then a window of as many steps under ``torch.profiler``
-   whose device busy time, idle share and largest device kernels all come
-   from that one traced window;
-8. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
-   and times (kernel, plain version, bound, library yardstick) at the
-   path's shapes, then the contract line ``{"ok": true, "device": ...}``.
+5. K3 SSD scan against ``ssd_reference`` (the sequential oracle) and
+   ``ssd_chunked_reference`` (its own algorithm in plain PyTorch): the
+   cases of the JAX package's kernel tests, then the mamba2 path's shape
+   (B=16, H=32, S=1024, P=64, N=128, Q=256) in bf16 and in f32, the latter
+   also at the decays of mamba2's random init;
+6. the granite serving path: ``decode_demo`` (batch 16, prompt 256, 128
+   decoded tokens, cache 512, 8 workers) without and with a 4 -> 8 -> 2
+   resize schedule; tokens must agree and each run must launch K1 once
+   per layer per step (10 x 384 times);
+7. granite prefill vs decode: ``make_prefill_step`` (K1 at Sq=256,
+   causal) against the decode path's logits after the same 256 prompt
+   tokens, in fp32 (tight) and in bf16 (each against the fp32 logits);
+8. where a granite decode step's time goes: ``make_serve_step`` at the
+   path's shapes (cache index 383 of 512), an untimed warm-up, a window
+   timed on the host clock, then a window of as many steps under
+   ``torch.profiler`` whose device busy time, idle share and largest
+   device kernels all come from that one traced window;
+9. the mamba2 serving path: ``decode_demo`` at granite's batch, prompt,
+   decode length, workers and resize schedule; tokens must agree, and the
+   decode path (the SSM recurrence) launches neither K1 nor K3;
+10. mamba2 prefill vs decode: ``make_prefill_step`` at B=16, S=1024 (four
+    chunks, so the state is carried across chunks three times) must launch
+    K3 once per layer; fp32 full-sequence logits at every position against
+    fp32 token-by-token decode logits (tight), bf16 prefill and decode each
+    against fp32 (beside the fp32 model with bf16-rounded weights, the
+    yardstick of how far bf16 rounding alone moves these logits); then one
+    traced ``make_prefill_step`` whose top device kernels and K3 share of
+    device time come from that one trace;
+11. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
+    and times (kernel, plain version, bound, library yardstick) at the
+    path's shapes, then the contract line ``{"ok": true, "device": ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
@@ -51,6 +70,11 @@ H100_FLOPS = {"bfloat16": 989e12,   # dense tensor-core peak
 
 DEVICE = "cuda:0"
 ARCH = "granite-3-2b"
+#: the granite path runs at full width and 10 of its 40 layers: with the
+#: mamba2 path beside it, all 40 would put the script near half its time
+#: limit on a slow host (the host sets the decode pace); K1's own checks
+#: and times are at full width and unaffected
+GRANITE_LAYERS = 10
 BATCH, PROMPT, DECODE, CACHE, WORKERS = 16, 256, 128, 512, 8
 SCHEDULE = {272: 8, 320: 2}
 PROFILE_WARMUP, PROFILE_STEPS, PROFILE_TOP = 5, 20, 8
@@ -65,6 +89,42 @@ FP32_LOGITS_ATOL = 2e-3
 #: cache, position or mask, which moves logits by about one deviation.
 BF16_LOGITS_ATOL = 0.3
 
+MAMBA = "mamba2-370m"               # serving runs at granite's batch, prompt,
+M_PREFILL_S = 1024                  # decode length, workers and schedule
+SSD_CASES = [  # (B, H, S, P, N, Q, dtype) -- tests/test_kernels.py
+    (2, 4, 256, 32, 16, 64, "float32"), (1, 2, 128, 64, 128, 32, "float32"),
+    (1, 2, 128, 32, 16, 128, "float32"), (2, 2, 64, 16, 16, 16, "bfloat16")]
+SSD_SLICE = (16, 32, M_PREFILL_S, 64, 128, 256)   # B, H, S, P, N, Q
+SSD_TOL = {"float32": 5e-4, "bfloat16": 3e-2}     # as the JAX kernel tests
+#: K3 vs the chunked plain version: the same algorithm in fp32, differing
+#: only in summation order.  The in-chunk cumsum's order matters most: at
+#: mamba2's decays it reaches ~-3e3 (fp32 step 2.4e-4), which enters
+#: exp(cum_q - cum_s) directly and moves y by ~1e-4 (phase 5 prints it as
+#: model_decay_err_vs_chunked), so f32 keeps the oracle's 5e-4; in bf16
+#: both round one fp32 value to 8 bits: one bf16 step (2^-7 relative)
+SSD_CHUNKED_TOL = {"float32": 5e-4, "bfloat16": 1e-2}
+#: mamba2 fp32 full-sequence logits (K3, chunked) vs the token-by-token
+#: recurrence at every one of the 1024 positions: the same function in
+#: fp32 through 48 layers.  The chunked algorithm (the Pallas contract, and
+#: the JAX package's ssd_chunked) forms exp(cum_q - cum_s) from in-chunk
+#: cumsums that reach ~-3e3 at this model's decays (A in [-16, -1]), so it
+#: is ~1e-4 from the exact recurrence in y (phase 5: model_decay_err_f32),
+#: 2.1e-3 in these logits after 48 layers in the chip runs.  The bound is
+#: ~5x that and still ~1/60 of the logits' std (~0.64), which a wrong
+#: carry, conv tail or chunk boundary moves by about one std.
+M_FP32_LOGITS_ATOL = 1e-2
+#: each mamba2 bf16 path against the fp32 logits, by the largest and the
+#: root-mean-square gap.  This random-init model is sensitive to bf16
+#: rounding wherever it happens: the fp32 model with its weights rounded
+#: to bf16 (and nothing else) moves these logits by up to 0.59 (rms 0.085;
+#: printed as fp32_bf16_weights), and computing in bf16 through 48 layers
+#: by up to 1.04 (rms 0.16-0.17), prefill and decode alike, in the chip
+#: runs.  So the largest gap is held to 2.0 (~3 std), which catches
+#: overflow and blow-ups, and the rms gap to 0.4: a wrong state, conv tail
+#: or chunk boundary decorrelates the logits, an rms gap of ~std * sqrt(2)
+#: ~ 0.9.
+M_BF16_LOGITS_MAX, M_BF16_LOGITS_RMS = 2.0, 0.4
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -74,6 +134,24 @@ def fail(msg: str) -> None:
 def phase(tag: str, **kv) -> None:
     print(f"[{tag}] " + " ".join(f"{k}={v}" for k, v in kv.items()),
           flush=True)
+
+
+def device_us(e) -> float:
+    """An event's own device time (the attribute's name varies by torch
+    version)."""
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return getattr(e, attr)
+    return 0.0
+
+
+def device_events(prof):
+    """Device-side events only, largest first: an operator's own device
+    time repeats the time of the kernels it launched, listed as events."""
+    from torch.autograd import DeviceType
+    return sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+                  key=device_us, reverse=True)
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -113,17 +191,26 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     import torch.nn.functional as F
 
+    from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.core.redistribute import blockcyclic_split
     from repro_torch.dmr import get_pattern
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.ref import attention_reference, repack_reference
+    from repro_torch.kernels.ref import (attention_reference,
+                                         repack_reference,
+                                         ssd_chunked_reference, ssd_reference)
     from repro_torch.models import model as M
     from repro_torch.models.train import (make_prefill_step, make_serve_step,
                                           prefill_logits)
     from repro_torch.serve import decode_demo
 
     dev = torch.device(DEVICE)
+    t_start = time.perf_counter()
+    marks = {}
+
+    def mark(name: str) -> None:
+        """Seconds since the start of the script at the end of a phase."""
+        marks[name] = round(time.perf_counter() - t_start, 1)
 
     # -- 1. device ------------------------------------------------------
     smi = subprocess.run(
@@ -147,6 +234,7 @@ def main() -> None:
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           nvcc_seconds=f"{_build.last_build_s:.2f}",
           registers=json.dumps(regs, separators=(",", ":")))
+    mark("build")
 
     rng = np.random.default_rng(0)
 
@@ -154,9 +242,9 @@ def main() -> None:
         x = rng.standard_normal(shape).astype(np.float32)
         return torch.from_numpy(x).to(dev, dtype)
 
-    def check_close(out, exp, dtype: str, what: str) -> float:
+    def check_close(out, exp, dtype: str, what: str, tol=None) -> float:
         err = (out.float() - exp.float()).abs()
-        tol = TOL[dtype]
+        tol = TOL[dtype] if tol is None else tol
         if bool((err > tol + tol * exp.float().abs()).any()):
             fail(f"{what}: max abs error {err.max().item():.3e} over the "
                  f"{dtype} tolerance {tol}")
@@ -196,7 +284,7 @@ def main() -> None:
             f"cache growth at {pos}"))
     # the slice's shapes, bf16: decode over valid lengths 1..512 in the
     # (B, S, Hkv, D) cache layout, and causal prefill Sq = Sk = 256
-    cfg = get_config(ARCH)
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=GRANITE_LAYERS)
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     kc, vc = rand((BATCH, CACHE, Hkv, D), bf16), rand((BATCH, CACHE, Hkv, D), bf16)
     qd = rand((BATCH, 1, H, D), bf16)
@@ -221,6 +309,7 @@ def main() -> None:
           slice_decode_err=f"{err_decode:.3e}",
           slice_prefill_err=f"{err_prefill:.3e}",
           tol=json.dumps(TOL, separators=(",", ":")))
+    mark("K1")
 
     # -- 4. K2 against its plain version ----------------------------------
     for nblocks, block, width, nout in [(16, 8, 32, 10), (8, 16, 16, 8),
@@ -260,8 +349,69 @@ def main() -> None:
           bytes_moved=f"{st8.bytes_moved},{st2.bytes_moved}",
           seconds=f"{st8.seconds:.4f},{st2.seconds:.4f}")
     del parts4, parts8, parts2
+    mark("K2")
 
-    # -- 5. the serving path ----------------------------------------------
+    # -- 5. K3 against its plain versions ---------------------------------
+    def ssd_inputs(B, H, S, P, N, decay, dt):
+        """xdt (B,S,H,P), a (B,S,H) f32, bm, cm (B,S,N) as in the kernel
+        tests; decay 0.02 keeps the state alive across chunks; "model"
+        draws a = dt * A as mamba2's random init does (dt = softplus of a
+        normal of std 0.64, A in [-16, -1]), whose in-chunk cumsums reach
+        ~-3e3."""
+        def scaled(shape, dtype):
+            x = rng.standard_normal(shape).astype(np.float32) * 0.3
+            return torch.from_numpy(x).to(dev, dtype)
+        if decay == "model":
+            dt_ = np.log1p(np.exp(0.64 * rng.standard_normal((B, S, H))))
+            a = -dt_ * rng.uniform(1.0, 16.0, H)
+        else:
+            a = -np.abs(rng.standard_normal((B, S, H))) * decay
+        return (scaled((B, S, H, P), dt),
+                torch.from_numpy(a.astype(np.float32)).to(dev),
+                scaled((B, S, N), dt), scaled((B, S, N), dt))
+
+    ssd_err = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    for case in SSD_CASES:              # (H, B, ... stay granite's)
+        *shape, cQ, name = case
+        sargs = ssd_inputs(*shape, 0.4, getattr(torch, name))
+        out = ops.ssd_scan(*sargs, chunk=cQ)
+        what = f"ssd case {case}"
+        ssd_err[name][0] = max(ssd_err[name][0], check_close(
+            out, ssd_reference(*sargs), name, what, SSD_TOL[name]))
+        ssd_err[name][1] = max(ssd_err[name][1], check_close(
+            out, ssd_chunked_reference(*sargs, cQ), name,
+            what + " (chunked)", SSD_CHUNKED_TOL[name]))
+    sB, sH, sS, sP, sN, sQ = SSD_SLICE
+    slice_err = {}
+    for name, decay in (("float32", "model"), ("float32", 0.02),
+                        ("bfloat16", 0.02)):    # the bf16 inputs are timed
+        ssd_args = ssd_inputs(sB, sH, sS, sP, sN, decay, getattr(torch, name))
+        out = ops.ssd_scan(*ssd_args, chunk=sQ)
+        slice_err[name if decay != "model" else "model_f32"] = (
+            check_close(out, ssd_reference(*ssd_args), name,
+                        f"ssd slice {name} decay {decay}", SSD_TOL[name]),
+            check_close(out, ssd_chunked_reference(*ssd_args, sQ), name,
+                        f"ssd slice {name} decay {decay} (chunked)",
+                        SSD_CHUNKED_TOL[name]))
+    torch.cuda.synchronize()
+    del out
+    phase("K3", cases=len(SSD_CASES) + 3,
+          max_err_f32=f"{ssd_err['float32'][0]:.3e}",
+          max_err_bf16=f"{ssd_err['bfloat16'][0]:.3e}",
+          max_err_vs_chunked=f"{ssd_err['float32'][1]:.3e},"
+                             f"{ssd_err['bfloat16'][1]:.3e}",
+          slice=str(SSD_SLICE).replace(" ", ""),
+          slice_err_f32=f"{slice_err['float32'][0]:.3e}",
+          slice_err_bf16=f"{slice_err['bfloat16'][0]:.3e}",
+          slice_err_vs_chunked=f"{slice_err['float32'][1]:.3e},"
+                               f"{slice_err['bfloat16'][1]:.3e}",
+          model_decay_err_f32=f"{slice_err['model_f32'][0]:.3e}",
+          model_decay_err_vs_chunked=f"{slice_err['model_f32'][1]:.3e}",
+          tol=json.dumps(SSD_TOL, separators=(",", ":")),
+          tol_vs_chunked=json.dumps(SSD_CHUNKED_TOL, separators=(",", ":")))
+    mark("K3")
+
+    # -- 6. the granite serving path ----------------------------------------
     runs = {}
     flash_path = []
     for label, schedule in (("static", None), ("elastic", SCHEDULE)):
@@ -269,7 +419,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         torch.cuda.synchronize()
         ops.reset_counts()
-        out = decode_demo(ARCH, batch=BATCH, prompt_len=PROMPT,
+        out = decode_demo(cfg, batch=BATCH, prompt_len=PROMPT,
                           decode_steps=DECODE, cache_len=CACHE,
                           workers=WORKERS, device=dev, schedule=schedule,
                           seed=0)
@@ -303,8 +453,9 @@ def main() -> None:
     if [e.action for e in ela["events"]] != ["expand", "shrink"]:
         fail(f"resize actions {[e.action for e in ela['events']]}")
     phase("path", tokens_equal=True, actions="expand,shrink")
+    mark("granite_path")
 
-    # -- 6. prefill vs decode -----------------------------------------------
+    # -- 7. granite prefill vs decode ---------------------------------------
     torch.cuda.empty_cache()
     params = M.init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     prompts = torch.from_numpy(np.random.default_rng(0).integers(
@@ -352,9 +503,9 @@ def main() -> None:
           bf16_prefill_vs_decode=f"{(lp - ld).abs().max().item():.4e}",
           bf16_tol=BF16_LOGITS_ATOL, logits_std=f"{lp32.std().item():.3f}",
           first_token_agreement=f"{agree:.3f}")
+    mark("granite_prefill")
 
-    # -- 7. where a decode step's time goes -------------------------------
-    from torch.autograd import DeviceType
+    # -- 8. where a granite decode step's time goes -------------------------
     from torch.profiler import ProfilerActivity, profile
     serve = make_serve_step(cfg)
     cache = M.init_cache(cfg, BATCH, CACHE, device=dev)
@@ -368,12 +519,6 @@ def main() -> None:
                 tok, cache = serve(params, cache, tok, pos)
         torch.cuda.synchronize()
 
-    def dev_us(e):
-        for attr in ("self_device_time_total", "self_cuda_time_total"):
-            if hasattr(e, attr):
-                return getattr(e, attr)
-        return 0.0
-
     steps(PROFILE_WARMUP)
     t0 = time.perf_counter()
     steps(PROFILE_STEPS)
@@ -383,17 +528,13 @@ def main() -> None:
         t0 = time.perf_counter()
         steps(PROFILE_STEPS)
         traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    # device-side events only: an operator's own device time repeats the
-    # time of the kernels it launched, which are listed as events too
     events = prof.key_averages()
-    dev_events = sorted((e for e in events if e.device_type ==
-                         DeviceType.CUDA and dev_us(e) > 0),
-                        key=dev_us, reverse=True)
-    busy_ms = sum(dev_us(e) for e in dev_events) / 1e3 / PROFILE_STEPS
+    dev_events = device_events(prof)
+    busy_ms = sum(device_us(e) for e in dev_events) / 1e3 / PROFILE_STEPS
     if busy_ms <= 0:
         fail("the profiler saw no device time in the traced decode steps")
     top = [{"kernel": e.key[:80],
-            "ms_per_step": dev_us(e) / 1e3 / PROFILE_STEPS,
+            "ms_per_step": device_us(e) / 1e3 / PROFILE_STEPS,
             "calls_per_step": e.count / PROFILE_STEPS}
            for e in dev_events[:PROFILE_TOP]]
     phase("profile", cache_index=int(pos), steps=PROFILE_STEPS,
@@ -406,8 +547,158 @@ def main() -> None:
           / PROFILE_STEPS,
           top=json.dumps(top, separators=(",", ":")))
     del params, cache, prof, events
+    mark("granite_profile")
 
-    # -- 8. kernels line: times at the path's shapes ------------------------
+    # -- 9. the mamba2 serving path -----------------------------------------
+    mcfg = get_config(MAMBA)
+    mruns = {}
+    for label, schedule in (("static", None), ("elastic", SCHEDULE)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        out = decode_demo(MAMBA, batch=BATCH, prompt_len=PROMPT,
+                          decode_steps=DECODE, cache_len=CACHE,
+                          workers=WORKERS, device=dev, schedule=schedule,
+                          seed=0)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        if counts["flash_attention"] or counts["ssd_scan"]:
+            fail(f"mamba2 {label} decode launched {counts}: the SSM decode "
+                 "step is the recurrence, with neither K1 nor K3")
+        toks = out["tokens"]
+        if toks.shape != (BATCH, DECODE) or toks.min() < 0 or \
+                toks.max() >= mcfg.vocab_size:
+            fail(f"mamba2 {label} run: tokens of shape {toks.shape} in "
+                 f"[{toks.min()}, {toks.max()}]")
+        mruns[label] = out
+        phase(f"mamba2:{label}", prefill_s=f"{out['prefill_s']:.3f}",
+              decode_ms_per_token=f"{out['decode_s'] / DECODE * 1e3:.3f}",
+              launches=json.dumps(counts, separators=(",", ":")),
+              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+              sizes=json.dumps(out["sizes"], separators=(",", ":")))
+        for ev in out["events"]:
+            phase(f"mamba2:{label}:resize", step=ev.step, action=ev.action,
+                  sizes=f"{ev.from_procs}->{ev.to_procs}",
+                  bytes_moved=ev.transfer.bytes_moved,
+                  seconds=f"{ev.transfer.seconds:.4f}")
+        del out
+    if not np.array_equal(mruns["static"]["tokens"],
+                          mruns["elastic"]["tokens"]):
+        fail("mamba2: tokens differ between the static and the elastic run")
+    m_actions = [e.action for e in mruns["elastic"]["events"]]
+    if m_actions != ["expand", "shrink"]:
+        fail(f"mamba2 resize actions {m_actions}")
+    phase("mamba2", tokens_equal=True, actions=",".join(m_actions))
+    mark("mamba2_path")
+
+    # -- 10. mamba2 prefill vs decode, and where the prefill's time goes ----
+    torch.cuda.empty_cache()
+    mparams = M.init_params(mcfg, torch.Generator(dev).manual_seed(0), dev)
+    mprompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, mcfg.vocab_size, (BATCH, M_PREFILL_S), dtype=np.int32)).to(dev)
+    mbatch = {"tokens": mprompts}
+    mcfg32 = dataclasses.replace(mcfg, dtype="float32")
+    MV = mcfg.vocab_size
+
+    def m_decode_logits(c, full=None):
+        """Last logits of the token-by-token decode over the prompt, and
+        the largest gap to ``full`` (B, S, V) logits over every position."""
+        cache = M.init_cache(c, BATCH, M_PREFILL_S, device=dev)
+        gap = torch.zeros((), device=dev)
+        for i in range(M_PREFILL_S):
+            logits, cache = M.decode_step(
+                mparams, c, mprompts[:, i:i + 1], cache,
+                torch.tensor(i, dtype=torch.int32, device=dev))
+            if full is not None:
+                gap = torch.maximum(gap, (logits[:, -1, :MV].float() -
+                                          full[:, i]).abs().max())
+        return logits[:, -1, :MV].float(), gap.item()
+
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        t0 = time.perf_counter()
+        m_first = make_prefill_step(mcfg)(mparams, mbatch)
+        torch.cuda.synchronize()
+        m_prefill_s = time.perf_counter() - t0
+        m_counts = ops.launch_counts()
+        k3_prefill = m_counts["ssd_scan"]
+        if k3_prefill != mcfg.num_layers or m_counts["flash_attention"]:
+            fail(f"mamba2 prefill launched {m_counts}, not K3 "
+                 f"{mcfg.num_layers} times")
+        mlp = prefill_logits(mparams, mcfg, mbatch)[:, :MV].float()
+        full32 = M.forward(mparams, mcfg32, mbatch)[0][..., :MV]
+        mlp32 = prefill_logits(mparams, mcfg32, mbatch)[:, :MV].float()
+        rounded = T.tree_map(lambda t: t.bfloat16().float(), mparams)
+        mlp32w = prefill_logits(rounded, mcfg32, mbatch)[:, :MV].float()
+        del rounded
+        mld32, m_gap_all = m_decode_logits(mcfg32, full32)
+        del full32
+        mld, _ = m_decode_logits(mcfg)
+    if not all(bool(torch.isfinite(t).all()) for t in (mlp, mld, mlp32,
+                                                        mld32)):
+        fail("mamba2 logits are not finite")
+    m_gap32 = (mlp32 - mld32).abs().max().item()
+
+    def gap(a, b):
+        d = (a - b).abs()
+        return d.max().item(), d.square().mean().sqrt().item()
+
+    m_err_p, m_rms_p = gap(mlp, mlp32)
+    m_err_d, m_rms_d = gap(mld, mld32)
+    m_err_w, m_rms_w = gap(mlp32w, mlp32)
+    m_agree = (m_first == mld.argmax(-1)).float().mean().item()
+    phase("mamba2:prefill", batch=BATCH, seq=M_PREFILL_S,
+          chunks=M_PREFILL_S // mcfg.ssm.chunk_size, k3_launches=k3_prefill,
+          prefill_s=f"{m_prefill_s:.3f}",
+          fp32_prefill_vs_decode=f"{m_gap32:.4e}",
+          fp32_all_positions=f"{m_gap_all:.4e}", fp32_tol=M_FP32_LOGITS_ATOL,
+          bf16_prefill_vs_fp32=f"{m_err_p:.4e}",
+          bf16_decode_vs_fp32=f"{m_err_d:.4e}",
+          bf16_rms=f"{m_rms_p:.4e},{m_rms_d:.4e}",
+          fp32_bf16_weights=f"{m_err_w:.4e}",
+          fp32_bf16_weights_rms=f"{m_rms_w:.4e}",
+          bf16_tol=f"{M_BF16_LOGITS_MAX},{M_BF16_LOGITS_RMS}",
+          logits_std=f"{mlp32.std().item():.3f}",
+          bf16_prefill_vs_decode_argmax_agreement=f"{m_agree:.3f}")
+    if max(m_gap32, m_gap_all) > M_FP32_LOGITS_ATOL:
+        fail(f"mamba2 fp32 prefill vs decode logits differ by "
+             f"{max(m_gap32, m_gap_all):.3e} > {M_FP32_LOGITS_ATOL}")
+    if max(m_err_p, m_err_d) > M_BF16_LOGITS_MAX or \
+            max(m_rms_p, m_rms_d) > M_BF16_LOGITS_RMS:
+        fail(f"mamba2 bf16 logits off the fp32 ones by "
+             f"{max(m_err_p, m_err_d):.3e} (rms {max(m_rms_p, m_rms_d):.3e})"
+             f" > {M_BF16_LOGITS_MAX} ({M_BF16_LOGITS_RMS})")
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        make_prefill_step(mcfg)(mparams, mbatch)
+        torch.cuda.synchronize()
+        m_wall_s = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            make_prefill_step(mcfg)(mparams, mbatch)
+            torch.cuda.synchronize()
+            m_traced_s = time.perf_counter() - t0
+    dev_events = device_events(prof)
+    m_busy_ms = sum(device_us(e) for e in dev_events) / 1e3
+    k3_ms = sum(device_us(e) for e in dev_events if "ssd_scan" in e.key) / 1e3
+    if m_busy_ms <= 0 or k3_ms <= 0:
+        fail("the profiler saw no device time (or no K3) in the traced "
+             "mamba2 prefill")
+    top = [{"kernel": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
+           for e in dev_events[:PROFILE_TOP]]
+    phase("mamba2:profile", untraced_prefill_s=f"{m_wall_s:.3f}",
+          traced_prefill_s=f"{m_traced_s:.3f}",
+          traced_device_busy_ms=f"{m_busy_ms:.3f}",
+          traced_idle_share=f"{1 - m_busy_ms / (m_traced_s * 1e3):.4f}",
+          k3_ms=f"{k3_ms:.3f}", k3_share_of_device=f"{k3_ms / m_busy_ms:.4f}",
+          top=json.dumps(top, separators=(",", ":")))
+    del mparams, prof, mlp, mld, mlp32, mld32
+    mark("mamba2_prefill")
+
+    # -- 11. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
     n = PROMPT + DECODE
@@ -469,6 +760,28 @@ def main() -> None:
         "library_ms": time_ms(lambda: torch.index_select(src, 0, idx_dev),
                               iters=20),
         "shape": f"src=({nblk},{blk},{vp_rows[1]}) fp32 idx={idx.size}"})
+    # K3: one layer of the mamba2 prefill, bf16 xdt/B/C and f32 a; the work
+    # counts G = C B^T once per (b, chunk), as the Pallas contract allows
+    nc = sS // sQ
+    b_ssd, by_ssd = bound_ms(
+        2 * sB * sS * sH * sP * 2 + 4 * sB * sS * sH + 2 * sB * sS * sN * 2,
+        nc * sB * sQ * sQ * sN + nc * sB * sH * (sQ * sQ * sP +
+                                                 4 * sQ * sP * sN),
+        "bfloat16")
+    kernels.append({
+        "name": "ssd_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "launches": k3_prefill, "max_abs_err": slice_err["bfloat16"][0],
+        "ms": time_ms(lambda: ops.ssd_scan(*ssd_args, chunk=sQ), iters=20),
+        "plain_ms": time_ms(lambda: ssd_chunked_reference(*ssd_args, sQ),
+                            iters=5, warmup=1),
+        "bound_ms": b_ssd, "bound_by": by_ssd, "library_ms": None,
+        "library_note": "no single PyTorch call computes an SSD chunked scan",
+        "shape": f"B={sB} H={sH} S={sS} P={sP} N={sN} Q={sQ} bf16 xdt/B/C, "
+                 "f32 a"})
+    mark("kernels")
+    phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,5 @@
-"""Config registry of the port: the dense architectures it runs so far,
-plus their reduced ``-smoke`` variants."""
+"""Config registry of the port: the architectures it runs so far (the
+dense and SSM families), plus their reduced ``-smoke`` variants."""
 from __future__ import annotations
 
 import importlib
@@ -9,6 +9,7 @@ from repro_torch.configs.base import ArchConfig, ShapeConfig, phys_vocab, reduce
 
 _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
+    "mamba2-370m": "mamba2_370m",
 }
 
 

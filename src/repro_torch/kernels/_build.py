@@ -43,6 +43,11 @@ SIGNATURES = {
     "blockcyclic": {
         "blockcyclic_repack": [_p, _p, _p, _ll, _ll, _i, _p],
     },
+    "ssd_scan": {
+        "ssd_scan_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
+                         _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
+                         _ll, _ll, _ll, _p],
+    },
 }
 
 _LOCK = threading.Lock()

@@ -1,9 +1,10 @@
 """Public kernel surface of the port: dispatch, build and launch counts.
 
-``flash_attention`` and ``repack`` run their plain PyTorch version on CPU
-tensors and their CUDA kernel on tensors on a card; a build or launch
-failure raises.  ``launch_counts`` / ``reset_counts`` read and zero the
-per-wrapper counters that show a run really went through the kernels.
+``flash_attention``, ``repack`` and ``ssd_scan`` run their plain PyTorch
+version on CPU tensors and their CUDA kernel on tensors on a card; a build
+or launch failure raises.  ``launch_counts`` / ``reset_counts`` read and
+zero the per-wrapper counters that show a run really went through the
+kernels.
 """
 from __future__ import annotations
 
@@ -12,8 +13,10 @@ from typing import Dict
 from repro_torch.kernels import _build
 from repro_torch.kernels.blockcyclic import repack
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
-KERNELS = {"flash_attention": flash_attention, "repack": repack}
+KERNELS = {"flash_attention": flash_attention, "repack": repack,
+           "ssd_scan": ssd_scan}
 
 
 def build():
@@ -30,5 +33,5 @@ def reset_counts() -> None:
         fn.launches = 0
 
 
-__all__ = ["flash_attention", "repack", "build", "launch_counts",
+__all__ = ["flash_attention", "repack", "ssd_scan", "build", "launch_counts",
            "reset_counts", "KERNELS"]

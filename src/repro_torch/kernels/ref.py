@@ -35,6 +35,63 @@ def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
     return out.to(q.dtype)
 
 
+def ssd_reference(xdt, a, bm, cm):
+    """Sequential (per-token) SSD recurrence: the obviously-correct oracle.
+
+    Model layout: xdt (B,S,H,P) pre-multiplied by dt; a (B,S,H) = dt*A;
+    bm, cm (B,S,N).  state_t = state_{t-1} * exp(a_t) + xdt_t (outer) B_t;
+    y_t = state_t @ C_t.  Returns y (B,S,H,P) in xdt's dtype.
+    """
+    B, S, H, P = xdt.shape
+    N = bm.shape[-1]
+    x, a = xdt.float(), a.float()
+    b_, c_ = bm.float(), cm.float()
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for t in range(S):
+        state = state * torch.exp(a[:, t])[..., None, None] + \
+            torch.einsum("bhp,bn->bhpn", x[:, t], b_[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c_[:, t]))
+    return torch.stack(ys, dim=1).to(xdt.dtype)
+
+
+def ssd_chunked_reference(xdt, a, bm, cm, chunk: int):
+    """The chunked SSD algorithm of the Pallas kernel ``_ssd_kernel``,
+    vectorised over batch and heads; same layout and result as
+    :func:`ssd_reference`.  Per chunk of Q = ``chunk`` positions: the
+    cumsum of a; G = C B^T; L = exp(segsum) on the causal triangle (the
+    exponent is masked, so no masked entry is ever exponentiated); y =
+    (G o L) x + exp(cum) * C state^T; state <- state * exp(total) +
+    sum_s exp(total - cum_s) x_s (outer) B_s.  ``S % chunk == 0``."""
+    B, S, H, P = xdt.shape
+    N = bm.shape[-1]
+    Q = chunk
+    if S % Q:
+        raise ValueError(f"ssd: sequence {S} is not a multiple of the "
+                         f"chunk {Q}")
+    x, a = xdt.float(), a.float()
+    b_, c_ = bm.float(), cm.float()
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=xdt.device).tril()[None, :, :, None]
+    state = torch.zeros((B, H, P, N), dtype=torch.float32, device=xdt.device)
+    ys = []
+    for c0 in range(0, S, Q):
+        xc, ac = x[:, c0:c0 + Q], a[:, c0:c0 + Q]       # (B,Q,H,P), (B,Q,H)
+        bc, cc = b_[:, c0:c0 + Q], c_[:, c0:c0 + Q]     # (B,Q,N)
+        cum = torch.cumsum(ac, dim=1)                   # (B,Q,H)
+        G = torch.einsum("bqn,bsn->bqs", cc, bc)        # (B,Q,Q)
+        diff = cum[:, :, None, :] - cum[:, None, :, :]  # (B,Q,Q,H)
+        L = torch.exp(diff.masked_fill(~causal, float("-inf")))
+        y = torch.einsum("bqsh,bshp->bqhp", G[..., None] * L, xc)
+        y = y + torch.einsum("bqn,bhpn,bqh->bqhp", cc, state, torch.exp(cum))
+        total = cum[:, -1]                              # (B,H)
+        decay = torch.exp(total[:, None, :] - cum)      # (B,Q,H)
+        state = state * torch.exp(total)[..., None, None] + torch.einsum(
+            "bqn,bqhp,bqh->bhpn", bc, xc, decay)
+        ys.append(y)
+    return torch.cat(ys, dim=1).to(xdt.dtype)
+
+
 def repack_reference(src, idx):
     """out[i] = src[idx[i]]."""
     return src[idx]

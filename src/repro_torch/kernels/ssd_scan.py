@@ -1,0 +1,82 @@
+"""Mamba2 SSD chunked scan: the wrapper of ``csrc/ssd_scan.cu``.
+
+Replaces the Pallas TPU kernel ``ssd_scan_fwd``
+(``repro/kernels/ssd_scan.py``) and computes what it computes, in the
+model's layout: xdt ``(B, S, H, P)`` (already times dt), a ``(B, S, H)``
+float32 (dt * A, negative), B and C ``(B, S, N)`` shared by every head,
+chunks of ``chunk`` positions with ``S % chunk == 0``; returns y
+``(B, S, H, P)`` in xdt's dtype.  Any strides with a contiguous last dim
+are taken as they are (no transpose copy).  See the source for the
+kernel's design.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.ref import ssd_chunked_reference
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_P, _MAX_N = 64, 128
+
+
+def _check(xdt, a, bm, cm, chunk: int):
+    if xdt.dim() != 4 or a.dim() != 3 or bm.dim() != 3 or cm.dim() != 3:
+        raise ValueError("ssd_scan: xdt must be (B,S,H,P), a (B,S,H), "
+                         "bm and cm (B,S,N)")
+    B, S, H, P = xdt.shape
+    N = bm.shape[-1]
+    if tuple(a.shape) != (B, S, H) or tuple(bm.shape) != (B, S, N) or \
+            tuple(cm.shape) != (B, S, N):
+        raise ValueError(f"ssd_scan: shapes xdt{tuple(xdt.shape)} "
+                         f"a{tuple(a.shape)} bm{tuple(bm.shape)} "
+                         f"cm{tuple(cm.shape)}")
+    if chunk <= 0 or S % chunk:
+        raise ValueError(f"ssd_scan: sequence {S} is not a multiple of the "
+                         f"chunk {chunk}")
+    if xdt.dtype not in _DTYPES or bm.dtype != xdt.dtype or \
+            cm.dtype != xdt.dtype or a.dtype != torch.float32:
+        raise TypeError(f"ssd_scan: dtypes xdt {xdt.dtype}, a {a.dtype}, "
+                        f"bm {bm.dtype}, cm {cm.dtype}; the kernel takes "
+                        "float32 or bfloat16 xdt/bm/cm and float32 a")
+    if not (xdt.device == a.device == bm.device == cm.device):
+        raise ValueError("ssd_scan: inputs on different devices")
+
+
+def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
+    """SSD sequence transform; CPU tensors take the plain chunked version.
+
+    Raises where the Pallas wrapper asserts (``S % chunk``) and, on the
+    card, where the kernel's limits are not met: P and N multiples of 16,
+    at most 64 and 128, and every last dim contiguous."""
+    _check(xdt, a, bm, cm, chunk)
+    if xdt.device.type == "cpu":
+        return ssd_chunked_reference(xdt, a, bm, cm, chunk)
+    if xdt.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan: no kernel for {xdt.device}")
+    B, S, H, P = xdt.shape
+    N = bm.shape[-1]
+    if P % 16 or P > _MAX_P or N % 16 or N > _MAX_N:
+        raise ValueError(f"ssd_scan: P={P}, N={N}; the kernel takes "
+                         f"multiples of 16 up to {_MAX_P} and {_MAX_N}")
+    if B > 65535:
+        raise ValueError(f"ssd_scan: batch {B} > 65535")
+    for name, t in (("xdt", xdt), ("bm", bm), ("cm", cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"ssd_scan: {name}'s last dim must be "
+                             "contiguous")
+    y = torch.empty((B, S, H, P), dtype=xdt.dtype, device=xdt.device)
+    lib = _build.load()["ssd_scan"]
+    stream = torch.cuda.current_stream(xdt.device).cuda_stream
+    err = lib.ssd_scan_fwd(
+        xdt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+        y.data_ptr(), _DTYPES[xdt.dtype], B, S, H, P, N, chunk,
+        *xdt.stride()[:3], *a.stride(), *bm.stride()[:2], *cm.stride()[:2],
+        *y.stride()[:3], stream)
+    _build.check(err, "ssd_scan_fwd")
+    ssd_scan.launches += 1
+    return y
+
+
+#: kernel launches since the last reset (CPU calls are not launches)
+ssd_scan.launches = 0

@@ -1,8 +1,8 @@
-"""Model assembly of the port: the dense decoder-only family (port of the
-dense branches of ``repro/models/model.py``).
+"""Model assembly of the port: the dense decoder-only and the SSM (Mamba2)
+families (port of those branches of ``repro/models/model.py``).
 
 Layer stacks are ``(L, ...)`` tensors indexed per layer in a Python loop,
-where the JAX package scans.  SSM, hybrid, MoE, encoder-decoder and vision
+where the JAX package scans.  Hybrid, MoE, encoder-decoder and vision
 families come in later slices and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
@@ -14,17 +14,20 @@ import torch
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
-from repro_torch.models import blocks, params as P
+from repro_torch.models import blocks, params as P, ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_schema, rmsnorm,
                                        rmsnorm_schema, unembed)
 
 
-def _require_dense(cfg: ArchConfig):
-    if cfg.is_ssm or cfg.is_hybrid or cfg.is_moe or cfg.is_encdec or \
-            cfg.frontend is not None or cfg.attention == "none":
+def _require_supported(cfg: ArchConfig):
+    """Admit the dense decoder-only and the SSM families; raise for the
+    others (hybrid, MoE, encoder-decoder, vision)."""
+    dense = cfg.ssm is None and cfg.attention != "none"
+    if not (dense or cfg.is_ssm) or cfg.is_moe or cfg.is_encdec or \
+            cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the PyTorch port runs the dense "
-            "decoder-only family so far")
+            "decoder-only and the SSM families so far")
 
 
 # ----------------------------------------------------------------------
@@ -32,10 +35,12 @@ def _require_dense(cfg: ArchConfig):
 # ----------------------------------------------------------------------
 
 def model_schema(cfg: ArchConfig):
-    _require_dense(cfg)
+    _require_supported(cfg)
+    block = blocks.ssm_block_schema(cfg) if cfg.is_ssm else \
+        blocks.decoder_block_schema(cfg)
     return {"embed": embed_schema(cfg),
             "ln_f": rmsnorm_schema(cfg.d_model, cfg),
-            "layers": P.stack(blocks.decoder_block_schema(cfg), cfg.num_layers)}
+            "layers": P.stack(block, cfg.num_layers)}
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, device="cpu"):
@@ -53,13 +58,17 @@ def layer(stacked, i: int):
 
 def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
     """Trunk only -> (final normed hidden (B, S, D), aux_loss = 0)."""
-    _require_dense(cfg)
+    _require_supported(cfg)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     for i in range(cfg.num_layers):
-        x = blocks.decoder_block_apply(layer(params["layers"], i), x, cfg,
-                                       positions=positions, causal=True)
+        lp = layer(params["layers"], i)
+        if cfg.is_ssm:
+            x = blocks.ssm_block_apply(lp, x, cfg)
+        else:
+            x = blocks.decoder_block_apply(lp, x, cfg, positions=positions,
+                                           causal=True)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -76,9 +85,12 @@ def forward(params, cfg: ArchConfig, batch: Dict[str, Any]):
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cpu"):
     """Decode-state tree for one new token against a seq_len-deep context:
-    ``{"layers": {"k", "v"}}`` of shape (L, B, S, Hkv, hd)."""
-    _require_dense(cfg)
-    one = attn_mod.init_kv_cache(cfg, batch, seq_len, device)
+    ``{"layers": {"k", "v"}}`` of shape (L, B, S, Hkv, hd) for the dense
+    family; for the SSM family ``{"layers": {"state" (L, B, H, P, N) fp32,
+    "conv_x", "conv_B", "conv_C" (L, B, W-1, C)}}``, whatever seq_len."""
+    _require_supported(cfg)
+    one = ssm_mod.init_ssm_cache(cfg, batch, device) if cfg.is_ssm else \
+        attn_mod.init_kv_cache(cfg, batch, seq_len, device)
     return {"layers": {n: t.unsqueeze(0).repeat(cfg.num_layers,
                                                 *([1] * t.dim()))
                        for n, t in one.items()}}
@@ -87,13 +99,19 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cpu"):
 def decode_step(params, cfg: ArchConfig, tokens, cache, cache_index):
     """One-token decode. tokens: (B, 1) int; cache_index: 0-d int tensor on
     the device.  Returns (logits, cache); the cache is updated in place
-    (see ``attention.decode_attn_apply``)."""
-    _require_dense(cfg)
+    (see ``attention.decode_attn_apply`` and ``ssm.ssm_decode_step``)."""
+    _require_supported(cfg)
     x = embed(params["embed"], tokens, cfg)
-    kv_len = (cache_index + 1).to(torch.int32)      # once per step, on device
-    for i in range(cfg.num_layers):
-        x, _ = blocks.decoder_block_decode(
-            layer(params["layers"], i), x, cfg, layer(cache["layers"], i),
-            cache_index=cache_index, kv_len=kv_len)
+    if cfg.is_ssm:
+        for i in range(cfg.num_layers):
+            x, _ = blocks.ssm_block_decode(layer(params["layers"], i), x, cfg,
+                                           layer(cache["layers"], i))
+    else:
+        kv_len = (cache_index + 1).to(torch.int32)  # once per step, on device
+        for i in range(cfg.num_layers):
+            x, _ = blocks.decoder_block_decode(
+                layer(params["layers"], i), x, cfg,
+                layer(cache["layers"], i), cache_index=cache_index,
+                kv_len=kv_len)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg), cache

@@ -2,8 +2,9 @@
 ``make_decode_app`` / ``decode_demo`` in ``repro/serve/replica.py``).
 
 :func:`make_decode_app` wraps prefill-by-decode plus greedy decode
-(``make_serve_step``, the KV cache of ``models/model.py``) as a
-``dmr.App`` whose resize point is the decode-step boundary.  The state is
+(``make_serve_step`` and the decode cache of ``models/model.py``: a KV
+cache, or an SSM state and conv tails) as a ``dmr.App`` whose resize
+point is the decode-step boundary.  The state is
 ``{"params", "cache", "tok", "pos"}``; params move by the ``replicate``
 pattern, the cache and the token column by ``default`` along their batch
 axis — an inference server grows and shrinks mid-generation exactly the
@@ -61,13 +62,14 @@ def make_decode_app(cfg, *, batch: int, cache_len: int, seed: int = 0,
                         return Placement(mesh, ax)
             return Placement(mesh)
 
-        cache_shapes = {"layers": {
-            n_: (cfg.num_layers, batch, cache_len, cfg.num_kv_heads,
-                 cfg.head_dim) for n_ in ("k", "v")}}
+        # the cache's real shapes, allocated nowhere (the counterpart of
+        # the reference's jax.eval_shape)
+        cache_meta = M.init_cache(cfg, batch, cache_len, device="meta")
         return {
             "params": T.tree_map(lambda _: Placement(mesh),
                                  M.model_schema(cfg)),
-            "cache": T.tree_map(shard_batch, cache_shapes),
+            "cache": T.tree_map(lambda t: shard_batch(tuple(t.shape)),
+                                cache_meta),
             "tok": shard_batch((batch, 1)),
             "pos": Placement(mesh),
         }
@@ -109,7 +111,7 @@ def make_decode_app(cfg, *, batch: int, cache_len: int, seed: int = 0,
                    name=f"decode-{name}")
 
 
-def decode_demo(arch: str, *, batch: int = 4, prompt_len: int = 16,
+def decode_demo(arch, *, batch: int = 4, prompt_len: int = 16,
                 decode_steps: int = 16, cache_len: int = 128,
                 schedule: Optional[Dict[int, int]] = None,
                 workers: int = 1, devices: Optional[List] = None,
@@ -117,8 +119,10 @@ def decode_demo(arch: str, *, batch: int = 4, prompt_len: int = 16,
     """Prefill + greedy decode under a ``MalleableRunner``, resizing at
     decode-step boundaries through ``dmr.reconfig``.
 
-    The pool is ``workers`` logical workers on ``device`` (``cuda`` unless
-    given; raises when no card is present) or an explicit ``devices`` list.
+    ``arch`` is a config name (``get_config``) or an ``ArchConfig``, such
+    as one cut in depth with ``dataclasses.replace``.  The pool is
+    ``workers`` logical workers on ``device`` (``cuda`` unless given;
+    raises when no card is present) or an explicit ``devices`` list.
     ``schedule`` is a ``{step: target_workers}`` dict (``dmr.connect``'s
     scripted form); the default resizes nobody.  Returns ``{"tokens":
     (batch, decode_steps) array, "events": [ResizeEvent...], "sizes":
@@ -128,7 +132,7 @@ def decode_demo(arch: str, *, batch: int = 4, prompt_len: int = 16,
     from repro_torch import dmr
     from repro_torch.configs import get_config
 
-    cfg = get_config(arch)
+    cfg = get_config(arch) if isinstance(arch, str) else arch
     devices = list(devices) if devices is not None \
         else logical_workers(workers, device)
     dev = devices[0].device

@@ -7,16 +7,21 @@ only the port's dependencies:
 
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Tolerances are those of ``tests/test_kernels.py``: 2e-5 for float32 (the
-kernel computes in fp32 FMAs, never TF32) and 2e-2 for bfloat16; the
-repack is exact.
+Tolerances are those of ``tests/test_kernels.py``: for attention 2e-5
+for float32 (the kernel computes in fp32 FMAs, never TF32) and 2e-2 for
+bfloat16; for the SSD scan 5e-4 and 3e-2 against the sequential oracle;
+the repack is exact.  Against the chunked plain version, which runs the
+kernel's own algorithm in fp32, the SSD scan is held to ``SSD_CHUNKED_TOL``
+(see there).
 """
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import attention_reference, repack_reference
+from repro_torch.kernels.ref import (attention_reference, repack_reference,
+                                     ssd_chunked_reference, ssd_reference)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -34,6 +39,31 @@ ATTN_CASES = [
 ]
 
 REPACK_CASES = [(16, 8, 32, 10), (8, 16, 16, 8), (32, 8, 128, 32), (7, 3, 5, 9)]
+
+SSD_CASES = [
+    # (B, H, S, P, N, Q, decay, dtype) — tests/test_kernels.py (decay 0.4),
+    # plus a chunk that is not a multiple of the kernel's 64-row tile, the
+    # smoke config, and the serving path's P, N, Q; decay 0.02 keeps the
+    # state alive across chunks, so the carry is exercised; "model" draws
+    # a = dt * A as mamba2's init does (in-chunk cumsums reach ~-3e3)
+    (2, 4, 256, 32, 16, 64, 0.4, "float32"),
+    (1, 2, 128, 64, 128, 32, 0.4, "float32"),
+    (1, 2, 128, 32, 16, 128, 0.4, "float32"),
+    (2, 2, 64, 16, 16, 16, 0.4, "bfloat16"),
+    (2, 3, 144, 48, 32, 48, 0.02, "float32"),
+    (2, 4, 64, 16, 16, 32, 0.02, "float32"),
+    (2, 4, 768, 64, 128, 256, 0.02, "bfloat16"),
+    (1, 2, 512, 64, 128, 256, 0.02, "float32"),
+    (1, 32, 512, 64, 128, 256, "model", "float32"),
+]
+SSD_TOL = {"float32": 5e-4, "bfloat16": 3e-2}
+#: kernel vs the chunked plain version: the same algorithm in fp32,
+#: differing only in summation order.  The in-chunk cumsum's order matters
+#: most: at mamba2's decays it reaches ~-3e3 (fp32 step 2.4e-4), which
+#: enters exp(cum_q - cum_s) directly and moves y by ~1e-4 (chip_smoke's
+#: model_decay_err_vs_chunked), so f32 keeps the oracle's 5e-4; in bf16 both round the same fp32 value to 8
+#: bits, so they differ by at most one bf16 step (2^-7 relative)
+SSD_CHUNKED_TOL = {"float32": 5e-4, "bfloat16": 1e-2}
 
 
 # -- on the card ----------------------------------------------------------
@@ -92,6 +122,55 @@ def test_repack_kernel_matches_plain_on_card(cuda, nblocks, block, width,
         ops.repack(src, [nblocks])
 
 
+def _ssd_inputs(device, B, H, S, P, N, decay, dtype, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    xdt = (torch.randn(B, S, H, P, generator=g, device=device) * 0.3).to(dt)
+    if decay == "model":
+        step = F.softplus(0.64 * torch.randn(B, S, H, generator=g,
+                                             device=device))
+        a = -step * (1 + 15 * torch.rand(H, generator=g, device=device))
+    else:
+        a = -torch.randn(B, S, H, generator=g, device=device).abs() * decay
+    bm, cm = ((torch.randn(B, S, N, generator=g, device=device) * 0.3).to(dt)
+              for _ in range(2))
+    return xdt, a, bm, cm
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,S,P,N,Q,decay,dtype", SSD_CASES)
+def test_ssd_kernel_matches_plain_on_card(cuda, B, H, S, P, N, Q, decay,
+                                          dtype):
+    xdt, a, bm, cm = _ssd_inputs(cuda, B, H, S, P, N, decay, dtype)
+    before = ops.launch_counts()["ssd_scan"]
+    out = ops.ssd_scan(xdt, a, bm, cm, chunk=Q)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == before + 1
+    assert out.shape == xdt.shape and out.dtype == xdt.dtype
+    exp = ssd_reference(xdt, a, bm, cm)
+    torch.testing.assert_close(out.float(), exp.float(), atol=SSD_TOL[dtype],
+                               rtol=SSD_TOL[dtype])
+    chunked = ssd_chunked_reference(xdt, a, bm, cm, Q)
+    torch.testing.assert_close(out.float(), chunked.float(),
+                               atol=SSD_CHUNKED_TOL[dtype],
+                               rtol=SSD_CHUNKED_TOL[dtype])
+
+
+@pytest.mark.gpu
+def test_ssd_kernel_reads_strided_inputs_on_card(cuda):
+    """The JAX layout (B, H, S, P) handed over as a transposed view: the
+    kernel reads it through strides and gives the contiguous input's y."""
+    xdt, a, bm, cm = _ssd_inputs(cuda, 2, 4, 128, 32, 64, 0.02, "float32")
+    xt = xdt.transpose(1, 2).contiguous().transpose(1, 2)
+    at = a.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not xt.is_contiguous() and not at.is_contiguous()
+    torch.testing.assert_close(ops.ssd_scan(xt, at, bm, cm, chunk=64),
+                               ops.ssd_scan(xdt, a, bm, cm, chunk=64),
+                               atol=0, rtol=0)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        ops.ssd_scan(xdt[..., :24], a, bm, cm, chunk=64)
+
+
 @pytest.mark.gpu
 def test_decode_path_on_card_matches_cpu(cuda):
     """The smoke model's elastic decode on the card, through the kernel,
@@ -108,6 +187,41 @@ def test_decode_path_on_card_matches_cpu(cuda):
     ops.reset_counts()
     out = decode_demo("granite-3-2b-smoke", device=cuda, **run)
     assert ops.launch_counts()["flash_attention"] == cfg.num_layers * 16
+    np.testing.assert_array_equal(out["tokens"], ref["tokens"])
+    assert [e.transfer.bytes_moved for e in out["events"]] == \
+        [e.transfer.bytes_moved for e in ref["events"]]
+
+
+@pytest.mark.gpu
+def test_mamba2_smoke_on_card_matches_cpu(cuda):
+    """The SSM family on the card: the smoke model's prefill runs K3 once
+    per layer and its elastic decode gives the CPU plain path's tokens and
+    bytes from the same float32 weights."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.train import make_prefill_step
+    from repro_torch.serve import decode_demo
+    arch = "mamba2-370m-smoke"
+    cfg = get_config(arch)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64), dtype=np.int32))
+    prefill = make_prefill_step(cfg)
+    with torch.no_grad():
+        ref_first = prefill(params, {"tokens": toks})
+        ops.reset_counts()
+        first = prefill(T.tree_map(lambda t: t.to(cuda), params),
+                        {"tokens": toks.to(cuda)})
+    assert ops.launch_counts()["ssd_scan"] == cfg.num_layers
+    np.testing.assert_array_equal(first.cpu().numpy(), ref_first.numpy())
+    run = dict(batch=8, prompt_len=8, decode_steps=8, cache_len=64,
+               workers=8, schedule={10: 8, 13: 2}, params=params)
+    ref = decode_demo(arch, device="cpu", **run)
+    ops.reset_counts()
+    out = decode_demo(arch, device=cuda, **run)
+    assert ops.launch_counts() == {"flash_attention": 0, "repack": 0,
+                                   "ssd_scan": 0}
     np.testing.assert_array_equal(out["tokens"], ref["tokens"])
     assert [e.transfer.bytes_moved for e in out["events"]] == \
         [e.transfer.bytes_moved for e in ref["events"]]

@@ -143,7 +143,10 @@ def test_cpu_calls_are_not_launches():
     q = torch.zeros(1, 2, 4, 32)
     ops.flash_attention(q, q, q)
     ops.repack(torch.zeros(4, 2, 3), [3, 0])
-    assert ops.launch_counts() == {"flash_attention": 0, "repack": 0}
+    ops.ssd_scan(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
+                 torch.zeros(1, 8, 16), torch.zeros(1, 8, 16), chunk=4)
+    assert ops.launch_counts() == {"flash_attention": 0, "repack": 0,
+                                   "ssd_scan": 0}
 
 
 def test_no_silent_fallback_off_the_cpu():
@@ -154,3 +157,7 @@ def test_no_silent_fallback_off_the_cpu():
         ops.flash_attention(q, q, q)
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.repack(torch.empty(4, 2, 3, device="meta"), [0])
+    x, a, bc = (torch.empty(s, device="meta") for s in
+                [(1, 8, 2, 16), (1, 8, 2), (1, 8, 16)])
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.ssd_scan(x, a, bc, bc, chunk=4)

@@ -152,12 +152,20 @@ def test_prefill_step(setup):
     _close(prefill_logits(tp, tcfg, batch_t), jl[:, -1])
 
 
-def test_other_families_raise():
+@pytest.mark.parametrize("family", ["moe", "hybrid"])
+def test_other_families_raise(family):
     from dataclasses import replace
-    from repro_torch.configs.base import MoEConfig
-    cfg = replace(get_config(ARCH), moe=MoEConfig(4, 2, 64))
+    from repro_torch.configs.base import MoEConfig, SSMConfig
+    if family == "moe":
+        cfg = replace(get_config(ARCH), moe=MoEConfig(4, 2, 64))
+    else:   # zamba2's shape: SSM layers plus a shared attention block
+        cfg = replace(get_config(ARCH), ssm=SSMConfig(16, 16),
+                      shared_attention_every=2)
+        assert cfg.is_hybrid
     with pytest.raises(NotImplementedError):
         TM.model_schema(cfg)
+    with pytest.raises(NotImplementedError):
+        TM.init_cache(cfg, 2, 8)
 
 
 @pytest.mark.parametrize("variant", [

@@ -1,5 +1,6 @@
 """The port's serving slice against the JAX package's: elastic decode of
-``granite-3-2b-smoke`` on the CPU, from the same parameters.
+``granite-3-2b-smoke`` (a KV cache) and ``mamba2-370m-smoke`` (an SSM
+state and conv tails) on the CPU, from the same parameters.
 
 Greedy tokens must be equal (float32 logits on both sides; argmax picks
 the first maximum in both), unchanged by a 4 -> 8 -> 2 resize, and every
@@ -21,7 +22,7 @@ from repro_torch.parallel.mesh import Placement, logical_workers
 from repro_torch.serve import decode_demo
 from tests.util import run_devices
 
-ARCH = "granite-3-2b-smoke"
+ARCHS = ["granite-3-2b-smoke", "mamba2-370m-smoke"]
 RUN = dict(batch=8, prompt_len=8, decode_steps=8, cache_len=64)
 SCHEDULE = {10: 8, 13: 2}
 
@@ -34,30 +35,35 @@ print("JAX_ELASTIC" + json.dumps({
     "events": [[e.action, e.from_procs, e.to_procs, e.transfer.bytes_moved,
                 {k: s.bytes_moved for k, s in e.per_pattern.items()}]
                for e in out["events"]]}))
-""" % (ARCH, SCHEDULE, RUN)
+"""
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def arch(request):
+    return request.param
 
 
 @pytest.fixture(scope="module")
-def jax_params():
-    jp = JM.init_params(jget_config(ARCH), jax.random.PRNGKey(0))
+def jax_params(arch):
+    jp = JM.init_params(jget_config(arch), jax.random.PRNGKey(0))
     return jax.tree.map(np.asarray, jp)
 
 
 @pytest.fixture(scope="module")
-def port_runs(jax_params):
+def port_runs(arch, jax_params):
     params = params_from_numpy(jax_params)
-    base = decode_demo(ARCH, workers=8, device="cpu", params=params, **RUN)
-    ela = decode_demo(ARCH, workers=8, device="cpu", params=params,
+    base = decode_demo(arch, workers=8, device="cpu", params=params, **RUN)
+    ela = decode_demo(arch, workers=8, device="cpu", params=params,
                       schedule=SCHEDULE, **RUN)
     return base, ela
 
 
-def test_tokens_match_the_jax_serve_step(jax_params):
+def test_tokens_match_the_jax_serve_step(arch, jax_params):
     """One worker, no resize: the port's greedy tokens are the JAX
     ``decode_demo``'s from the same parameters and prompts."""
     small = dict(batch=4, prompt_len=8, decode_steps=8, cache_len=64)
-    ref = j_decode_demo(ARCH, **small)
-    out = decode_demo(ARCH, device="cpu",
+    ref = j_decode_demo(arch, **small)
+    out = decode_demo(arch, device="cpu",
                       params=params_from_numpy(jax_params), **small)
     np.testing.assert_array_equal(out["tokens"], ref["tokens"])
     assert out["tokens"].shape == (4, 8)
@@ -71,9 +77,9 @@ def test_resize_leaves_tokens_unchanged(port_runs):
     assert ela["sizes"] == [(0, 4), (10, 8), (13, 2)]
 
 
-def test_elastic_run_matches_jax_on_8_devices(port_runs):
+def test_elastic_run_matches_jax_on_8_devices(arch, port_runs):
     """Tokens and byte accounting equal the JAX run on 8 host devices."""
-    out = run_devices(JAX_ELASTIC, n_devices=8)
+    out = run_devices(JAX_ELASTIC % (arch, SCHEDULE, RUN), n_devices=8)
     ref = json.loads(out.split("JAX_ELASTIC", 1)[1])
     _, ela = port_runs
     np.testing.assert_array_equal(ela["tokens"], np.asarray(ref["tokens"]))
@@ -83,20 +89,36 @@ def test_elastic_run_matches_jax_on_8_devices(port_runs):
     assert got == ref["events"]
 
 
+def test_decode_demo_takes_a_config():
+    """``decode_demo`` takes a config as well as a name: the named
+    config gives the named run's tokens, one cut to one layer others."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    small = dict(batch=2, prompt_len=4, decode_steps=4, cache_len=16,
+                 device="cpu")
+    cfg = get_config(ARCHS[1])
+    by_name = decode_demo(ARCHS[1], **small)["tokens"]
+    np.testing.assert_array_equal(decode_demo(cfg, **small)["tokens"],
+                                  by_name)
+    one = decode_demo(replace(cfg, num_layers=1), **small)["tokens"]
+    assert one.shape == by_name.shape and not np.array_equal(one, by_name)
+
+
 def test_decode_demo_defaults_to_the_card(monkeypatch):
     """Without ``device="cpu"`` the entry point asks for a card, and raises
     when there is none instead of falling back to the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        decode_demo(ARCH, batch=2, prompt_len=2, decode_steps=1,
+        decode_demo(ARCHS[0], batch=2, prompt_len=2, decode_steps=1,
                     cache_len=8)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         dmr.MalleableRunner(dmr.App(), dmr.set_parameters(1, 2, 1))
 
 
-def test_cli_on_the_cpu(capsys):
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cli_on_the_cpu(capsys, arch):
     from repro_torch.launch.serve import main
-    main(["--arch", ARCH, "--batch", "8", "--prompt-len", "4",
+    main(["--arch", arch, "--batch", "8", "--prompt-len", "4",
           "--decode-steps", "4", "--cache-len", "16", "--workers", "8",
           "--device", "cpu", "--resize-at", "6", "--resize-to", "8"])
     out = capsys.readouterr().out
