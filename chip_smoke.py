@@ -11,9 +11,15 @@ and ``mamba2-370m`` (SSM, K3; all 48 layers) -- and checks that each
 really ran through its kernels.  Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
-2. build: compile every kernel (one nvcc per source, in parallel);
-3. K1 flash attention against ``attention_reference``: the cases of the
-   JAX package's kernel tests, then the slice's own bf16 shapes;
+2. build: compile every kernel (one nvcc per source, in parallel), and
+   print ptxas's report of K1's kernels (registers, spills, static shared
+   memory);
+3. K1 flash attention against ``attention_reference``, each case also
+   checking which of K1's three paths it took (``path_launches``): the
+   cases of the JAX package's kernel tests; bf16 prefill on the mma path
+   at head dims 16, 32, 64, 80 and 128, ragged, windowed, Sq < Sk causal,
+   Hkv = H and Hkv = 1; then the slice's own bf16 shapes, and fp32 and
+   bf16 decode at a kv_len inside the last key split;
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
@@ -26,10 +32,11 @@ really ran through its kernels.  Phases:
 6. the granite serving path: ``decode_demo`` (batch 16, prompt 256, 128
    decoded tokens, cache 512, 8 workers) without and with a 4 -> 8 -> 2
    resize schedule; tokens must agree and each run must launch K1 once
-   per layer per step (10 x 384 times);
+   per layer per step (10 x 384 times), all on the split_decode path;
 7. granite prefill vs decode: ``make_prefill_step`` (K1 at Sq=256,
-   causal) against the decode path's logits after the same 256 prompt
-   tokens, in fp32 (tight) and in bf16 (each against the fp32 logits);
+   causal, on the mma path) against the decode path's logits after the
+   same 256 prompt tokens, in fp32 (tight) and in bf16 (each against the
+   fp32 logits);
 8. where a granite decode step's time goes: ``make_serve_step`` at the
    path's shapes (cache index 383 of 512), an untimed warm-up, a window
    timed on the host clock, then a window of as many steps under
@@ -47,8 +54,18 @@ really ran through its kernels.  Phases:
     traced ``make_prefill_step`` whose top device kernels and K3 share of
     device time come from that one trace;
 11. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
-    and times (kernel, plain version, bound, library yardstick) at the
-    path's shapes, then the contract line ``{"ok": true, "device": ...}``.
+    and times at the path's shapes: ``ms`` (CUDA events around 50
+    back-to-back calls, host dispatch included), ``device_ms`` (the
+    profiler's device time per call, device records only, taken right
+    after phase 5: later in the process the profiler drops device
+    records), the plain version's ``plain_ms``, the bound, and the library
+    yardstick's ``library_ms`` and ``library_device_ms``.  K1's rows add
+    ``device_ms_cold`` and ``library_device_ms_cold``, the same with each
+    call on its own copy of the inputs, copies rotating through more bytes
+    than the card's 50 MB L2 holds (back-to-back calls on one set of
+    inputs find them in L2; a serving step finds them cold); K2's and K3's
+    inputs alone outgrow L2.  K1 decode adds ``host_us``, the wrapper's
+    host time per call.  Then the contract line ``{"ok": true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
@@ -169,6 +186,95 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(calls, what: str, iters: int = 20) -> float:
+    """Device time per call, from the profiler: the device records' own
+    times summed over ``iters`` calls, gaps between them excluded.
+    ``calls``: one callable, or a list of them taken in turn.  The profiler
+    drops records now and then (a whole window, or part of one), so
+    a window counts only if every record name in it appears a whole
+    multiple of ``iters`` times, and only beside the next window when that
+    one shows the same names and counts; the time is the mean of the two.
+    After eight windows with no such pair the script fails."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    calls = calls if isinstance(calls, list) else [calls]
+
+    def window():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                calls[i % len(calls)]()
+            torch.cuda.synchronize()
+        evs = device_events(prof)
+        return ({e.key: e.count for e in evs},
+                sum(device_us(e) for e in evs))
+
+    for c in calls + calls[:2]:
+        c()
+    torch.cuda.synchronize()
+    last = None
+    for _ in range(8):
+        counts, us = window()
+        if not counts or any(n % iters for n in counts.values()):
+            print(f"chip_smoke: {what}: {iters} calls left device records "
+                  f"{ {k[:60]: n for k, n in counts.items()} }: taken again",
+                  file=sys.stderr, flush=True)
+            last = None
+            continue
+        if last is not None and last[0] == counts:
+            ms = (us + last[1]) / 2e3 / iters
+            print(f"[device_ms] {what}: {ms:.6f}", flush=True)
+            return ms
+        last = (counts, us)
+    fail(f"{what}: the profiler dropped device records in eight windows")
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Host time per call of back-to-back calls that do not synchronise:
+    what the wrapper costs the host (the device keeps up at these sizes)."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
+def ptxas_report(log: str) -> list:
+    """ptxas's per-kernel report (``-Xptxas -v``): registers, spill bytes
+    and static shared memory (the K/V rings are dynamic shared memory, which
+    ptxas does not see)."""
+    import re
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            k = re.search(r"(attn_[a-z_]+?_kernel)(.*)", name)
+            if not k:
+                cur = None
+                continue
+            tail = k.group(2)
+            args = ["bf16" if "nv_bfloat16" in tail else "f32"
+                    if tail.startswith("If") else ""]
+            args = [a for a in args if a] + re.findall(r"Li(\d+)E", tail)
+            cur = {"kernel": f"{k.group(1)}<{','.join(args)}>"}
+            out.append(cur)
+        elif cur is not None and "spill stores" in line:
+            n = re.findall(r"(\d+) bytes", line)
+            cur["stack"], cur["spill_st"], cur["spill_ld"] = map(int, n[:3])
+        elif cur is not None and "Used " in line:
+            cur["regs"] = int(re.search(r"Used (\d+) registers", line)[1])
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm[1]) if sm else 0
+            cur = None
+    return out
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_bytes = nbytes / H100_BYTES_PER_S
     t_ops = flops / H100_FLOPS[dtype]
@@ -196,6 +302,7 @@ def main() -> None:
     from repro_torch.core.redistribute import blockcyclic_split
     from repro_torch.dmr import get_pattern
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import (attention_reference,
                                          repack_reference,
                                          ssd_chunked_reference, ssd_reference)
@@ -234,6 +341,19 @@ def main() -> None:
     phase("build", seconds=f"{time.perf_counter() - t0:.2f}",
           nvcc_seconds=f"{_build.last_build_s:.2f}",
           registers=json.dumps(regs, separators=(",", ":")))
+    cfg = dataclasses.replace(get_config(ARCH), num_layers=GRANITE_LAYERS)
+    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    sms = fa._sm_count(dev)
+    nsplit = fa.decode_splits(BATCH * Hkv, CACHE, sms)
+    report = ptxas_report(_build.build_log("flash_attention"))
+    if not report or any("regs" not in r for r in report):
+        fail(f"no ptxas report for K1's kernels: {report}")
+    print("[ptxas:K1] " + json.dumps(report, separators=(",", ":")),
+          flush=True)
+    phase("ptxas:K1", kernels=len(report),
+          max_regs=max(r["regs"] for r in report),
+          spills=sum(r["spill_st"] + r["spill_ld"] for r in report),
+          sms=sms, decode_splits=nsplit)
     mark("build")
 
     rng = np.random.default_rng(0)
@@ -257,23 +377,58 @@ def main() -> None:
                   (2, 4, 1, 256, 256, 64, True, 64, f32),
                   (1, 2, 2, 128, 128, 64, True, 0, bf16),
                   (1, 4, 2, 64, 64, 32, True, 0, f32)]
+    # bf16 prefill on the mma path: every head dim, then ragged Sq, a
+    # window, Sq < Sk causal, Hkv = H and Hkv = 1 -- first at B * Hkv = 4
+    # (the block kernel), then at B * Hkv >= 128 (the group kernel); fp32
+    # D = 80 (fma path)
+    prefill_cases = [(2, 8, 2, 256, 256, d, True, 0, bf16)
+                     for d in fa.HEAD_DIMS] + [
+        (2, 8, 2, 77, 77, 64, True, 0, bf16),
+        (1, 8, 2, 200, 200, 128, True, 0, bf16),
+        (2, 8, 2, 256, 256, 64, True, 64, bf16),
+        (2, 8, 2, 100, 256, 64, True, 0, bf16),
+        (2, 8, 8, 128, 128, 64, True, 0, bf16),
+        (2, 8, 1, 128, 128, 80, True, 0, bf16),
+        (2, 8, 2, 128, 128, 80, True, 0, f32)] + [
+        (16, 32, 8, 256, 256, d, True, 0, bf16) for d in (16, 32, 80)] + [
+        (16, 32, 8, 200, 200, 128, True, 0, bf16),
+        (16, 32, 8, 256, 256, 64, True, 64, bf16),
+        (16, 32, 8, 100, 256, 64, True, 0, bf16),
+        (16, 8, 8, 130, 130, 64, False, 0, bf16),
+        (132, 8, 1, 128, 128, 80, True, 0, bf16)]
     decode_cases = [(3, 4, 2, 128, 64), (3, 4, 2, 256, 64), (3, 4, 2, 384, 64),
-                    (5, 8, 1, 256, 64), (7, 2, 2, 192, 32), (1, 4, 4, 512, 128)]
+                    (5, 8, 1, 256, 64), (7, 2, 2, 192, 32), (1, 4, 4, 512, 128),
+                    (3, 4, 2, 200, 80)]
     errs = {"float32": 0.0, "bfloat16": 0.0}
-    for B, H, Hkv, Sq, Sk, D, causal, window, dt in attn_cases:
-        q, k, v = rand((B, H, Sq, D), dt), rand((B, Hkv, Sk, D), dt), \
-            rand((B, Hkv, Sk, D), dt)
-        name = str(dt).split(".")[1]
-        errs[name] = max(errs[name], check_close(
-            ops.flash_attention(q, k, v, causal=causal, window=window),
-            attention_reference(q, k, v, causal=causal, window=window),
-            name, f"attn case {(B, H, Hkv, Sq, Sk, D, causal, window, name)}"))
-    for B, H, Hkv, Sk, D in decode_cases:
-        q, k, v = rand((B, H, 1, D)), rand((B, Hkv, Sk, D)), rand((B, Hkv, Sk, D))
-        errs["float32"] = max(errs["float32"], check_close(
-            ops.flash_attention(q, k, v, causal=False),
-            attention_reference(q, k, v, causal=False), "float32",
-            f"decode case {(B, H, Hkv, Sk, D)}"))
+    case_paths = dict.fromkeys(fa.PATHS, 0)
+
+    def k1_case(q, k, v, what, **kw):
+        """K1 against its plain version on one case; the call must take
+        (and count) the path ``select_path`` names for its shape."""
+        name = str(q.dtype).split(".")[1]
+        path = fa.select_path(q.dtype, q.shape[1] // k.shape[1] * q.shape[2])
+        before = dict(fa.flash_attention.path_launches)
+        out = ops.flash_attention(q, k, v, **kw)
+        moved = {p: n - before[p]
+                 for p, n in fa.flash_attention.path_launches.items()}
+        if moved != {p: int(p == path) for p in moved}:
+            fail(f"{what}: path launches {moved}, not one on {path}")
+        case_paths[path] += 1
+        err = check_close(out, attention_reference(q, k, v, **kw), name,
+                          what)
+        errs[name] = max(errs[name], err)
+        return out, err
+
+    for B, H_, Hkv_, Sq, Sk, D_, causal, window, dt in \
+            attn_cases + prefill_cases:
+        q, k, v = rand((B, H_, Sq, D_), dt), rand((B, Hkv_, Sk, D_), dt), \
+            rand((B, Hkv_, Sk, D_), dt)
+        k1_case(q, k, v, f"attn case {(B, H_, Hkv_, Sq, Sk, D_, causal, window, dt)}",
+                causal=causal, window=window)
+    for B, H_, Hkv_, Sk, D_ in decode_cases:
+        q, k, v = rand((B, H_, 1, D_)), rand((B, Hkv_, Sk, D_)), \
+            rand((B, Hkv_, Sk, D_))
+        k1_case(q, k, v, f"decode case {(B, H_, Hkv_, Sk, D_)}", causal=False)
     qf, kf, vf = rand((2, 4, 256, 64)), rand((2, 4, 256, 64)), rand((2, 4, 256, 64))
     full = ops.flash_attention(qf, kf, vf, causal=True)
     for pos in (64, 128, 192):
@@ -282,10 +437,20 @@ def main() -> None:
         errs["float32"] = max(errs["float32"], check_close(
             step[:, :, 0], full[:, :, pos - 1], "float32",
             f"cache growth at {pos}"))
-    # the slice's shapes, bf16: decode over valid lengths 1..512 in the
-    # (B, S, Hkv, D) cache layout, and causal prefill Sq = Sk = 256
-    cfg = dataclasses.replace(get_config(ARCH), num_layers=GRANITE_LAYERS)
-    H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    # the slice's shapes: fp32 and bf16 decode at a kv_len inside the last
+    # key split, as a host int and as a device int32; then, in bf16, decode
+    # over valid lengths 1..512 in the (B, S, Hkv, D) cache layout, and
+    # causal prefill Sq = Sk = 256
+    chunk = -(-max(1, -(-CACHE // fa.TILE_K)) // nsplit) * fa.TILE_K
+    n_last = min(CACHE, (nsplit - 1) * chunk + chunk // 2 + 3)
+    for dt in (f32, bf16):
+        qs, ks, vs = rand((BATCH, 1, H, D), dt), rand((BATCH, CACHE, Hkv, D), dt), \
+            rand((BATCH, CACHE, Hkv, D), dt)
+        for kvl in (n_last, torch.tensor(n_last, dtype=torch.int32,
+                                         device=dev)):
+            k1_case(qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+                    f"decode in the last split, kv_len {n_last} {dt}",
+                    causal=False, kv_len=kvl)
     kc, vc = rand((BATCH, CACHE, Hkv, D), bf16), rand((BATCH, CACHE, Hkv, D), bf16)
     qd = rand((BATCH, 1, H, D), bf16)
     err_decode = 0.0
@@ -303,7 +468,9 @@ def main() -> None:
                               attention_reference(*pargs, causal=True),
                               "bfloat16", "slice prefill")
     torch.cuda.synchronize()
-    phase("K1", cases=len(attn_cases) + len(decode_cases) + 3,
+    phase("K1", cases=sum(case_paths.values()) + 3,
+          paths=json.dumps(case_paths, separators=(",", ":")),
+          last_split_kv_len=n_last,
           max_err_f32=f"{errs['float32']:.3e}",
           max_err_bf16=f"{errs['bfloat16']:.3e}",
           slice_decode_err=f"{err_decode:.3e}",
@@ -411,6 +578,67 @@ def main() -> None:
           tol_vs_chunked=json.dumps(SSD_CHUNKED_TOL, separators=(",", ":")))
     mark("K3")
 
+    # -- device times for the kernels line (phase 11), taken here: late in
+    # the process, after the long traced windows of phases 8 and 10, the
+    # profiler drops device records --------------------------------------
+    n = PROMPT + DECODE                       # K1 decode: the path's last step
+    kv_len = torch.tensor(n, dtype=torch.int32, device=dev)
+    args = (qd.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2))
+    lib_args = (args[0], args[1][:, :, :n], args[2][:, :, :n])
+    k1_dec = lambda: ops.flash_attention(*args, causal=False, kv_len=kv_len)
+    sdpa_dec = lambda: F.scaled_dot_product_attention(*lib_args,
+                                                      enable_gqa=True)
+    k1_pre = lambda: ops.flash_attention(*pargs, causal=True)
+    sdpa_pre = lambda: F.scaled_dot_product_attention(*pargs, is_causal=True,
+                                                      enable_gqa=True)
+    # K2: the 4 -> 8 step of the block-cyclic path, one gather of the table
+    from repro_torch.core.redistribute import blockcyclic_index
+    counts4 = [(nblk + 3 - r) // 4 for r in range(4)]
+    idx = np.concatenate(blockcyclic_index(counts4, 8))
+    src = table.reshape(nblk, blk, vp_rows[1])
+    idx_dev = torch.from_numpy(idx).to(dev)
+    k3 = lambda: ops.ssd_scan(*ssd_args, chunk=SSD_SLICE[5])
+    # L2-cold K1 and SDPA: each call on its own copy of the inputs, the
+    # copies rotating through 8 x 12.6 MB (decode reads 384 of 512 cached
+    # keys) and 4 x 42 MB (prefill, output included), so each call's
+    # inputs were last touched more than the 50 MB of L2 ago
+    cold_dec = [tuple(t.clone() for t in (qd, kc, vc)) for _ in range(8)]
+    cold_dec = [(q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2))
+                for q_, k_, v_ in cold_dec]
+    cold_pre = [tuple(t.clone() for t in (qp, kp, vp)) for _ in range(4)]
+    cold_pre = [(q_.transpose(1, 2), k_.transpose(1, 2), v_.transpose(1, 2))
+                for q_, k_, v_ in cold_pre]
+
+    def cold(fn, copies):
+        return [lambda a=a: fn(*a) for a in copies]
+    dev_ms = {"K1 decode": device_ms(k1_dec, "K1 decode"),
+              "SDPA decode": device_ms(sdpa_dec, "SDPA decode"),
+              "K1 prefill": device_ms(k1_pre, "K1 prefill"),
+              "SDPA prefill": device_ms(sdpa_pre, "SDPA prefill"),
+              "K1 decode cold": device_ms(cold(
+                  lambda q_, k_, v_: ops.flash_attention(
+                      q_, k_, v_, causal=False, kv_len=kv_len), cold_dec),
+                  "K1 decode, L2-cold", iters=24),
+              "SDPA decode cold": device_ms(cold(
+                  lambda q_, k_, v_: F.scaled_dot_product_attention(
+                      q_, k_[:, :, :n], v_[:, :, :n], enable_gqa=True),
+                  cold_dec), "SDPA decode, L2-cold", iters=24),
+              "K1 prefill cold": device_ms(cold(
+                  lambda q_, k_, v_: ops.flash_attention(
+                      q_, k_, v_, causal=True), cold_pre),
+                  "K1 prefill, L2-cold"),
+              "SDPA prefill cold": device_ms(cold(
+                  lambda q_, k_, v_: F.scaled_dot_product_attention(
+                      q_, k_, v_, is_causal=True, enable_gqa=True),
+                  cold_pre), "SDPA prefill, L2-cold"),
+              "K2": device_ms(lambda: ops.repack(src, idx), "K2"),
+              "index_select": device_ms(
+                  lambda: torch.index_select(src, 0, idx_dev),
+                  "index_select"),
+              "K3": device_ms(k3, "K3", iters=5)}
+    del cold_dec, cold_pre
+    mark("device_ms")
+
     # -- 6. the granite serving path ----------------------------------------
     runs = {}
     flash_path = []
@@ -425,11 +653,15 @@ def main() -> None:
                           seed=0)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
+        paths = dict(fa.flash_attention.path_launches)
         flash_path.append(counts["flash_attention"])
         want = cfg.num_layers * (PROMPT + DECODE)
         if counts["flash_attention"] != want:
             fail(f"{label} run launched K1 {counts['flash_attention']} "
                  f"times, not {want}")
+        if paths != {"fma": 0, "mma": 0, "split_decode": want}:
+            fail(f"{label} run's K1 paths {paths}: every decode step should "
+                 "take split_decode")
         toks = out["tokens"]
         if toks.shape != (BATCH, DECODE) or toks.min() < 0 or \
                 toks.max() >= cfg.vocab_size:
@@ -439,6 +671,7 @@ def main() -> None:
         phase(f"path:{label}", prefill_s=f"{out['prefill_s']:.3f}",
               decode_ms_per_token=f"{out['decode_s'] / DECODE * 1e3:.3f}",
               flash_launches=counts["flash_attention"],
+              path_launches=json.dumps(paths, separators=(",", ":")),
               peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
               sizes=json.dumps(out["sizes"], separators=(",", ":")))
         for ev in out["events"]:
@@ -477,9 +710,11 @@ def main() -> None:
         first = make_prefill_step(cfg)(params, batch)
         torch.cuda.synchronize()
         flash_prefill = ops.launch_counts()["flash_attention"]
-        if flash_prefill != cfg.num_layers:
-            fail(f"prefill launched K1 {flash_prefill} times, not "
-                 f"{cfg.num_layers}")
+        prefill_paths = dict(fa.flash_attention.path_launches)
+        if flash_prefill != cfg.num_layers or \
+                prefill_paths["mma"] != cfg.num_layers:
+            fail(f"prefill launched K1 {flash_prefill} times on paths "
+                 f"{prefill_paths}, not {cfg.num_layers} on mma")
         lp = prefill_logits(params, cfg, batch)[:, :V].float()
         ld = decode_logits(cfg)
         lp32 = prefill_logits(params, cfg32, batch)[:, :V].float()
@@ -497,6 +732,7 @@ def main() -> None:
              f"{BF16_LOGITS_ATOL}")
     agree = (first.cpu().numpy() == runs["static"]["tokens"][:, 0]).mean()
     phase("prefill", flash_launches=flash_prefill,
+          path_launches=json.dumps(prefill_paths, separators=(",", ":")),
           fp32_prefill_vs_decode=f"{gap32:.4e}", fp32_tol=FP32_LOGITS_ATOL,
           bf16_prefill_vs_fp32=f"{err_p:.4e}",
           bf16_decode_vs_fp32=f"{err_d:.4e}",
@@ -701,10 +937,6 @@ def main() -> None:
     # -- 11. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
-    n = PROMPT + DECODE
-    kv_len = torch.tensor(n, dtype=torch.int32, device=dev)
-    args = (qd.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2))
-    lib_args = (args[0], args[1][:, :, :n], args[2][:, :, :n])
     el = 2                                   # bf16 bytes
     b_dec, by_dec = bound_ms(
         el * (2 * BATCH * H * D + 2 * BATCH * Hkv * n * D),
@@ -713,14 +945,17 @@ def main() -> None:
         "name": "flash_attention_fwd (decode, Sq=1)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
+        "path": "split_decode",
         "launches": flash_path[0], "max_abs_err": err_decode,
-        "ms": time_ms(lambda: ops.flash_attention(*args, causal=False,
-                                                  kv_len=kv_len)),
+        "ms": time_ms(k1_dec), "device_ms": dev_ms["K1 decode"],
+        "device_ms_cold": dev_ms["K1 decode cold"],
+        "host_us": host_us(k1_dec),
         "plain_ms": time_ms(lambda: attention_reference(
             *args, causal=False, kv_len=kv_len), iters=20),
         "bound_ms": b_dec, "bound_by": by_dec,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            *lib_args, enable_gqa=True)),
+        "library_ms": time_ms(sdpa_dec),
+        "library_device_ms": dev_ms["SDPA decode"],
+        "library_device_ms_cold": dev_ms["SDPA decode cold"],
         "shape": f"B={BATCH} H={H} Hkv={Hkv} D={D} kv_len={n} of {CACHE} bf16"})
     b_pre, by_pre = bound_ms(
         el * (2 * BATCH * PROMPT * H * D + 2 * BATCH * PROMPT * Hkv * D),
@@ -729,20 +964,18 @@ def main() -> None:
         "name": "flash_attention_fwd (prefill, causal)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
+        "path": "mma",
         "launches": flash_prefill, "max_abs_err": err_prefill,
-        "ms": time_ms(lambda: ops.flash_attention(*pargs, causal=True)),
+        "ms": time_ms(k1_pre), "device_ms": dev_ms["K1 prefill"],
+        "device_ms_cold": dev_ms["K1 prefill cold"],
         "plain_ms": time_ms(lambda: attention_reference(*pargs, causal=True),
                             iters=10),
         "bound_ms": b_pre, "bound_by": by_pre,
-        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-            *pargs, is_causal=True, enable_gqa=True)),
+        "library_ms": time_ms(sdpa_pre),
+        "library_device_ms": dev_ms["SDPA prefill"],
+        "library_device_ms_cold": dev_ms["SDPA prefill cold"],
         "shape": f"B={BATCH} H={H} Hkv={Hkv} D={D} Sq=Sk={PROMPT} bf16"})
     # K2: the 4 -> 8 step of the block-cyclic path, one gather of the table
-    from repro_torch.core.redistribute import blockcyclic_index
-    counts4 = [(nblk + 3 - r) // 4 for r in range(4)]
-    idx = np.concatenate(blockcyclic_index(counts4, 8))
-    src = table.reshape(nblk, blk, vp_rows[1])
-    idx_dev = torch.from_numpy(idx).to(dev)
     b_rep, by_rep = bound_ms(2 * table.nbytes + 4 * idx.size, 0, "float32")
     err_rep = (ops.repack(src, idx) - repack_reference(src, idx_dev)
                ).abs().max().item()
@@ -755,10 +988,12 @@ def main() -> None:
         "replaces": "src/repro/kernels/blockcyclic.py:22",
         "launches": repack_launches, "max_abs_err": err_rep,
         "ms": time_ms(lambda: ops.repack(src, idx), iters=20),
+        "device_ms": dev_ms["K2"],
         "plain_ms": time_ms(lambda: repack_reference(src, idx_dev), iters=20),
         "bound_ms": b_rep, "bound_by": by_rep,
         "library_ms": time_ms(lambda: torch.index_select(src, 0, idx_dev),
                               iters=20),
+        "library_device_ms": dev_ms["index_select"],
         "shape": f"src=({nblk},{blk},{vp_rows[1]}) fp32 idx={idx.size}"})
     # K3: one layer of the mamba2 prefill, bf16 xdt/B/C and f32 a; the work
     # counts G = C B^T once per (b, chunk), as the Pallas contract allows
@@ -773,10 +1008,11 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:59",
         "launches": k3_prefill, "max_abs_err": slice_err["bfloat16"][0],
-        "ms": time_ms(lambda: ops.ssd_scan(*ssd_args, chunk=sQ), iters=20),
+        "ms": time_ms(k3, iters=20), "device_ms": dev_ms["K3"],
         "plain_ms": time_ms(lambda: ssd_chunked_reference(*ssd_args, sQ),
                             iters=5, warmup=1),
         "bound_ms": b_ssd, "bound_by": by_ssd, "library_ms": None,
+        "library_device_ms": None,
         "library_note": "no single PyTorch call computes an SSD chunked scan",
         "shape": f"B={sB} H={sH} S={sS} P={sP} N={sN} Q={sQ} bf16 xdt/B/C, "
                  "f32 a"})

@@ -36,9 +36,10 @@ _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 #: source name -> {C function: argtypes}; every function returns a cudaError_t
 SIGNATURES = {
     "flash_attention": {
-        "flash_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
-                                _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
-                                _ll, _ll, _ll, _i, _i, _i, _f, _p],
+        "flash_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
+                                _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
+                                _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _p,
+                                _p, _i, _p],
     },
     "blockcyclic": {
         "blockcyclic_repack": [_p, _p, _p, _ll, _ll, _i, _p],

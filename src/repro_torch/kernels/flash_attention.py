@@ -7,7 +7,15 @@ head ``h`` reading KV head ``h // (H / Hkv)``, scale ``D ** -0.5``,
 optional top-left-aligned causal mask and sliding window, optional
 ``kv_len`` valid keys; returns ``(B, H, Sq, D)`` in q's dtype, laid out in
 memory as ``(B, Sq, H, D)`` so that the model's ``transpose(1, 2)`` back
-to its layout is free.  See the source for the kernel's design.
+to its layout is free.
+
+One C entry point, three device paths (see the source for their design):
+``split_decode`` when ``(H / Hkv) * Sq <= DECODE_ROWS`` (either dtype),
+else ``mma`` for bfloat16 and ``fma`` for float32.  The wrapper makes that
+choice (:func:`select_path`, and :func:`decode_splits` for the split path's
+launch), pure functions of the shapes, and passes it to the entry point,
+which refuses a path whose kernels cannot take the call;
+``flash_attention.path_launches`` counts calls by path.
 """
 from __future__ import annotations
 
@@ -17,7 +25,38 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
+#: path names, indexed by the id the C entry point takes
+PATHS = ("fma", "mma", "split_decode")
+DECODE_ROWS = 16            # kDecodeRows: query rows per KV head, at most
+TILE_K = 64                 # kTileK: keys per shared-memory tile
+#: a split CTA's 4 warps take at most this many K/V tiles (two each)
+SPLIT_MAX_TILES = 8
+
+_fwd = None                 # the bound C function, looked up once
+_sm_counts = {}
+#: the split path's arrival counters, one int32 per (batch, KV head), by
+#: (device, stream): zeros that every launch leaves zero again
+_counters = {}
+
+
+def select_path(dtype: torch.dtype, rows: int) -> str:
+    """The path for ``rows = (H / Hkv) * Sq`` query rows per KV head."""
+    if rows <= DECODE_ROWS:
+        return "split_decode"
+    return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def decode_splits(bh: int, sk: int, sms: int) -> int:
+    """Key splits of the split path for ``bh = B * Hkv`` and a buffer of
+    ``sk`` keys on a card with ``sms`` SMs: as few as leave a CTA at most
+    ``SPLIT_MAX_TILES`` tiles, more only while there are fewer CTAs than
+    SMs; whole tiles per split, no empty split.  It does not depend on
+    kv_len, so the launch stays the same as the cache fills."""
+    tiles = max(1, -(-sk // TILE_K))
+    want = max(-(-tiles // SPLIT_MAX_TILES), min(tiles, sms // bh))
+    per = -(-tiles // max(1, want))             # tiles per split
+    return -(-tiles // per)
 
 
 def _check(q, k, v):
@@ -33,19 +72,38 @@ def _check(q, k, v):
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/"
                         f"{v.dtype}; the kernel takes float32 or bfloat16")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {_HEAD_DIMS}")
+    if D % 16:
+        raise ValueError(f"flash_attention: head dim {D} is not a multiple "
+                         "of 16")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError("flash_attention: q, k, v on different devices")
     vec = 16 // q.element_size()
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in (("q", q), ("k", k), ("v", v)):   # 16-byte vector loads
         if t.stride(-1) != 1:
             raise ValueError(f"flash_attention: {name}'s last dim must be "
                              "contiguous")
-    for name, t in (("k", k), ("v", v)):      # 16-byte vector loads
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
             raise ValueError(f"flash_attention: {name} must be 16-byte "
                              "aligned with strides in multiples of 16 bytes")
+
+
+def _sm_count(device) -> int:
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _counter_block(device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    c = _counters.get(key)
+    if c is None or c.numel() < n:
+        c = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                         device=device)
+    return c
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -54,6 +112,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
     ``kv_len``: None (all ``Sk`` keys), an int, or a 0-d int32 tensor on
     q's device (read by the kernel on the device: no host sync)."""
+    global _fwd
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
                                    kv_len=kv_len)
@@ -73,17 +132,33 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         kv_host = int(kv_len)
     out = torch.empty((B, Sq, H, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
-    lib = _build.load()["flash_attention"]
+    rows = H // Hkv * Sq
+    path = select_path(q.dtype, rows)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.flash_attention_fwd(
+    ws = counters = None
+    nsplit = 0
+    if path == "split_decode":
+        nsplit = decode_splits(B * Hkv, Sk, _sm_count(q.device))
+        if nsplit > 1 or q.dtype == torch.float32:   # the splits merge
+            ws = torch.empty(B * Hkv * nsplit * rows * (D + 2),
+                             dtype=torch.float32, device=q.device)
+            counters = _counter_block(q.device, stream, B * Hkv)
+    if _fwd is None:
+        _fwd = _build.load()["flash_attention"].flash_attention_fwd
+    err = _fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_dev,
-        _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D,
+        PATHS.index(path), _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        kv_host, int(bool(causal)), int(window), float(D ** -0.5), stream)
+        kv_host, int(bool(causal)), int(window), float(D ** -0.5),
+        None if ws is None else ws.data_ptr(),
+        None if counters is None else counters.data_ptr(), nsplit, stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
+    flash_attention.path_launches[path] += 1
     return out
 
 
-#: kernel launches since the last reset (CPU calls are not launches)
+#: kernel launches since the last reset (CPU calls are not launches), in
+#: all and by path (one count per call, whatever the path launches)
 flash_attention.launches = 0
+flash_attention.path_launches = dict.fromkeys(PATHS, 0)

@@ -31,6 +31,8 @@ def launch_counts() -> Dict[str, int]:
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    flash_attention.path_launches = dict.fromkeys(
+        flash_attention.path_launches, 0)
 
 
 __all__ = ["flash_attention", "repack", "ssd_scan", "build", "launch_counts",

@@ -8,8 +8,8 @@ only the port's dependencies:
     python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances are those of ``tests/test_kernels.py``: for attention 2e-5
-for float32 (the kernel computes in fp32 FMAs, never TF32) and 2e-2 for
-bfloat16; for the SSD scan 5e-4 and 3e-2 against the sequential oracle;
+for float32 (every path computes fp32 inputs in fp32 FMAs, never TF32) and
+2e-2 for bfloat16 (absolute plus relative); for the SSD scan 5e-4 and 3e-2 against the sequential oracle;
 the repack is exact.  Against the chunked plain version, which runs the
 kernel's own algorithm in fp32, the SSD scan is held to ``SSD_CHUNKED_TOL``
 (see there).
@@ -19,7 +19,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.ref import (attention_reference, repack_reference,
                                      ssd_chunked_reference, ssd_reference)
 
@@ -36,6 +37,29 @@ ATTN_CASES = [
     (3, 4, 2, 1, 200, 64, False, 0, "float32"),
     (2, 4, 2, 77, 77, 64, True, 0, "bfloat16"),
     (2, 4, 2, 40, 40, 16, True, 0, "float32"),       # the smoke config's D
+]
+# (B, H, Hkv, Sq, Sk, causal, window, dtype): each path at every head dim,
+# with ragged edges, windows and Sq < Sk (top-left causal)
+PATH_CASES = [
+    (2, 8, 2, 77, 77, True, 0, "bfloat16"),          # mma, ragged
+    (1, 4, 2, 200, 256, True, 64, "bfloat16"),       # mma, window, Sq < Sk
+    (1, 4, 4, 130, 130, False, 0, "bfloat16"),       # mma, Hkv = H
+    (2, 8, 2, 40, 90, True, 0, "float32"),           # fma, Sq < Sk
+    (1, 4, 1, 70, 70, True, 16, "float32"),          # fma, window, Hkv = 1
+    (3, 8, 2, 1, 200, False, 0, "float32"),          # split_decode
+    (3, 8, 1, 1, 333, False, 0, "bfloat16"),         # split_decode, G = 8
+    (2, 4, 2, 3, 150, True, 0, "bfloat16"),          # split_decode, Sq = 3
+    (2, 4, 2, 4, 150, True, 40, "float32"),          # split_decode, window
+]
+# (B, H, Hkv, Sq, Sk, causal, window), bf16: with B * Hkv >= 66 on a
+# 132-SM card the mma path runs its group kernel (one CTA per batch and KV
+# head); the mma cases of PATH_CASES run its block kernel
+GROUP_CASES = [
+    (16, 32, 8, 256, 256, True, 0),
+    (16, 32, 8, 200, 200, True, 50),
+    (16, 32, 8, 100, 256, True, 0),                  # Sq < Sk
+    (16, 8, 8, 130, 130, False, 0),                  # Hkv = H, ragged
+    (70, 4, 1, 64, 64, True, 0),                     # Hkv = 1
 ]
 
 REPACK_CASES = [(16, 8, 32, 10), (8, 16, 16, 8), (32, 8, 128, 32), (7, 3, 5, 9)]
@@ -91,6 +115,138 @@ def test_flash_kernel_matches_plain_on_card(cuda, B, H, Hkv, Sq, Sk, D,
     exp = attention_reference(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
                                rtol=TOL[dtype])
+
+
+def _expect(B, H, Hkv, Sq, dtype):
+    return fa.select_path(getattr(torch, dtype), H // Hkv * Sq)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,window,dtype", PATH_CASES)
+def test_flash_paths_every_head_dim_on_card(cuda, B, H, Hkv, Sq, Sk, causal,
+                                            window, dtype, D):
+    g = torch.Generator(cuda).manual_seed(2)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt) for s in
+               [(B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)])
+    path = _expect(B, H, Hkv, Sq, dtype)
+    before = dict(fa.flash_attention.path_launches)
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    after = fa.flash_attention.path_launches
+    assert {p: after[p] - before[p] for p in after} == \
+        {p: int(p == path) for p in after}
+    exp = attention_reference(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,window", GROUP_CASES)
+def test_flash_group_prefill_on_card(cuda, B, H, Hkv, Sq, Sk, causal, window,
+                                     D):
+    g = torch.Generator(cuda).manual_seed(4)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16() for s in
+               [(B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)])
+    before = fa.flash_attention.path_launches["mma"]
+    out = ops.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.path_launches["mma"] == before + 1
+    exp = attention_reference(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL["bfloat16"],
+                               rtol=TOL["bfloat16"])
+
+
+def _split_edges(S, nsplit):
+    """kv_len values next to every tile edge (and so every split edge)."""
+    edges = {1, S}
+    for e in range(fa.TILE_K, S + 1, fa.TILE_K):
+        edges |= {n for n in (e - 1, e, e + 1) if 1 <= n <= S}
+    return sorted(edges)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [16, 1])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("as_tensor", [False, True])
+def test_flash_decode_at_every_split_edge_on_card(cuda, dtype, as_tensor, B):
+    """The serving path's decode shape (B = 16: one split per batch and KV
+    head; B = 1: eight, merged by the last to finish): kv_len on both sides
+    of every tile and split boundary, read from a strided view of a longer
+    (B, S, Hkv, D) cache."""
+    g = torch.Generator(cuda).manual_seed(3)
+    H, Hkv, S, D = 32, 8, 512, 64
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, 1, H, D, generator=g, device=cuda).to(dt)
+    big = [torch.randn(B, S + 64, Hkv, D, generator=g, device=cuda).to(dt)
+           for _ in range(2)]
+    k, v = (t[:, 32:32 + S] for t in big)          # a view into the buffer
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    nsplit = fa.decode_splits(B * Hkv, S, fa._sm_count(q.device))
+    ops.reset_counts()
+    edges = _split_edges(S, nsplit)
+    for n in edges:
+        kv_len = torch.tensor(n, dtype=torch.int32, device=cuda) \
+            if as_tensor else n
+        out = ops.flash_attention(*args, causal=False, kv_len=kv_len)
+        exp = attention_reference(*args, causal=False, kv_len=n)
+        torch.testing.assert_close(out.float(), exp.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    assert fa.flash_attention.path_launches == {
+        "fma": 0, "mma": 0, "split_decode": len(edges)}
+
+
+@pytest.mark.gpu
+def test_flash_entry_point_refuses_a_path_that_cannot_take_the_call(cuda):
+    """The wrapper chooses the path; the C entry point returns
+    cudaErrorInvalidValue (1) for a path whose kernels cannot take the
+    call, and launches nothing."""
+    ops.build()
+    fwd = _build.load()["flash_attention"].flash_attention_fwd
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    fma, mma, split = (fa.PATHS.index(p) for p in ("fma", "mma",
+                                                   "split_decode"))
+
+    def call(path, dtype, H, Sq, nsplit=1):
+        q = torch.zeros(1, H, Sq, 64, device=cuda, dtype=dtype)
+        kv = torch.zeros(1, 1, 64, 64, device=cuda, dtype=dtype)
+        out = torch.empty_like(q)
+        return fwd(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(),
+                   None, path, fa._DTYPES[dtype], 1, H, 1, Sq, 64, 64,
+                   *q.stride()[:3], *kv.stride()[:3], *kv.stride()[:3],
+                   *out.stride()[:3], 64, 1, 0, 0.125, None, None, nsplit,
+                   stream)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert call(mma, f32, 4, 64) == 1            # mma: bf16 only
+    assert call(fma, bf16, 4, 64) == 1           # fma: fp32 only
+    assert call(split, bf16, 4, 8) == 1          # 32 rows > DECODE_ROWS
+    assert call(split, f32, 4, 1) == 1           # fp32 merges: no workspace
+    assert call(split, bf16, 4, 1, nsplit=2) == 1
+    assert call(split, bf16, 4, 1, nsplit=0) == 1
+    assert call(len(fa.PATHS), bf16, 4, 64) == 1
+    assert call(split, bf16, 4, 1) == 0          # the path it would choose
+    assert call(mma, bf16, 4, 64) == 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+def test_flash_unsupported_cases_raise_on_card(cuda):
+    """A CUDA tensor that no path takes raises; it never reaches the plain
+    version."""
+    for D, match in ((24, "multiple of 16"), (48, "not in"), (96, "not in")):
+        q = torch.zeros(1, 4, 8, D, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match=match):
+            ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 8, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q, q, q)
+    q = torch.zeros(1, 4, 8, 72, device=cuda)[..., :64]
+    k = torch.zeros(1, 4, 8, 66, device=cuda)[..., :64]
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.flash_attention(q, k, k)
 
 
 @pytest.mark.gpu
@@ -187,6 +343,8 @@ def test_decode_path_on_card_matches_cpu(cuda):
     ops.reset_counts()
     out = decode_demo("granite-3-2b-smoke", device=cuda, **run)
     assert ops.launch_counts()["flash_attention"] == cfg.num_layers * 16
+    assert fa.flash_attention.path_launches["split_decode"] == \
+        cfg.num_layers * 16
     np.testing.assert_array_equal(out["tokens"], ref["tokens"])
     assert [e.transfer.bytes_moved for e in out["events"]] == \
         [e.transfer.bytes_moved for e in ref["events"]]

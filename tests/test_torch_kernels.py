@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -26,6 +27,9 @@ ATTN_CASES = [
     (2, 4, 1, 256, 256, 64, True, 64, "float32"),
     (1, 2, 2, 128, 128, 64, True, 0, "bfloat16"),
     (1, 4, 2, 64, 64, 32, True, 0, "float32"),
+    # head dim 80 (zamba2-2.7b's), which every device path of K1 takes
+    (1, 4, 2, 128, 128, 80, True, 0, "float32"),
+    (1, 2, 2, 128, 128, 80, True, 0, "bfloat16"),
 ]
 
 DECODE_CASES = [
@@ -36,6 +40,8 @@ DECODE_CASES = [
     (5, 8, 1, 256, 64),
     (7, 2, 2, 192, 32),
     (1, 4, 4, 512, 128),
+    (3, 4, 2, 128, 80),
+    (2, 32, 8, 512, 64),        # the granite serving path's decode, batch 2
 ]
 
 REPACK_CASES = [(16, 8, 32, 10), (8, 16, 16, 8), (32, 8, 128, 32)]
@@ -138,6 +144,67 @@ def test_repack_matches_jax_kernel(nblocks, block, width, nout):
                                             jnp.asarray(idx))))
 
 
+@pytest.mark.parametrize("dtype,rows,path", [
+    (torch.bfloat16, 1, "split_decode"), (torch.float32, 4, "split_decode"),
+    (torch.bfloat16, 16, "split_decode"), (torch.float32, 16, "split_decode"),
+    (torch.bfloat16, 17, "mma"), (torch.bfloat16, 1024, "mma"),
+    (torch.float32, 17, "fma"), (torch.float32, 1024, "fma")])
+def test_flash_path_choice(dtype, rows, path):
+    """K1's path is a pure function of the dtype and the query rows per KV
+    head, (H / Hkv) * Sq: decode-shaped calls split the keys, prefill takes
+    the tensor cores in bf16 and fp32 FMAs in fp32."""
+    assert fa.select_path(dtype, rows) == path
+
+
+@pytest.mark.parametrize("bh,sk,sms,want", [
+    (128, 512, 132, 1),      # granite decode (B=16, Hkv=8): a CTA a head
+    (128, 384, 132, 1),
+    (16, 512, 132, 8),       # few CTAs: split, one tile each
+    (8, 64, 132, 1),         # one tile: one split
+    (4096, 512, 132, 1),     # enough CTAs already
+    (128, 4096, 132, 8),     # 64 tiles: 8 per CTA at most
+    (128, 4160, 132, 9),     # 65 tiles: 9 splits of 8, the last of 1
+    (32, 512, 132, 4),       # 4 splits of 2 tiles fill the card
+    (64, 100, 132, 2),       # a ragged tile
+    (1, 0, 132, 1),          # an empty buffer still has a split
+])
+def test_decode_split_count(bh, sk, sms, want):
+    """The split count depends on B * Hkv, the buffer length and the SM
+    count only (never kv_len); every split holds at least one key and at
+    most SPLIT_MAX_TILES tiles."""
+    n = fa.decode_splits(bh, sk, sms)
+    assert n == want
+    tiles = max(1, -(-sk // fa.TILE_K))
+    per = -(-tiles // n)
+    assert per * (n - 1) < tiles <= per * n
+    assert per <= fa.SPLIT_MAX_TILES
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 48, 96, 256])
+def test_flash_check_rejects_head_dims(D):
+    """The wrapper's checks run on the host: a head dim that is not a
+    multiple of 16, or one no device path was built for, is refused before
+    any launch."""
+    q = torch.zeros(1, 2, 4, D)
+    match = "multiple of 16" if D % 16 else "not in"
+    with pytest.raises(ValueError, match=match):
+        fa._check(q, q, q)
+
+
+def test_flash_check_accepts_every_head_dim():
+    for D in fa.HEAD_DIMS:
+        q = torch.zeros(1, 2, 4, D, dtype=torch.bfloat16)
+        fa._check(q, q, q)
+    q = torch.zeros(1, 2, 4, 64, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        fa._check(q, q, q)
+    k = torch.zeros(1, 2, 8, 68)[..., :64]       # rows of 272 bytes: ok
+    fa._check(torch.zeros(1, 2, 4, 64), k, k)
+    k = torch.zeros(1, 2, 8, 66)[..., :64]       # rows of 264 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        fa._check(torch.zeros(1, 2, 4, 64), k, k)
+
+
 def test_cpu_calls_are_not_launches():
     ops.reset_counts()
     q = torch.zeros(1, 2, 4, 32)
@@ -147,6 +214,8 @@ def test_cpu_calls_are_not_launches():
                  torch.zeros(1, 8, 16), torch.zeros(1, 8, 16), chunk=4)
     assert ops.launch_counts() == {"flash_attention": 0, "repack": 0,
                                    "ssd_scan": 0}
+    assert fa.flash_attention.path_launches == {"fma": 0, "mma": 0,
+                                                "split_decode": 0}
 
 
 def test_no_silent_fallback_off_the_cpu():
