@@ -12,8 +12,8 @@ really ran through its kernels.  Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: compile every kernel (one nvcc per source, in parallel), and
-   print ptxas's report of K1's kernels (registers, spills, static shared
-   memory);
+   print ptxas's report of K1's, K2's and K3's kernels (registers, spills,
+   static shared memory);
 3. K1 flash attention against ``attention_reference``, each case also
    checking which of K1's three paths it took (``path_launches``): the
    cases of the JAX package's kernel tests; bf16 prefill on the mma path
@@ -23,12 +23,15 @@ really ran through its kernels.  Phases:
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
-   ``BlockCyclicPattern.host_redistribute`` — K2's own path;
+   ``BlockCyclicPattern.host_redistribute`` — K2's own path; every call
+   on K2's bulk path (``path_launches``);
 5. K3 SSD scan against ``ssd_reference`` (the sequential oracle) and
-   ``ssd_chunked_reference`` (its own algorithm in plain PyTorch): the
-   cases of the JAX package's kernel tests, then the mamba2 path's shape
-   (B=16, H=32, S=1024, P=64, N=128, Q=256) in bf16 and in f32, the latter
-   also at the decays of mamba2's random init;
+   ``ssd_chunked_reference`` (its own algorithm in plain PyTorch), each
+   case also checking which of K3's two paths it took (``path_launches``):
+   the cases of the JAX package's kernel tests, then the mamba2 path's
+   shape (B=16, H=32, S=1024, P=64, N=128, Q=256) in bf16 (on the wgmma
+   path) and in f32, the latter also at the decays of mamba2's random
+   init;
 6. the granite serving path: ``decode_demo`` (batch 16, prompt 256, 128
    decoded tokens, cache 512, 8 workers) without and with a 4 -> 8 -> 2
    resize schedule; tokens must agree and each run must launch K1 once
@@ -47,7 +50,7 @@ really ran through its kernels.  Phases:
    decode path (the SSM recurrence) launches neither K1 nor K3;
 10. mamba2 prefill vs decode: ``make_prefill_step`` at B=16, S=1024 (four
     chunks, so the state is carried across chunks three times) must launch
-    K3 once per layer; fp32 full-sequence logits at every position against
+    K3 once per layer, every launch on the wgmma path; fp32 full-sequence logits at every position against
     fp32 token-by-token decode logits (tight), bf16 prefill and decode each
     against fp32 (beside the fp32 model with bf16-rounded weights, the
     yardstick of how far bf16 rounding alone moves these logits); then one
@@ -65,7 +68,8 @@ really ran through its kernels.  Phases:
     than the card's 50 MB L2 holds (back-to-back calls on one set of
     inputs find them in L2; a serving step finds them cold); K2's and K3's
     inputs alone outgrow L2.  K1 decode adds ``host_us``, the wrapper's
-    host time per call.  Then the contract line ``{"ok": true, ...}``.
+    host time per call; every row names the device path it timed.  Then
+    the contract line ``{"ok": true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
@@ -246,15 +250,16 @@ def host_us(fn, iters: int = 200) -> float:
 
 def ptxas_report(log: str) -> list:
     """ptxas's per-kernel report (``-Xptxas -v``): registers, spill bytes
-    and static shared memory (the K/V rings are dynamic shared memory, which
-    ptxas does not see)."""
+    and static shared memory (the tiles and rings are dynamic shared
+    memory, which ptxas does not see)."""
     import re
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"(attn_[a-z_]+?_kernel)(.*)", name)
+            k = re.search(r"((?:attn|ssd_scan|repack)_[a-z_]*?kernel)(.*)",
+                          name)
             if not k:
                 cur = None
                 continue
@@ -302,7 +307,9 @@ def main() -> None:
     from repro_torch.core.redistribute import blockcyclic_split
     from repro_torch.dmr import get_pattern
     from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import blockcyclic as bc
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import (attention_reference,
                                          repack_reference,
                                          ssd_chunked_reference, ssd_reference)
@@ -345,15 +352,17 @@ def main() -> None:
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     sms = fa._sm_count(dev)
     nsplit = fa.decode_splits(BATCH * Hkv, CACHE, sms)
-    report = ptxas_report(_build.build_log("flash_attention"))
-    if not report or any("regs" not in r for r in report):
-        fail(f"no ptxas report for K1's kernels: {report}")
-    print("[ptxas:K1] " + json.dumps(report, separators=(",", ":")),
-          flush=True)
-    phase("ptxas:K1", kernels=len(report),
-          max_regs=max(r["regs"] for r in report),
-          spills=sum(r["spill_st"] + r["spill_ld"] for r in report),
-          sms=sms, decode_splits=nsplit)
+    for tag, source in (("K1", "flash_attention"), ("K2", "blockcyclic"),
+                        ("K3", "ssd_scan")):
+        report = ptxas_report(_build.build_log(source))
+        if not report or any("regs" not in r for r in report):
+            fail(f"no ptxas report for {tag}'s kernels: {report}")
+        print(f"[ptxas:{tag}] " + json.dumps(report, separators=(",", ":")),
+              flush=True)
+        phase(f"ptxas:{tag}", kernels=len(report),
+              max_regs=max(r["regs"] for r in report),
+              spills=sum(r["spill_st"] + r["spill_ld"] for r in report))
+    phase("K1:launch", sms=sms, decode_splits=nsplit)
     mark("build")
 
     rng = np.random.default_rng(0)
@@ -479,6 +488,7 @@ def main() -> None:
     mark("K1")
 
     # -- 4. K2 against its plain version ----------------------------------
+    ops.reset_counts()
     for nblocks, block, width, nout in [(16, 8, 32, 10), (8, 16, 16, 8),
                                         (32, 8, 128, 32)]:
         src = rand((nblocks, block, width))
@@ -486,6 +496,9 @@ def main() -> None:
         if not torch.equal(ops.repack(src, idx),
                            repack_reference(src, torch.from_numpy(idx).to(dev))):
             fail(f"repack {(nblocks, block, width, nout)} differs")
+    if bc.repack.path_launches != {"bytes": 0, "bulk": 3}:
+        fail(f"K2's aligned cases took paths {bc.repack.path_launches}, "
+             "not bulk")
     vp_rows = M.model_schema(cfg)["embed"]["embedding"].shape
     table = torch.randn(vp_rows, generator=torch.Generator(dev).manual_seed(1),
                         device=dev)
@@ -498,6 +511,7 @@ def main() -> None:
     parts2, st2 = pat.host_redistribute(parts8, 2)
     torch.cuda.synchronize()
     repack_launches = ops.launch_counts()["repack"]
+    repack_paths = dict(bc.repack.path_launches)
     for n, got in ((8, parts8), (2, parts2)):
         exp = blockcyclic_split(table, n, blk)
         if not all(torch.equal(a, b) for a, b in zip(got, exp)):
@@ -509,10 +523,12 @@ def main() -> None:
             for a, b in ((4, 8), (8, 2))]
     if [st8.bytes_moved, st2.bytes_moved] != want:
         fail(f"bytes_moved {[st8.bytes_moved, st2.bytes_moved]} != {want}")
-    if repack_launches != 2:
-        fail(f"block-cyclic path launched K2 {repack_launches} times, not 2")
+    if repack_launches != 2 or repack_paths != {"bytes": 0, "bulk": 2}:
+        fail(f"block-cyclic path launched K2 {repack_launches} times on "
+             f"paths {repack_paths}, not 2 on bulk")
     phase("K2", table=tuple(vp_rows), table_mb=f"{table.nbytes / 1e6:.1f}",
           block=blk, exact=True, launches=repack_launches,
+          path_launches=json.dumps(repack_paths, separators=(",", ":")),
           bytes_moved=f"{st8.bytes_moved},{st2.bytes_moved}",
           seconds=f"{st8.seconds:.4f},{st2.seconds:.4f}")
     del parts4, parts8, parts2
@@ -538,11 +554,25 @@ def main() -> None:
                 scaled((B, S, N), dt), scaled((B, S, N), dt))
 
     ssd_err = {"float32": [0.0, 0.0], "bfloat16": [0.0, 0.0]}
+    ssd_paths = dict.fromkeys(ss.PATHS, 0)
+
+    def k3_call(xdt, a, bm, cm, chunk, what):
+        """K3 on one case; the call must take (and count) the path
+        ``select_path`` names for its dtype and shape."""
+        path = ss.select_path(xdt.dtype, xdt.shape[-1], bm.shape[-1], chunk)
+        before = dict(ss.ssd_scan.path_launches)
+        out = ops.ssd_scan(xdt, a, bm, cm, chunk=chunk)
+        moved = {p: n - before[p] for p, n in ss.ssd_scan.path_launches.items()}
+        if moved != {p: int(p == path) for p in moved}:
+            fail(f"{what}: K3 path launches {moved}, not one on {path}")
+        ssd_paths[path] += 1
+        return out, path
+
     for case in SSD_CASES:              # (H, B, ... stay granite's)
         *shape, cQ, name = case
         sargs = ssd_inputs(*shape, 0.4, getattr(torch, name))
-        out = ops.ssd_scan(*sargs, chunk=cQ)
         what = f"ssd case {case}"
+        out, _ = k3_call(*sargs, cQ, what)
         ssd_err[name][0] = max(ssd_err[name][0], check_close(
             out, ssd_reference(*sargs), name, what, SSD_TOL[name]))
         ssd_err[name][1] = max(ssd_err[name][1], check_close(
@@ -553,7 +583,9 @@ def main() -> None:
     for name, decay in (("float32", "model"), ("float32", 0.02),
                         ("bfloat16", 0.02)):    # the bf16 inputs are timed
         ssd_args = ssd_inputs(sB, sH, sS, sP, sN, decay, getattr(torch, name))
-        out = ops.ssd_scan(*ssd_args, chunk=sQ)
+        out, path = k3_call(*ssd_args, sQ, f"ssd slice {name} decay {decay}")
+        if name == "bfloat16" and path != "wgmma":
+            fail(f"the slice's bf16 shape took K3's {path} path, not wgmma")
         slice_err[name if decay != "model" else "model_f32"] = (
             check_close(out, ssd_reference(*ssd_args), name,
                         f"ssd slice {name} decay {decay}", SSD_TOL[name]),
@@ -563,6 +595,7 @@ def main() -> None:
     torch.cuda.synchronize()
     del out
     phase("K3", cases=len(SSD_CASES) + 3,
+          paths=json.dumps(ssd_paths, separators=(",", ":")),
           max_err_f32=f"{ssd_err['float32'][0]:.3e}",
           max_err_bf16=f"{ssd_err['bfloat16'][0]:.3e}",
           max_err_vs_chunked=f"{ssd_err['float32'][1]:.3e},"
@@ -860,9 +893,12 @@ def main() -> None:
         m_prefill_s = time.perf_counter() - t0
         m_counts = ops.launch_counts()
         k3_prefill = m_counts["ssd_scan"]
-        if k3_prefill != mcfg.num_layers or m_counts["flash_attention"]:
-            fail(f"mamba2 prefill launched {m_counts}, not K3 "
-                 f"{mcfg.num_layers} times")
+        k3_prefill_paths = dict(ss.ssd_scan.path_launches)
+        if k3_prefill != mcfg.num_layers or m_counts["flash_attention"] or \
+                k3_prefill_paths != {"fma": 0, "wgmma": mcfg.num_layers}:
+            fail(f"mamba2 prefill launched {m_counts} (K3 paths "
+                 f"{k3_prefill_paths}), not K3 {mcfg.num_layers} times on "
+                 "wgmma")
         mlp = prefill_logits(mparams, mcfg, mbatch)[:, :MV].float()
         full32 = M.forward(mparams, mcfg32, mbatch)[0][..., :MV]
         mlp32 = prefill_logits(mparams, mcfg32, mbatch)[:, :MV].float()
@@ -887,6 +923,7 @@ def main() -> None:
     m_agree = (m_first == mld.argmax(-1)).float().mean().item()
     phase("mamba2:prefill", batch=BATCH, seq=M_PREFILL_S,
           chunks=M_PREFILL_S // mcfg.ssm.chunk_size, k3_launches=k3_prefill,
+          k3_path_launches=json.dumps(k3_prefill_paths, separators=(",", ":")),
           prefill_s=f"{m_prefill_s:.3f}",
           fp32_prefill_vs_decode=f"{m_gap32:.4e}",
           fp32_all_positions=f"{m_gap_all:.4e}", fp32_tol=M_FP32_LOGITS_ATOL,
@@ -986,6 +1023,7 @@ def main() -> None:
         "name": "blockcyclic_repack", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/blockcyclic.cu",
         "replaces": "src/repro/kernels/blockcyclic.py:22",
+        "path": "bulk",
         "launches": repack_launches, "max_abs_err": err_rep,
         "ms": time_ms(lambda: ops.repack(src, idx), iters=20),
         "device_ms": dev_ms["K2"],
@@ -1007,6 +1045,7 @@ def main() -> None:
         "name": "ssd_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "path": "wgmma",
         "launches": k3_prefill, "max_abs_err": slice_err["bfloat16"][0],
         "ms": time_ms(k3, iters=20), "device_ms": dev_ms["K3"],
         "plain_ms": time_ms(lambda: ssd_chunked_reference(*ssd_args, sQ),

@@ -46,8 +46,8 @@ SIGNATURES = {
     },
     "ssd_scan": {
         "ssd_scan_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i, _i,
-                         _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
-                         _ll, _ll, _ll, _p],
+                         _i, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
+                         _ll, _ll, _ll, _ll, _p],
     },
 }
 

@@ -3,6 +3,12 @@
 Replaces the Pallas TPU kernel ``blockcyclic_repack``
 (``repro/kernels/blockcyclic.py``): ``out[i] = src[idx[i]]`` for src
 ``(nblocks, block, width)`` of any dtype and idx ``(nout,)``; exact.
+
+Two device paths (see the source): ``bulk`` (a ring of TMA bulk copies)
+when the blocks and both base pointers are 16-byte aligned, else
+``bytes``; ``repack.path_launches`` counts calls by path.  The indices
+are range-checked on the host, then uploaded from pinned memory without
+synchronising the stream.
 """
 from __future__ import annotations
 
@@ -11,6 +17,51 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import repack_reference
+
+#: path names, indexed by the flag the C entry point takes
+PATHS = ("bytes", "bulk")
+
+_copy_streams = {}          # device index -> the side stream of the uploads
+
+
+def select_path(block_bytes: int, src_ptr: int, out_ptr: int) -> str:
+    """Bulk copies need 16-byte sizes and addresses."""
+    aligned = block_bytes % 16 == 0 and src_ptr % 16 == 0 and \
+        out_ptr % 16 == 0
+    return "bulk" if aligned else "bytes"
+
+
+def upload_index(idx, nblocks: int, device) -> torch.Tensor:
+    """``idx`` (host data: a sequence, numpy array or CPU tensor) as int32
+    on ``device``, after every index is checked against ``nblocks``.  The
+    copy is asynchronous from pinned memory (:func:`_copy_async`), so the
+    stream is not synchronised; PyTorch's caching host allocator keeps the
+    pinned buffer until the copy has run."""
+    if isinstance(idx, torch.Tensor) and idx.device.type != "cpu":
+        raise ValueError("repack: idx must be host data (it is validated "
+                         "before upload)")
+    host = np.asarray(idx, dtype=np.int64).reshape(-1)
+    if host.size and (host.min() < 0 or host.max() >= nblocks):
+        raise IndexError(f"repack: index out of range [0, {nblocks})")
+    pinned = torch.from_numpy(host.astype(np.int32)).pin_memory()
+    return _copy_async(pinned, torch.device(device))
+
+
+def _copy_async(pinned: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``pinned`` on ``device``, copied on a side stream that the current
+    stream then waits for.  On the current stream itself the copy would
+    queue behind the kernel before it, and the next kernel behind the copy:
+    a bubble of one copy's latency between back-to-back repacks.  On the
+    side stream it runs while that kernel does."""
+    main = torch.cuda.current_stream(device)
+    side = _copy_streams.get(device.index)
+    if side is None:
+        side = _copy_streams[device.index] = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        out = pinned.to(device, non_blocking=True)
+    main.wait_stream(side)
+    out.record_stream(main)                     # freed in main's order
+    return out
 
 
 def repack(src, idx):
@@ -26,30 +77,27 @@ def repack(src, idx):
                                                      dtype=torch.long))
     if src.device.type != "cuda":
         raise RuntimeError(f"repack: no kernel for {src.device}")
-    if isinstance(idx, torch.Tensor) and idx.device.type != "cpu":
-        raise ValueError("repack: idx must be host data (it is validated "
-                         "before upload)")
-    host = np.asarray(idx, dtype=np.int64).reshape(-1)
-    nblocks = src.shape[0]
-    if host.size and (host.min() < 0 or host.max() >= nblocks):
-        raise IndexError(f"repack: index out of range [0, {nblocks})")
     if not src.is_contiguous():
         raise ValueError("repack: src must be contiguous")
-    out = torch.empty((host.size,) + tuple(src.shape[1:]), dtype=src.dtype,
-                      device=src.device)
-    dev_idx = torch.from_numpy(host.astype(np.int32)).to(src.device)
-    block_bytes = src[0].numel() * src.element_size() if nblocks else 0
-    vec16 = int(block_bytes % 16 == 0 and src.data_ptr() % 16 == 0
-                and out.data_ptr() % 16 == 0)
+    dev_idx = upload_index(idx, src.shape[0], src.device)
+    out = torch.empty((dev_idx.numel(),) + tuple(src.shape[1:]),
+                      dtype=src.dtype, device=src.device)
+    block_bytes = src[0].numel() * src.element_size() if src.shape[0] else 0
+    if out.numel() == 0:                        # nothing to copy
+        return out
+    path = select_path(block_bytes, src.data_ptr(), out.data_ptr())
     lib = _build.load()["blockcyclic"]
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = lib.blockcyclic_repack(src.data_ptr(), out.data_ptr(),
-                                 dev_idx.data_ptr(), host.size, block_bytes,
-                                 vec16, stream)
+                                 dev_idx.data_ptr(), dev_idx.numel(),
+                                 block_bytes, PATHS.index(path), stream)
     _build.check(err, "blockcyclic_repack")
     repack.launches += 1
+    repack.path_launches[path] += 1
     return out
 
 
-#: kernel launches since the last reset (CPU calls are not launches)
+#: kernel launches since the last reset (CPU calls are not launches), in
+#: all and by path
 repack.launches = 0
+repack.path_launches = dict.fromkeys(PATHS, 0)

@@ -13,50 +13,78 @@
 //   state = state exp(cum[Q-1]) + sum_s exp(cum[Q-1] - cum[s]) x[s] (x) B[s]
 // with x = xdt (already times dt), a = dt * A (negative), and B, C shared
 // by every head.  The causal mask is applied to the exponent: an entry with
-// s > q is never exponentiated.  Inputs are f32 or bf16 (a is f32),
-// computed in fp32 (no TF32); y comes back in xdt's dtype.  The kernel takes
-// the model's layout through strides -- xdt and y (B, S, H, P), a (B, S, H),
-// B and C (B, S, N), each with its last dim contiguous -- so there is no
-// transpose copy around the call.
+// s > q is never exponentiated.  Inputs are f32 or bf16 (a is f32), the
+// state and every sum are fp32 (no TF32); y comes back in xdt's dtype.  The
+// kernels take the model's layout through strides -- xdt and y (B, S, H, P),
+// a (B, S, H), B and C (B, S, N), each with its last dim contiguous -- so
+// there is no transpose copy around the call.
 //
 // What bounds it on the card: at the serving path's bf16 shapes (B=16,
 // S=1024, H=32, P=64, N=128, Q=256) the bytes.  xdt and y are 134 MB, a and
 // B/C 10.5 MB: ~145 MB is ~43 us at 3.35 TB/s, against ~26 GFLOP (~26 us at
-// the bf16 tensor-core peak).  This first version runs its products as fp32
-// FMAs on the CUDA cores, so it is operations-bound instead: ~0.4 ms at
-// 67 TFLOP/s even at full rate, more since it recomputes G = C B^T per head.
+// the bf16 tensor-core peak).  Only the tensor cores come near that: on the
+// CUDA cores the same work is ~0.4 ms even at the full fp32 FMA rate.
 //
-// Design.  The TPU grid's sequential chunk axis becomes a loop inside one
-// CTA per (b, h) (B*H CTAs: 512 at the path's shapes over 132 SMs), which
-// holds the state (P, N) in shared memory across the loop (32 KB at
-// 64 x 128).  The Pallas kernel's (Q, Q) fp32 score block is 256 KB at
-// Q = 256 and does not fit in 227 KB of shared memory, so the within-chunk
-// term is tiled: 64-row query tiles x 64-row key tiles, only tiles on or
-// below the diagonal (s <= q), each tile's G = C B^T formed in shared
-// memory, decayed and masked, then multiplied into the query tile's y
-// accumulators, which live in registers (a 16 x 16 thread grid, 4 x 4 per
-// thread).  The in-chunk cumsum is a block scan in shared memory.  The
-// state update runs after every query tile of the chunk has read the old
-// state; each thread owns a fixed (n, p) set of state entries.
+// One entry point, two device paths; the wrapper chooses and passes the
+// path, and the entry point refuses one that cannot take the call:
 //
-// Later work (see ROADMAP): tensor cores (mma/wgmma on bf16 tiles) for the
-// three products, G computed once per (b, chunk) and shared by the heads,
-// TMA loads, and splitting the chunk loop across CTAs (a second pass that
-// carries the chunk states) when B*H is small against the SM count.
+// * wgmma (bf16; P, N multiples of 16 up to 64 and 128; Q a multiple of 64;
+//   16-byte aligned rows).  One CTA of one warpgroup per (b, h) walks the
+//   sequence in 64-row sub-chunks, each chunk of Q being Q / 64 of them, and
+//   carries the state from sub-chunk to sub-chunk in the registers of the
+//   warpgroup (the wgmma accumulator, fp32).  For a sub-chunk with local
+//   cumsum l (l[q] = sum of a over the sub-chunk up to q):
+//     y   = exp(l[q]) C S^T + (C B^T o exp(l[q] - l[s]), s <= q) x
+//     S  <- S exp(l[63]) + (x o exp(l[63] - l[s]))^T B
+//   which is the contract's recurrence with the exponents of the chunk's
+//   cumsum split at the sub-chunk edges (exp(cum[q] - cum[s]) = exp(l[q] -
+//   l[s]) within a sub-chunk, and an earlier sub-chunk's terms reach q
+//   through S).  So each 64-row query tile meets one key tile, the diagonal
+//   one, and the off-diagonal key tiles of the chunk reach it through the
+//   state product it needs anyway: 25 MFLOP per (b, h, chunk) of 256 rows
+//   instead of 38 for G over every key tile on or below the diagonal.  The
+//   exponents come from sums over at most 64 rows, never from cumsums that
+//   reach ~-3e3 at mamba2's decays.
+//   All four products run on wgmma with fp32 accumulators, the A operand in
+//   registers: C (ldmatrix) for C S^T and G = C B^T; the decayed, masked G
+//   for G x, as K1's prefill does with P; (x o decay)^T (ldmatrix.trans) for
+//   the state update.  A bf16 operand rounds to 8 bits, which alone would
+//   put y ~2x past SSD_CHUNKED_TOL at the path's shape (a rounding model
+//   on the CPU); so every operand that is not an input -- the decayed G,
+//   x o decay and the fp32 state -- is split into hi + lo bf16 parts, two
+//   products into one accumulator, ~16 bits.  The inputs C, B, x are bf16
+//   already and are exact operands.
+//   P is padded to 64 and N to 64 or 128 (zero columns), so every tile is
+//   made of 128-byte rows.  Loads: cp.async, 8 lanes to a row's 128 bytes,
+//   into tiles with the 128-byte swizzle that wgmma reads (whole lines of
+//   global memory, no bank conflicts); B, x and a double-buffered so that
+//   sub-chunk j + 1 lands while j computes; C goes to registers first, so
+//   its single buffer is refilled as soon as it is read.  y is staged in
+//   shared memory and stored in whole rows.  ~106 KB of shared memory and
+//   <= 255 registers a thread: two CTAs per SM, so the 512 CTAs of the
+//   path's shape run in ~2 waves, and one CTA's loads, exps and stores
+//   overlap the other's products.  The update's products stay in flight
+//   while the decayed G is formed on the CUDA cores.  What is left on the
+//   card (chip_smoke.py, H100 SXM at 700 W: ~3.7x the bytes bound) is
+//   latency: each CTA is one chain of products, exps, barriers and state
+//   writes per sub-chunk, with two such chains per SM.
+// * fma (fp32, and bf16 shapes the wgmma path does not take).  The first
+//   version of this kernel: one CTA per (b, h) loops over the chunks with
+//   the state in shared memory; the within-chunk term is tiled (64 x 64,
+//   causal tiles only) since the (Q, Q) fp32 block of 256 KB does not fit;
+//   fp32 FMAs on the CUDA cores, so fp32 stays fp32.
+//
+// Left for later (see ROADMAP): splitting the sequence across CTAs (a
+// second pass for the carried states) when B*H is small against the SM
+// count, TMA loads and a producer warp.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cstdint>
+#include <initializer_list>
 
 namespace {
 
-constexpr int kThreads = 256;                   // a 16 x 16 thread grid
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 64;                       // rows per query / key tile
-constexpr int kMaxP = 64;
-constexpr int kMaxN = 128;
-constexpr int kMT = kTile / 16;                 // tile rows per thread
-constexpr int kMP = kMaxP / 16;                 // head dims per thread
-constexpr int kMN = kMaxN / 16;                 // state dims per thread
-constexpr unsigned kFull = 0xffffffffu;
+using bf16 = __nv_bfloat16;
 
 struct Params {
   const void* x;
@@ -72,14 +100,28 @@ struct Params {
   long long syb, sys, syh;
 };
 
+constexpr int kFma = 0, kWgmma = 1;             // path ids (the wrapper's)
+constexpr int kMaxP = 64;
+constexpr int kMaxN = 128;
+constexpr unsigned kFull = 0xffffffffu;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_from_f32(__nv_bfloat16* p, float x) {
+__device__ __forceinline__ void store_from_f32(bf16* p, float x) {
   *p = __float2bfloat16(x);
 }
+
+// =========================================================================
+// fma path: fp32 FMAs (the first version of this kernel)
+// =========================================================================
+
+constexpr int kThreads = 256;                   // a 16 x 16 thread grid
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;                       // rows per query / key tile
+constexpr int kMT = kTile / 16;                 // tile rows per thread
+constexpr int kMP = kMaxP / 16;                 // head dims per thread
+constexpr int kMN = kMaxN / 16;                 // state dims per thread
 
 // kTile rows of `width` values into shared memory (row stride ld), widened
 // to fp32; rows at or past `rows` are zero.
@@ -124,7 +166,7 @@ size_t smem_floats(int P, int N, int Q) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params p) {
+__global__ void __launch_bounds__(kThreads) ssd_scan_fma_kernel(const Params p) {
   extern __shared__ float smem[];
   __shared__ float wsum[kWarps];
   const int P = p.P, N = p.N, Q = p.Q;
@@ -299,37 +341,483 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_kernel(const Params p) {
 }
 
 template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(p.P, p.N, p.Q);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_fma_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid(p.H, p.B);
-  ssd_scan_kernel<T><<<grid, kThreads, smem, stream>>>(p);
+  ssd_scan_fma_kernel<T><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// =========================================================================
+// wgmma path: bf16 on the tensor cores, 64-row sub-chunks
+// =========================================================================
+
+constexpr int kWgThreads = 128;                 // one warpgroup
+constexpr int kSub = 64;                        // rows per sub-chunk
+constexpr int kPP = 64;                         // P, padded
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ---- PTX: cp.async, ldmatrix ----------------------------------------------
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !ok.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix m.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+               : "memory");
+}
+
+// ---- PTX: wgmma (warpgroup MMA, sm_90a) -----------------------------------
+//
+// d (64 x 64 fp32, the warpgroup's accumulators) = (acc ? d : 0) + a (64 x
+// 16 bf16: each warp's 16 rows as mma.sync A fragments) * B (16 x 64 bf16 in
+// shared memory, described by b).  TB = 1: B is stored N-contiguous
+// (transposed).  Accumulator layout: d[4 i + c] is row 16 warp + lane / 4
+// + 8 (c / 2), column 8 i + 2 (lane % 4) + c % 2.
+template <int TB>
+__device__ __forceinline__ void wg64(float (&d)[32], const uint32_t (&a)[4],
+                                     uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
+        "n"(TB));
+}
+// 64 of a larger accumulator's columns, from column 64 h.
+__device__ __forceinline__ float (&cols64(float* d, int h))[32] {
+  return *reinterpret_cast<float(*)[32]>(d + 32 * h);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Generic-proxy writes to shared memory (cp.async, stores) made visible to
+// wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Keeps the compiler from moving accesses of x across a wgmma wait, and
+// keeps registers that an in-flight wgmma reads alive until it has ended.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(x[i][c]) :: "memory");
+}
+
+// Shared-memory matrix descriptors.  No swizzle: the matrix is made of 8 x
+// 16 byte core matrices (128 contiguous bytes); lbo is the byte distance
+// between core matrices adjacent along K, sbo along M or N.  128-byte
+// swizzle: rows of 128 bytes whose 16-byte chunks are permuted by the row
+// index mod 8, in atoms of 8 rows (1024 bytes, 1024-byte aligned); sbo is
+// the byte distance between atoms along the rows, lbo (N-contiguous B only)
+// between atoms along the 128-byte rows.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo,
+                                              int sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return uint64_t((a & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
+         uint64_t((sbo >> 4) & 0x3FFF) << 32;
+}
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p, int lbo) {
+  return smem_desc(p, lbo, 1024) | uint64_t(1) << 62;
+}
+
+// ---- end of PTX ------------------------------------------------------------
+
+// Tiles of 64 rows x W bf16 columns.  C, B and x: 128-byte swizzle, W / 64
+// column blocks of 64 rows x 128 bytes each (8 KB), element (r, c) in block
+// c / 64, row r, 16-byte chunk (c % 64 / 8) ^ (r % 8).  The state: no
+// swizzle, core matrices row block by row block.
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return (c >> 6) * (kSub * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+template <int W>
+__device__ __forceinline__ int cm_off(int r, int c) {
+  return ((r >> 3) * (W / 8) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// v = hi + lo, each rounded to bf16 (together ~16 significant bits).
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return make_float2(__low2float(h), __high2float(h));
+}
+
+// 64 rows of `valid` bf16 values (row stride ld) into a swizzled 64 x W
+// tile; columns at or past `valid` read as zero.  8 lanes take one row's
+// 128 bytes: whole lines of global memory, and, through the swizzle, 8
+// distinct bank groups of shared memory.
+template <int W>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
+                                          long long ld, int valid) {
+  constexpr int CPR = W / 8;                    // 16-byte chunks per row
+  for (int e = threadIdx.x; e < kSub * CPR; e += kWgThreads) {
+    const int r = e / CPR, c = (e % CPR) * 8;
+    const bool ok = c < valid;
+    cp_async16(dst + sw_off(r, c), src + r * ld + (ok ? c : 0), ok);
+  }
+}
+
+// Shared memory of the wgmma path, in bytes (see the kernel).
+template <int NP>
+constexpr size_t wg_smem_bytes() {
+  return sizeof(bf16) * (size_t(kSub) * NP * 3 + size_t(kSub) * kPP * 2 +
+                         size_t(kPP) * NP * 2 + size_t(kSub) * (kPP + 8)) +
+         sizeof(float) * (2 * kSub + 3 * kSub);
+}
+
+// One CTA (one warpgroup) per (head, batch).  P is padded to 64 and N to NP
+// (64 or 128), the columns past P and N zero.  Warp w owns rows 16 w .. 16 w
+// + 15 of every product: query rows of y and G, state rows p of S.
+template <int NP>
+__global__ void __launch_bounds__(kWgThreads, 2)
+ssd_scan_wgmma_kernel(const Params p) {
+  constexpr int KN = NP / 16, KS = kSub / 16;   // k-steps over n and s
+  constexpr int HN = NP / 64;                   // 64-column blocks of n
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* Cs = reinterpret_cast<bf16*>(wg_smem);  // 64 x NP: C of the sub-chunk
+  bf16* Bs = Cs + kSub * NP;                    // 2 x (64 x NP): B, two stages
+  bf16* Xs = Bs + 2 * kSub * NP;                // 2 x (64 x 64): x
+  bf16* Sh = Xs + 2 * kSub * kPP;               // 64 x NP: the state, hi part
+  bf16* Sl = Sh + kPP * NP;                     //          and lo part
+  bf16* Ys = Sl + kPP * NP;                     // 64 x (64 + 8): y, staged
+  float* As = reinterpret_cast<float*>(Ys + kSub * (kPP + 8));  // 2 x 64: a
+  float* L2 = As + 2 * kSub;                    // 64: log2 local cumsum
+  float* Dec = L2 + kSub;                       // 64: exp(l[63] - l[s])
+  float* Eq = Dec + kSub;                       // 64: exp(l[q])
+
+  const bf16* x = static_cast<const bf16*>(p.x);
+  const bf16* bm = static_cast<const bf16*>(p.bm);
+  const bf16* cm = static_cast<const bf16*>(p.cm);
+  bf16* y = static_cast<bf16*>(p.y);
+  const int h = blockIdx.x;
+  const long long b = blockIdx.y;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3, mi = lane >> 3;
+  const int ra = 16 * warp + g, rb = ra + 8;    // this thread's rows
+  const int nsub = p.S / kSub;
+
+  const bf16* xh = x + b * p.sxb + h * p.sxh;
+  const bf16* bb = bm + b * p.sbb;
+  const bf16* cb = cm + b * p.scb;
+  const float* ah = p.a + b * p.sab + h * p.sah;
+  bf16* yh = y + b * p.syb + h * p.syh;
+
+  auto load_c = [&](int j) {
+    load_tile<NP>(Cs, cb + (long long)j * kSub * p.scs, p.scs, p.N);
+  };
+  auto load_bxa = [&](int j) {                  // into stage j % 2
+    const int st = j & 1;
+    load_tile<NP>(Bs + st * kSub * NP, bb + (long long)j * kSub * p.sbs,
+                  p.sbs, p.N);
+    load_tile<kPP>(Xs + st * kSub * kPP, xh + (long long)j * kSub * p.sxs,
+                   p.sxs, p.P);
+    if (tid < kSub)
+      cp_async4(As + st * kSub + tid, ah + ((long long)j * kSub + tid) * p.sas);
+  };
+
+  // the state: S (rows p, columns n) in the accumulators, S_j in Sh + Sl
+  float sacc[NP / 2];
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) sacc[i] = 0.f;
+  for (int e = tid; e < kPP * NP; e += kWgThreads) {
+    Sh[e] = __float2bfloat16(0.f);
+    Sl[e] = __float2bfloat16(0.f);
+  }
+  load_c(0);
+  load_bxa(0);
+  cp_async_commit();
+
+  for (int j = 0; j < nsub; ++j) {
+    const int st = j & 1;
+    const bf16* Bj = Bs + st * kSub * NP;
+    const bf16* Xj = Xs + st * kSub * kPP;
+    cp_async_wait_all();                        // sub-chunk j landed
+    fence_proxy_async();                        // ... and S_j, for wgmma
+    __syncthreads();
+
+    // local cumsum of a (log2 units) and its exponentials, by warp 0
+    if (warp == 0) {
+      const float a0 = As[st * kSub + 2 * lane];
+      const float a1 = As[st * kSub + 2 * lane + 1];
+      float inc = a0 + a1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float up = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += up;
+      }
+      const float l0 = (inc - a1) * kLog2e, l1 = inc * kLog2e;
+      const float tot = __shfl_sync(kFull, inc, 31) * kLog2e;
+      L2[2 * lane] = l0;
+      L2[2 * lane + 1] = l1;
+      Dec[2 * lane] = exp2f(tot - l0);
+      Dec[2 * lane + 1] = exp2f(tot - l1);
+      Eq[2 * lane] = exp2f(l0);
+      Eq[2 * lane + 1] = exp2f(l1);
+    }
+    // C of the sub-chunk into registers: the A operand of C S^T and C B^T
+    uint32_t cf[KN][4];
+#pragma unroll
+    for (int kd = 0; kd < KN; ++kd)
+      ldmatrix_x4(cf[kd], Cs + sw_off(16 * warp + (lane & 7) + (mi & 1) * 8,
+                                       16 * kd + (mi >> 1) * 8));
+    __syncthreads();                            // Cs read; L2, Dec, Eq ready
+    if (j + 1 < nsub) {                         // stage st ^ 1 was last read
+      load_c(j + 1);                            // by sub-chunk j - 1, which
+      load_bxa(j + 1);                          // has ended
+    }
+    cp_async_commit();
+
+    // (x o decay)^T, hi and lo: the A operand of the state update (rows p)
+    uint32_t uh[KS][4], ul[KS][4];
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      uint32_t r[4];
+      ldmatrix_x4_trans(r, Xj + sw_off(16 * kk + (mi >> 1) * 8 + (lane & 7),
+                                       16 * warp + (mi & 1) * 8));
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int s = 16 * kk + (c >> 1) * 8 + 2 * t;
+        const float2 v = unpack_bf16(r[c]);
+        split_bf16(v.x * Dec[s], v.y * Dec[s + 1], uh[kk][c], ul[kk][c]);
+      }
+    }
+    const float etot = Eq[kSub - 1];
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) sacc[i] *= etot;
+
+    // group 1: y = C S_j^T (hi + lo) and G = C B^T; group 2: the update
+    float yacc[32], gacc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KN; ++kd)
+      wg64<0>(yacc, cf[kd], smem_desc(Sh + kd * 128, 128, (NP / 8) * 128),
+              kd);
+#pragma unroll
+    for (int kd = 0; kd < KN; ++kd)
+      wg64<0>(yacc, cf[kd], smem_desc(Sl + kd * 128, 128, (NP / 8) * 128), 1);
+#pragma unroll
+    for (int kd = 0; kd < KN; ++kd)             // B K-major: 32 bytes a k-step
+      wg64<0>(gacc, cf[kd],
+              smem_desc_sw128(Bj + (kd / 4) * kSub * 64 + (kd % 4) * 16, 16),
+              kd);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)             // B N-contiguous: 16 rows a
+#pragma unroll                                  // k-step
+      for (int hn = 0; hn < HN; ++hn) {
+        const uint64_t bd = smem_desc_sw128(Bj + hn * kSub * 64 + kk * 16 * 64,
+                                            kSub * 128);
+        wg64<1>(cols64(sacc, hn), uh[kk], bd, 1);
+        wg64<1>(cols64(sacc, hn), ul[kk], bd, 1);
+      }
+    wgmma_commit();
+    wgmma_wait<1>();                            // group 1 done
+    fence_regs(yacc);
+    fence_regs(gacc);
+    fence_regs(cf);
+
+    // y *= exp(l[q]); P = G o exp(l[q] - l[s]) for s <= q, hi and lo
+    const float ea = Eq[ra], eb = Eq[rb];
+    const float la = L2[ra], lb = L2[rb];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      yacc[4 * i] *= ea;
+      yacc[4 * i + 1] *= ea;
+      yacc[4 * i + 2] *= eb;
+      yacc[4 * i + 3] *= eb;
+    }
+    uint32_t ph[KS][4], pl[KS][4];
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt) {
+      const int s0 = 8 * jt + 2 * t;
+      const float ls0 = L2[s0], ls1 = L2[s0 + 1];
+      const float pa0 = s0 <= ra ? gacc[4 * jt] * exp2f(la - ls0) : 0.f;
+      const float pa1 = s0 + 1 <= ra ? gacc[4 * jt + 1] * exp2f(la - ls1) : 0.f;
+      const float pb0 = s0 <= rb ? gacc[4 * jt + 2] * exp2f(lb - ls0) : 0.f;
+      const float pb1 = s0 + 1 <= rb ? gacc[4 * jt + 3] * exp2f(lb - ls1) : 0.f;
+      split_bf16(pa0, pa1, ph[jt / 2][(jt & 1) * 2], pl[jt / 2][(jt & 1) * 2]);
+      split_bf16(pb0, pb1, ph[jt / 2][(jt & 1) * 2 + 1],
+                 pl[jt / 2][(jt & 1) * 2 + 1]);
+    }
+    // group 3: y += P x (hi + lo)
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint64_t xd = smem_desc_sw128(Xj + kk * 16 * 64, kSub * 128);
+      wg64<1>(yacc, ph[kk], xd, 1);
+      wg64<1>(yacc, pl[kk], xd, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(yacc);
+    fence_regs(sacc);
+    fence_regs(uh);
+    fence_regs(ul);
+    fence_regs(ph);
+    fence_regs(pl);
+
+    // y of the sub-chunk: staged in shared memory (rows padded by 16
+    // bytes, so the accumulator layout writes it without bank conflicts),
+    // then stored 16 bytes a thread, whole rows per 8 threads
+    constexpr int YS = kPP + 8;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + 2 * t;
+      *reinterpret_cast<__nv_bfloat162*>(Ys + ra * YS + col) =
+          __floats2bfloat162_rn(yacc[4 * i], yacc[4 * i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(Ys + rb * YS + col) =
+          __floats2bfloat162_rn(yacc[4 * i + 2], yacc[4 * i + 3]);
+    }
+    __syncthreads();                            // Ys written; S_j read
+    bf16* yj = yh + (long long)j * kSub * p.sys;
+    for (int e = tid; e < kSub * 8; e += kWgThreads) {
+      const int r = e / 8, c = (e % 8) * 8;
+      if (c < p.P)
+        *reinterpret_cast<uint4*>(yj + r * p.sys + c) =
+            *reinterpret_cast<const uint4*>(Ys + r * YS + c);
+    }
+    // S_{j+1} into Sh + Sl
+#pragma unroll
+    for (int i = 0; i < NP / 8; ++i) {
+      const int col = 8 * i + 2 * t;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int row = u ? rb : ra;
+        uint32_t hi, lo;
+        split_bf16(sacc[4 * i + 2 * u], sacc[4 * i + 2 * u + 1], hi, lo);
+        *reinterpret_cast<uint32_t*>(Sh + cm_off<NP>(row, col)) = hi;
+        *reinterpret_cast<uint32_t*>(Sl + cm_off<NP>(row, col)) = lo;
+      }
+    }
+  }
+}
+
+template <int NP>
+cudaError_t launch_wgmma_n(const Params& p, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<NP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_scan_wgmma_kernel<NP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(ssd_scan_wgmma_kernel<NP>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(p.H, p.B);
+  ssd_scan_wgmma_kernel<NP><<<grid, kWgThreads, smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_wgmma(const Params& p, cudaStream_t stream) {
+  return p.N <= 64 ? launch_wgmma_n<64>(p, stream)
+                   : launch_wgmma_n<128>(p, stream);
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// What the wgmma path needs beyond the common limits: bf16, whole
+// sub-chunks in every chunk, and 16-byte aligned rows of x, B, C and y.
+bool wgmma_takes(const Params& p, int dtype) {
+  bool ok = dtype == 1 && p.Q % kSub == 0 && aligned16(p.x) &&
+            aligned16(p.bm) && aligned16(p.cm) && aligned16(p.y);
+  for (long long s : {p.sxb, p.sxs, p.sxh, p.sbb, p.sbs, p.scb, p.scs,
+                      p.syb, p.sys, p.syh})
+    ok = ok && s % 8 == 0;
+  return ok;
 }
 
 }  // namespace
 
-// dtype (of xdt, B, C and y): 0 = float32, 1 = bfloat16; a is float32.
-// P and N are multiples of 16, at most 64 and 128; S % Q == 0.  Returns a
-// cudaError_t (0 = launched).
+// path: 0 = fma, 1 = wgmma (the wrapper's choice).  dtype (of xdt, B, C
+// and y): 0 = float32, 1 = bfloat16; a is float32.  P and N are multiples
+// of 16, at most 64 and 128; S % Q == 0; the wgmma path also needs bf16,
+// Q % 64 == 0 and 16-byte aligned rows.  Returns a cudaError_t (0 =
+// launched); a path that cannot take the call is cudaErrorInvalidValue.
 extern "C" int ssd_scan_fwd(
     const void* x, const float* a, const void* bm, const void* cm, void* y,
-    int dtype, int B, int S, int H, int P, int N, int Q, long long sxb,
-    long long sxs, long long sxh, long long sab, long long sas, long long sah,
-    long long sbb, long long sbs, long long scb, long long scs, long long syb,
-    long long sys, long long syh, void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  if (B < 0 || B > 65535 || H < 0 || Q <= 0 || S % Q != 0 || P <= 0 ||
-      P > kMaxP || P % 16 != 0 || N <= 0 || N > kMaxN || N % 16 != 0)
+    int path, int dtype, int B, int S, int H, int P, int N, int Q,
+    long long sxb, long long sxs, long long sxh, long long sab, long long sas,
+    long long sah, long long sbb, long long sbs, long long scb, long long scs,
+    long long syb, long long sys, long long syh, void* stream) {
+  if (B < 0 || B > 65535 || H < 0 || S < 0 || Q <= 0 || S % Q != 0 ||
+      P <= 0 || P > kMaxP || P % 16 != 0 || N <= 0 || N > kMaxN ||
+      N % 16 != 0 || (dtype != 0 && dtype != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{x, a, bm, cm, y, B, S, H, P, N, Q, sxb, sxs, sxh, sab, sas, sah,
            sbb, sbs, scb, scs, syb, sys, syh};
+  if (path == kWgmma ? !wgmma_takes(p, dtype) : path != kFma)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0 || H == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0 ? launch<float>(p, s)
-                  : dtype == 1 ? launch<__nv_bfloat16>(p, s)
-                               : cudaErrorInvalidValue;
+  cudaError_t err = path == kWgmma ? launch_wgmma(p, s)
+                  : dtype == 0     ? launch_fma<float>(p, s)
+                                   : launch_fma<bf16>(p, s);
   return static_cast<int>(err);
 }

@@ -4,7 +4,7 @@
 version on CPU tensors and their CUDA kernel on tensors on a card; a build
 or launch failure raises.  ``launch_counts`` / ``reset_counts`` read and
 zero the per-wrapper counters that show a run really went through the
-kernels.
+kernels (and each one's ``path_launches``, by path).
 """
 from __future__ import annotations
 
@@ -31,8 +31,7 @@ def launch_counts() -> Dict[str, int]:
 def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    flash_attention.path_launches = dict.fromkeys(
-        flash_attention.path_launches, 0)
+        fn.path_launches = dict.fromkeys(fn.path_launches, 0)
 
 
 __all__ = ["flash_attention", "repack", "ssd_scan", "build", "launch_counts",

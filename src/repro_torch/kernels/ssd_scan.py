@@ -6,8 +6,14 @@ model's layout: xdt ``(B, S, H, P)`` (already times dt), a ``(B, S, H)``
 float32 (dt * A, negative), B and C ``(B, S, N)`` shared by every head,
 chunks of ``chunk`` positions with ``S % chunk == 0``; returns y
 ``(B, S, H, P)`` in xdt's dtype.  Any strides with a contiguous last dim
-are taken as they are (no transpose copy).  See the source for the
-kernel's design.
+are taken as they are (no transpose copy).
+
+One C entry point, two device paths (see the source for their design):
+``wgmma`` (bfloat16 on the tensor cores) for the shapes it takes, else
+``fma`` (fp32 FMAs; every float32 call).  The wrapper makes that choice
+(:func:`select_path`, a pure function of the dtype and the shapes) and
+passes it to the entry point, which refuses a path that cannot take the
+call; ``ssd_scan.path_launches`` counts calls by path.
 """
 from __future__ import annotations
 
@@ -18,6 +24,22 @@ from repro_torch.kernels.ref import ssd_chunked_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P, _MAX_N = 64, 128
+#: path names, indexed by the id the C entry point takes
+PATHS = ("fma", "wgmma")
+SUB = 64                    # kSub: rows per sub-chunk of the wgmma path
+
+_fwd = None                 # the bound C function, looked up once
+
+
+def select_path(dtype: torch.dtype, P: int, N: int, Q: int) -> str:
+    """The path for xdt's dtype, head dim ``P``, state size ``N`` and
+    chunk ``Q``: the tensor cores for bfloat16 when the chunk is whole
+    64-row sub-chunks, fp32 FMAs otherwise (float32 never takes TF32)."""
+    if dtype == torch.bfloat16 and Q % SUB == 0 and \
+            P % 16 == 0 and 16 <= P <= _MAX_P and \
+            N % 16 == 0 and 16 <= N <= _MAX_N:
+        return "wgmma"
+    return "fma"
 
 
 def _check(xdt, a, bm, cm, chunk: int):
@@ -47,8 +69,10 @@ def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
     """SSD sequence transform; CPU tensors take the plain chunked version.
 
     Raises where the Pallas wrapper asserts (``S % chunk``) and, on the
-    card, where the kernel's limits are not met: P and N multiples of 16,
-    at most 64 and 128, and every last dim contiguous."""
+    card, where the chosen path's limits are not met: P and N multiples
+    of 16, at most 64 and 128, every last dim contiguous, and on the
+    wgmma path 16-byte aligned rows of xdt, bm and cm."""
+    global _fwd
     _check(xdt, a, bm, cm, chunk)
     if xdt.device.type == "cpu":
         return ssd_chunked_reference(xdt, a, bm, cm, chunk)
@@ -61,22 +85,31 @@ def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
                          f"multiples of 16 up to {_MAX_P} and {_MAX_N}")
     if B > 65535:
         raise ValueError(f"ssd_scan: batch {B} > 65535")
+    path = select_path(xdt.dtype, P, N, chunk)
     for name, t in (("xdt", xdt), ("bm", bm), ("cm", cm)):
         if t.stride(-1) != 1:
             raise ValueError(f"ssd_scan: {name}'s last dim must be "
                              "contiguous")
+        if path == "wgmma" and (t.data_ptr() % 16 or
+                                any(s % 8 for s in t.stride()[:-1])):
+            raise ValueError(f"ssd_scan: {name} must be 16-byte aligned "
+                             "with strides in multiples of 16 bytes")
     y = torch.empty((B, S, H, P), dtype=xdt.dtype, device=xdt.device)
-    lib = _build.load()["ssd_scan"]
+    if _fwd is None:
+        _fwd = _build.load()["ssd_scan"].ssd_scan_fwd
     stream = torch.cuda.current_stream(xdt.device).cuda_stream
-    err = lib.ssd_scan_fwd(
+    err = _fwd(
         xdt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-        y.data_ptr(), _DTYPES[xdt.dtype], B, S, H, P, N, chunk,
-        *xdt.stride()[:3], *a.stride(), *bm.stride()[:2], *cm.stride()[:2],
-        *y.stride()[:3], stream)
+        y.data_ptr(), PATHS.index(path), _DTYPES[xdt.dtype], B, S, H, P, N,
+        chunk, *xdt.stride()[:3], *a.stride(), *bm.stride()[:2],
+        *cm.stride()[:2], *y.stride()[:3], stream)
     _build.check(err, "ssd_scan_fwd")
     ssd_scan.launches += 1
+    ssd_scan.path_launches[path] += 1
     return y
 
 
-#: kernel launches since the last reset (CPU calls are not launches)
+#: kernel launches since the last reset (CPU calls are not launches), in
+#: all and by path
 ssd_scan.launches = 0
+ssd_scan.path_launches = dict.fromkeys(PATHS, 0)

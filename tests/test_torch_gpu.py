@@ -12,7 +12,8 @@ for float32 (every path computes fp32 inputs in fp32 FMAs, never TF32) and
 2e-2 for bfloat16 (absolute plus relative); for the SSD scan 5e-4 and 3e-2 against the sequential oracle;
 the repack is exact.  Against the chunked plain version, which runs the
 kernel's own algorithm in fp32, the SSD scan is held to ``SSD_CHUNKED_TOL``
-(see there).
+(see there); K3's wgmma path (bf16 on the tensor cores) is held to the
+same bounds.
 """
 import numpy as np
 import pytest
@@ -20,7 +21,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build, ops
+from repro_torch.kernels import blockcyclic as bc
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.ref import (attention_reference, repack_reference,
                                      ssd_chunked_reference, ssd_reference)
 
@@ -63,6 +66,25 @@ GROUP_CASES = [
 ]
 
 REPACK_CASES = [(16, 8, 32, 10), (8, 16, 16, 8), (32, 8, 128, 32), (7, 3, 5, 9)]
+# (nblocks, block, width, dtype, idx): the bulk path (16-byte blocks) with a
+# block smaller than one 32 KB stage, a block of several stages with a
+# ragged last one, nout far above the SM count, repeated and reversed
+# indices, nout = 0; then the bytes path (blocks of 15 and 9 bytes)
+REPACK_PATH_CASES = [
+    (16, 8, 32, "float32", "perm", "bulk"),          # 1 KB blocks
+    (12, 50, 1000, "float32", "perm", "bulk"),       # 200 KB: 6.25 stages
+    (300, 4, 16, "bfloat16", "many", "bulk"),        # nout = 3000
+    (9, 64, 2048, "float32", "repeat", "bulk"),      # 512 KB, repeated
+    (40, 16, 64, "float32", "reverse", "bulk"),
+    (5, 8, 32, "float32", "empty", "bulk"),          # nout = 0
+    (20, 3, 5, "uint8", "many", "bytes"),            # 15-byte blocks
+    (6, 9, 1, "uint8", "reverse", "bytes"),
+]
+
+# K3's wgmma path: every P x N x Q, S of 1 to 4 chunks
+SSD_WGMMA_CASES = [(P, N, Q, 1 + (i % 4)) for i, (P, N, Q) in enumerate(
+    (P, N, Q) for P in (16, 32, 64) for N in (16, 64, 128)
+    for Q in (64, 128, 256))]
 
 SSD_CASES = [
     # (B, H, S, P, N, Q, decay, dtype) — tests/test_kernels.py (decay 0.4),
@@ -325,6 +347,119 @@ def test_ssd_kernel_reads_strided_inputs_on_card(cuda):
                                atol=0, rtol=0)
     with pytest.raises(ValueError, match="multiples of 16"):
         ops.ssd_scan(xdt[..., :24], a, bm, cm, chunk=64)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P,N,Q,nchunks", SSD_WGMMA_CASES)
+def test_ssd_wgmma_path_on_card(cuda, P, N, Q, nchunks):
+    """bf16 calls the tensor-core path takes: every P, N and Q it has, one
+    to four chunks (so the state is carried across 0-3 chunk edges and
+    across every 64-row sub-chunk edge), against both plain versions."""
+    S = Q * nchunks
+    xdt, a, bm, cm = _ssd_inputs(cuda, 2, 3, S, P, N, 0.02, "bfloat16",
+                                 seed=P + N + Q)
+    assert ss.select_path(torch.bfloat16, P, N, Q) == "wgmma"
+    before = dict(ss.ssd_scan.path_launches)
+    out = ops.ssd_scan(xdt, a, bm, cm, chunk=Q)
+    torch.cuda.synchronize()
+    assert {p: ss.ssd_scan.path_launches[p] - before[p] for p in before} \
+        == {"fma": 0, "wgmma": 1}
+    assert out.shape == xdt.shape and out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ssd_reference(
+        xdt, a, bm, cm).float(), atol=SSD_TOL["bfloat16"],
+        rtol=SSD_TOL["bfloat16"])
+    torch.testing.assert_close(out.float(), ssd_chunked_reference(
+        xdt, a, bm, cm, Q).float(), atol=SSD_CHUNKED_TOL["bfloat16"],
+        rtol=SSD_CHUNKED_TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+def test_ssd_wgmma_path_reads_strided_inputs_on_card(cuda):
+    """The wgmma path reads transposed views (B, H, S, P) -> (B, S, H, P)
+    and a B/C taken from a wider projection through strides, and gives
+    the contiguous inputs' y bit for bit."""
+    xdt, a, bm, cm = _ssd_inputs(cuda, 2, 4, 256, 64, 128, 0.02, "bfloat16")
+    xt = xdt.transpose(1, 2).contiguous().transpose(1, 2)
+    at = a.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.cat([bm, cm, bm], dim=-1)          # (B, S, 3N)
+    bw, cw = wide[..., :128], wide[..., 128:256]
+    assert not xt.is_contiguous() and not bw.is_contiguous()
+    before = ss.ssd_scan.path_launches["wgmma"]
+    torch.testing.assert_close(ops.ssd_scan(xt, at, bw, cw, chunk=128),
+                               ops.ssd_scan(xdt, a, bm, cm, chunk=128),
+                               atol=0, rtol=0)
+    assert ss.ssd_scan.path_launches["wgmma"] == before + 2
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.ssd_scan(xdt, a, wide[..., 1:129], cm, chunk=128)
+
+
+@pytest.mark.gpu
+def test_ssd_entry_point_refuses_a_path_that_cannot_take_the_call(cuda):
+    """The wrapper chooses the path; the C entry point returns
+    cudaErrorInvalidValue (1) for a path that cannot take the call, and
+    launches nothing."""
+    fwd = _build.load()["ssd_scan"].ssd_scan_fwd
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    fma, wgmma = ss.PATHS.index("fma"), ss.PATHS.index("wgmma")
+
+    def call(path, dtype, Q=64, P=64, N=128, offset=0):
+        x = torch.zeros(1, 128 + 8, 2, P, device=cuda, dtype=dtype)
+        a = torch.zeros(1, 128, 2, device=cuda)
+        bm = torch.zeros(1, 128, N, device=cuda, dtype=dtype)
+        y = torch.empty(1, 128, 2, P, device=cuda, dtype=dtype)
+        return fwd(x.data_ptr() + offset * x.element_size(), a.data_ptr(),
+                   bm.data_ptr(), bm.data_ptr(), y.data_ptr(), path,
+                   ss._DTYPES[dtype], 1, 128, 2, P, N, Q, *x.stride()[:3],
+                   *a.stride(), *bm.stride()[:2], *bm.stride()[:2],
+                   *y.stride()[:3], stream)
+
+    f32, b16 = torch.float32, torch.bfloat16
+    assert call(wgmma, f32) == 1                 # wgmma: bf16 only
+    assert call(wgmma, b16, Q=32) == 1           # whole 64-row sub-chunks
+    assert call(wgmma, b16, offset=1) == 1       # 16-byte aligned rows
+    assert call(fma, b16, P=72) == 1             # P <= 64 on every path
+    assert call(len(ss.PATHS), b16) == 1
+    assert call(wgmma, b16) == 0                 # the path it would choose
+    assert call(fma, f32) == 0
+    assert call(fma, b16, Q=32) == 0             # the fma path takes any Q
+    torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nblocks,block,width,dtype,order,path",
+                         REPACK_PATH_CASES)
+def test_repack_paths_on_card(cuda, nblocks, block, width, dtype, order,
+                              path):
+    rng = np.random.default_rng(nblocks)
+    src = torch.from_numpy(rng.integers(0, 250, (nblocks, block, width))
+                           .astype(np.float32)).to(cuda, getattr(torch, dtype))
+    idx = {"perm": rng.permutation(nblocks),
+           "many": rng.integers(0, nblocks, 10 * nblocks),
+           "repeat": np.array([3, 3, 0, 8, 3, 0]),
+           "reverse": np.arange(nblocks)[::-1].copy(),
+           "empty": np.zeros(0, dtype=np.int64)}[order]
+    before = dict(bc.repack.path_launches)
+    out = ops.repack(src, idx)
+    torch.cuda.synchronize()
+    moved = {p: n - before[p] for p, n in bc.repack.path_launches.items()}
+    assert moved == {p: int(p == path and idx.size > 0) for p in moved}
+    assert out.shape == (idx.size, block, width) and out.dtype == src.dtype
+    assert torch.equal(out, repack_reference(src,
+                                             torch.from_numpy(idx).to(cuda)))
+
+
+@pytest.mark.gpu
+def test_repack_back_to_back_with_changing_indices_on_card(cuda):
+    """The indices are uploaded asynchronously from pinned memory: calls
+    issued back to back, each with new indices and no synchronisation
+    between them, must each gather their own blocks."""
+    src = torch.randn(64, 16, 256, device=cuda)
+    rng = np.random.default_rng(7)
+    idxs = [rng.integers(0, 64, 200) for _ in range(40)]
+    outs = [ops.repack(src, i) for i in idxs]
+    torch.cuda.synchronize()
+    for i, out in zip(idxs, outs):
+        assert torch.equal(out, src[torch.from_numpy(i).to(cuda)])
 
 
 @pytest.mark.gpu

@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.kernels import blockcyclic as bc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
@@ -230,3 +231,68 @@ def test_no_silent_fallback_off_the_cpu():
                 [(1, 8, 2, 16), (1, 8, 2), (1, 8, 16)])
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.ssd_scan(x, a, bc, bc, chunk=4)
+
+
+def test_cpu_calls_count_no_path():
+    """No wrapper counts a CPU call on any of its device paths."""
+    ops.reset_counts()
+    ops.repack(torch.zeros(4, 2, 8), [3, 0, 3])
+    ops.ssd_scan(torch.zeros(1, 64, 2, 16, dtype=torch.bfloat16),
+                 torch.zeros(1, 64, 2),
+                 torch.zeros(1, 64, 16, dtype=torch.bfloat16),
+                 torch.zeros(1, 64, 16, dtype=torch.bfloat16), chunk=64)
+    assert {n: fn.path_launches for n, fn in ops.KERNELS.items()} == {
+        "flash_attention": {"fma": 0, "mma": 0, "split_decode": 0},
+        "repack": {"bytes": 0, "bulk": 0},
+        "ssd_scan": {"fma": 0, "wgmma": 0}}
+
+
+@pytest.mark.parametrize("block_bytes,src,out,path", [
+    (512 * 1024, 0, 1 << 20, "bulk"),            # the embedding table's
+    (16, 32, 48, "bulk"),
+    (15, 0, 0, "bytes"),                         # 16-byte sizes only
+    (1024, 8, 0, "bytes"),                       # 16-byte addresses only
+    (1024, 0, 4, "bytes"),
+])
+def test_repack_path_choice(block_bytes, src, out, path):
+    """K2 takes its bulk (TMA) path when the blocks and both base pointers
+    allow 16-byte bulk copies, else its byte path."""
+    assert bc.select_path(block_bytes, src, out) == path
+
+
+@pytest.mark.parametrize("idx", [[0, 4], [-1], np.array([2, 9]),
+                                 torch.tensor([5])])
+def test_repack_refuses_a_bad_index_before_any_upload(monkeypatch, idx):
+    """Every index is range-checked on the host: an out-of-range one raises
+    before anything is pinned or copied to the card."""
+    pinned = []
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self, *a, **k: pinned.append(self) or self)
+    with pytest.raises(IndexError, match="out of range"):
+        bc.upload_index(idx, 4, "cuda")
+    assert pinned == []
+
+
+def test_repack_refuses_device_resident_indices(monkeypatch):
+    """The indices must be host data (they are validated before upload)."""
+    pinned = []
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self, *a, **k: pinned.append(self) or self)
+    for dt in (torch.int32, torch.int64):
+        with pytest.raises(ValueError, match="host data"):
+            bc.upload_index(torch.zeros(3, dtype=dt, device="meta"), 4,
+                            "cuda")
+    assert pinned == []
+
+
+def test_repack_upload_pins_then_copies_without_blocking(monkeypatch):
+    """A valid index vector is checked, converted to int32, pinned, and only
+    then handed to the asynchronous copy."""
+    calls = []
+    monkeypatch.setattr(torch.Tensor, "pin_memory",
+                        lambda self, *a, **k: calls.append("pin") or self)
+    monkeypatch.setattr(bc, "_copy_async",
+                        lambda t, dev: calls.append(("copy", dev.type)) or t)
+    out = bc.upload_index(np.array([3, 0, 3]), 4, "cuda")
+    assert calls == ["pin", ("copy", "cuda")]
+    assert out.dtype == torch.int32 and out.tolist() == [3, 0, 3]

@@ -29,6 +29,8 @@ from repro_torch import tree as T
 from repro_torch.configs import get_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_rounding
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.ref import ssd_chunked_reference, ssd_reference
 from repro_torch.models import model as TM
 from repro_torch.models import params as tparams
@@ -144,6 +146,63 @@ def test_ssd_scan_rejects_what_the_reference_rejects():
         ops.ssd_scan(xdt, a.double(), bm, cm, chunk=16)
     with pytest.raises(ValueError, match="shapes"):
         ops.ssd_scan(xdt, a[:, :, :1], bm, cm, chunk=16)
+
+
+@pytest.mark.parametrize("dtype,P,N,Q,path", [
+    (torch.bfloat16, 64, 128, 256, "wgmma"),     # mamba2-370m's call
+    (torch.bfloat16, 16, 16, 64, "wgmma"),
+    (torch.bfloat16, 32, 64, 128, "wgmma"),
+    (torch.bfloat16, 48, 80, 192, "wgmma"),      # padded to 64 and 128
+    (torch.bfloat16, 16, 16, 16, "fma"),         # the kernel tests' bf16 Q
+    (torch.bfloat16, 64, 128, 96, "fma"),        # not whole 64-row blocks
+    (torch.bfloat16, 8, 128, 256, "fma"),        # P not a multiple of 16
+    (torch.bfloat16, 64, 144, 256, "fma"),       # N past 128
+    (torch.float32, 64, 128, 256, "fma"),        # fp32 never takes TF32
+    (torch.float32, 16, 16, 64, "fma"),
+])
+def test_ssd_path_choice(dtype, P, N, Q, path):
+    """K3's path is a pure function of the dtype, P, N and the chunk: the
+    tensor cores for bf16 chunks of whole 64-row sub-chunks, fp32 FMAs
+    for everything else."""
+    assert ss.select_path(dtype, P, N, Q) == path
+
+
+def test_the_models_ssd_call_takes_the_tensor_cores():
+    """mamba2-370m's bf16 prefill (every layer's ssd_chunked) selects the
+    wgmma path; its fp32 smoke config stays on fp32 FMAs."""
+    cfg = get_config("mamba2-370m")
+    shape = (cfg.ssm.head_dim, cfg.ssm.state_size, cfg.ssm.chunk_size)
+    assert cfg.dtype == "bfloat16"
+    assert ss.select_path(torch.bfloat16, *shape) == "wgmma"
+    smoke = get_config(ARCH)
+    assert ss.select_path(tparams.torch_dtype(smoke.dtype), smoke.ssm.head_dim,
+                          smoke.ssm.state_size, smoke.ssm.chunk_size) == "fma"
+
+
+def test_ssd_wgmma_rounding_model_holds_the_tolerance():
+    """The wgmma path's roundings (every operand that is not an input split
+    into bf16 hi + lo) keep y within SSD_CHUNKED_TOL of the chunked plain
+    version and within SSD_TOL of the sequential oracle, through several
+    sub-chunks and a chunk edge."""
+    args = ssd_rounding.inputs(0, 1, 4, 512, 64, 128)
+    y = ssd_rounding.model_y(*args, p=True, state=True, update=True)
+    ref = ssd_chunked_reference(*args, 256)
+    assert y.shape == ref.shape and y.dtype == torch.bfloat16
+    assert ssd_rounding.worst_ratio(y, ref, 1e-2) < 1.0
+    assert ssd_rounding.worst_ratio(y, ssd_reference(*args), 3e-2) < 1.0
+
+
+def test_ssd_cpu_calls_are_not_launches():
+    """CPU tensors take the plain chunked version: no launch, on any
+    path, whatever path the shape would select on a card."""
+    ops.reset_counts()
+    for dt in (torch.float32, torch.bfloat16):
+        xdt, a, bm, cm = map(torch.from_numpy, _ssd_inputs(
+            np.random.default_rng(4), 1, 2, 128, 64, 128))
+        out = ops.ssd_scan(xdt.to(dt), a, bm.to(dt), cm.to(dt), chunk=64)
+        assert out.dtype == dt
+    assert ops.launch_counts()["ssd_scan"] == 0
+    assert ss.ssd_scan.path_launches == {"fma": 0, "wgmma": 0}
 
 
 # -- the Mamba2 block ------------------------------------------------------
