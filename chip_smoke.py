@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py          # from the root of a checkout
 
-Builds the port's three CUDA kernels from ``src/repro_torch/kernels/csrc``,
-holds each against its plain PyTorch version, then drives the port's two
-serving paths at full width with random weights from a seed --
-``granite-3-2b`` (dense, K1; 10 of its 40 layers, see ``GRANITE_LAYERS``)
-and ``mamba2-370m`` (SSM, K3; all 48 layers) -- and checks that each
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (K1
+flash attention and its backward, K2, K3), holds each against its plain
+PyTorch version, then drives the port's two serving paths and its training
+path at full width with random weights from a seed -- ``granite-3-2b``
+(dense, K1; 10 of its 40 layers, see ``GRANITE_LAYERS``; training also at
+all 40), ``mamba2-370m`` (SSM, K3; all 48 layers) -- and checks that each
 really ran through its kernels.  Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -20,6 +21,12 @@ really ran through its kernels.  Phases:
    at head dims 16, 32, 64, 80 and 128, ragged, windowed, Sq < Sk causal,
    Hkv = H and Hkv = 1; then the slice's own bf16 shapes, and fp32 and
    bf16 decode at a kv_len inside the last key split;
+3b. K1's backward (``flash_attention_bwd.cu``) against
+   ``attention_backward_reference`` on dq, dk, dv from the forward's own
+   output and row log-sum-exp: every head dim in fp32 and bf16, causal,
+   windowed with Sq = Sk = 200, non-causal; then the training shape (B=1
+   to bound the plain version's memory, H=32, Hkv=8, S=4096, D=64, bf16),
+   run twice and equal bit for bit; the lse against the plain forward's;
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
@@ -56,7 +63,19 @@ really ran through its kernels.  Phases:
     yardstick of how far bf16 rounding alone moves these logits); then one
     traced ``make_prefill_step`` whose top device kernels and K3 share of
     device time come from that one trace;
-11. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
+11. the granite training path (the paper's Listing 2): ``lm_train_app``
+    under ``MalleableRunner`` at full width, 10 layers, ``train_4k``'s
+    sequence of 4096 at global batch 8, bf16 compute over fp32 master
+    weights and moments, remat; first the smoke model's step on the card
+    against the CPU's; then 6 static steps and 6 elastic steps under
+    ``{2: 8, 4: 2}`` (``tests/test_elastic.py``'s schedule) whose losses
+    agree to 1e-4; every attention call on K1 (20 forward launches a step
+    under remat, 10 backward), none on a plain version;
+12. one traced 10-layer training step (the static run's next): device
+    busy time, idle share, K1's forward and backward device time and
+    share, the largest device operators;
+13. the same training at all 40 layers: 2 static steps, s/step, peak GB;
+14. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
     profiler's device time per call, device records only, taken right
@@ -109,6 +128,22 @@ FP32_LOGITS_ATOL = 2e-3
 #: logits' standard deviation is ~0.9; a third of it still catches a wrong
 #: cache, position or mask, which moves logits by about one deviation.
 BF16_LOGITS_ATOL = 0.3
+
+#: K1's backward against its plain version: both fp32 from the same inputs
+#: and lse, summation orders differ over up to G * S products per dk / dv
+#: entry (1e-4); bf16 gradients are rounded once to 8 bits, as the
+#: forward's 2e-2.  The lse (fp32 in both) is held to the fp32 bound.
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+BWD_TRAIN = (1, 32, 8, 4096, 64)    # B (cut to bound the plain version), H, Hkv, S, D
+#: the training path: train_4k's sequence at a global batch cut from 256 to
+#: 8 for one card; tests/test_elastic.py's malleability and schedule
+TRAIN_SHAPE, TRAIN_BATCH, TRAIN_STEPS, DEPTH_STEPS = "train_4k", 8, 6, 2
+TRAIN_PARAMS, TRAIN_SCHEDULE = (2, 8, 4), {2: 8, 4: 2}
+#: elastic vs static losses at every step: tests/test_elastic.py's bound.
+#: A resize copies the state; what may still differ is the order of the
+#: embedding gradient's atomic adds (an accumulating index_put)
+TRAIN_LOSS_TOL = 1e-4
+PROFILE_TRAIN_TOP = 5
 
 MAMBA = "mamba2-370m"               # serving runs at granite's batch, prompt,
 M_PREFILL_S = 1024                  # decode length, workers and schedule
@@ -265,7 +300,7 @@ def ptxas_report(log: str) -> list:
                 continue
             tail = k.group(2)
             args = ["bf16" if "nv_bfloat16" in tail else "f32"
-                    if tail.startswith("If") else ""]
+                    if tail.startswith("If") or "EfE" in tail else ""]
             args = [a for a in args if a] + re.findall(r"Li(\d+)E", tail)
             cur = {"kernel": f"{k.group(1)}<{','.join(args)}>"}
             out.append(cur)
@@ -303,19 +338,26 @@ def main() -> None:
     import torch.nn.functional as F
 
     from repro_torch import tree as T
-    from repro_torch.configs import get_config
+    from repro_torch import dmr
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core.lm_app import lm_train_app
     from repro_torch.core.redistribute import blockcyclic_split
     from repro_torch.dmr import get_pattern
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import blockcyclic as bc
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
-    from repro_torch.kernels.ref import (attention_reference,
+    from repro_torch.kernels.ref import (attention_backward_reference,
+                                         attention_lse_reference,
+                                         attention_reference,
                                          repack_reference,
                                          ssd_chunked_reference, ssd_reference)
     from repro_torch.models import model as M
-    from repro_torch.models.train import (make_prefill_step, make_serve_step,
+    from repro_torch.models.train import (init_state, make_prefill_step,
+                                          make_serve_step, make_train_step,
                                           prefill_logits)
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.mesh import logical_workers
     from repro_torch.serve import decode_demo
 
     dev = torch.device(DEVICE)
@@ -352,8 +394,9 @@ def main() -> None:
     H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     sms = fa._sm_count(dev)
     nsplit = fa.decode_splits(BATCH * Hkv, CACHE, sms)
-    for tag, source in (("K1", "flash_attention"), ("K2", "blockcyclic"),
-                        ("K3", "ssd_scan")):
+    for tag, source in (("K1", "flash_attention"),
+                        ("K1bwd", "flash_attention_bwd"),
+                        ("K2", "blockcyclic"), ("K3", "ssd_scan")):
         report = ptxas_report(_build.build_log(source))
         if not report or any("regs" not in r for r in report):
             fail(f"no ptxas report for {tag}'s kernels: {report}")
@@ -487,6 +530,58 @@ def main() -> None:
           tol=json.dumps(TOL, separators=(",", ":")))
     mark("K1")
 
+    # -- 3b. K1's backward against its plain version ----------------------
+    bwd_err = {"float32": 0.0, "bfloat16": 0.0}
+    lse_err = 0.0
+
+    def k1_bwd_case(B, H_, Hkv_, Sq, Sk, D_, causal, window, dt, what):
+        """K1 forward with its lse, then the backward kernel, each against
+        its plain version; returns the inputs, the forward and the
+        gradients."""
+        nonlocal lse_err
+        name = str(dt).split(".")[1]
+        q, k, v = rand((B, H_, Sq, D_), dt), rand((B, Hkv_, Sk, D_), dt), \
+            rand((B, Hkv_, Sk, D_), dt)
+        do = rand((B, H_, Sq, D_), dt)
+        kw = dict(causal=causal, window=window)
+        out, lse = fa.flash_attention_lse(q, k, v, **kw)
+        lse_err = max(lse_err, check_close(
+            lse, attention_lse_reference(q, k, **kw), "float32",
+            f"{what} lse", BWD_TOL["float32"]))
+        got = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        exp = attention_backward_reference(q, k, v, out, do, lse, **kw)
+        for n_, a, b in zip(("dq", "dk", "dv"), got, exp):
+            bwd_err[name] = max(bwd_err[name], check_close(
+                a, b, name, f"{what} {n_}", BWD_TOL[name]))
+        return (q, k, v, out, do, lse), got
+
+    bwd_cases = [c + (dt,) for dt in (f32, bf16) for d in fa.HEAD_DIMS
+                 for c in ((2, 8, 2, 256, 256, d, True, 0),
+                           (1, 8, 2, 200, 200, d, True, 64),
+                           (1, 4, 4, 130, 130, d, False, 0))]
+    for case in bwd_cases:
+        k1_bwd_case(*case, what=f"bwd case {case}")
+    small_err = dict(bwd_err)
+    tB, tH, tHkv, tS, tD = BWD_TRAIN
+    bwd_err["bfloat16"] = 0.0
+    targs_1, tgot = k1_bwd_case(tB, tH, tHkv, tS, tS, tD, True, 0, bf16,
+                                f"bwd train shape {BWD_TRAIN}")
+    err_bwd_train = bwd_err["bfloat16"]
+    again = ops.flash_attention_bwd(*targs_1, causal=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(tgot, again)):
+        fail("K1 backward: two runs on the same inputs differ")
+    phase("K1:bwd", cases=len(bwd_cases) + 1,
+          max_err_f32=f"{small_err['float32']:.3e}",
+          max_err_bf16=f"{max(small_err['bfloat16'], err_bwd_train):.3e}",
+          train_shape=str(BWD_TRAIN).replace(" ", ""),
+          train_shape_err=f"{err_bwd_train:.3e}", bitwise_repeatable=True,
+          lse_max_err=f"{lse_err:.3e}",
+          tol=json.dumps(BWD_TOL, separators=(",", ":")))
+    del targs_1, tgot, again
+    torch.cuda.empty_cache()
+    mark("K1_bwd")
+
     # -- 4. K2 against its plain version ----------------------------------
     ops.reset_counts()
     for nblocks, block, width, nout in [(16, 8, 32, 10), (8, 16, 16, 8),
@@ -611,7 +706,7 @@ def main() -> None:
           tol_vs_chunked=json.dumps(SSD_CHUNKED_TOL, separators=(",", ":")))
     mark("K3")
 
-    # -- device times for the kernels line (phase 11), taken here: late in
+    # -- device times for the kernels line (phase 14), taken here: late in
     # the process, after the long traced windows of phases 8 and 10, the
     # profiler drops device records --------------------------------------
     n = PROMPT + DECODE                       # K1 decode: the path's last step
@@ -644,6 +739,26 @@ def main() -> None:
 
     def cold(fn, copies):
         return [lambda a=a: fn(*a) for a in copies]
+
+    # K1's backward at the training path's shape (B=8, S=4096, bf16, in
+    # the model's (B, S, heads, D) layout): ~0.6 GB of inputs a call, far
+    # past L2 already; the L2-cold window still rotates two copies.  SDPA's
+    # backward (the library row) on the same inputs, from its own forward.
+    def train_attn_inputs():
+        q_, do_ = (rand((TRAIN_BATCH, tS, tH, tD), bf16).transpose(1, 2)
+                   for _ in range(2))
+        k_, v_ = (rand((TRAIN_BATCH, tS, tHkv, tD), bf16).transpose(1, 2)
+                  for _ in range(2))
+        o_, lse_ = fa.flash_attention_lse(q_, k_, v_, causal=True)
+        return q_, k_, v_, o_, do_, lse_
+
+    bwd_sets = [train_attn_inputs() for _ in range(2)]
+    k1_bwd = lambda: ops.flash_attention_bwd(*bwd_sets[0], causal=True)
+    sq_, sk_, sv_ = (t.detach().requires_grad_() for t in bwd_sets[0][:3])
+    s_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True,
+                                           enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(s_out, (sq_, sk_, sv_),
+                                           bwd_sets[0][4], retain_graph=True)
     dev_ms = {"K1 decode": device_ms(k1_dec, "K1 decode"),
               "SDPA decode": device_ms(sdpa_dec, "SDPA decode"),
               "K1 prefill": device_ms(k1_pre, "K1 prefill"),
@@ -668,7 +783,12 @@ def main() -> None:
               "index_select": device_ms(
                   lambda: torch.index_select(src, 0, idx_dev),
                   "index_select"),
-              "K3": device_ms(k3, "K3", iters=5)}
+              "K3": device_ms(k3, "K3", iters=5),
+              "K1 bwd": device_ms(k1_bwd, "K1 backward", iters=4),
+              "K1 bwd cold": device_ms(cold(
+                  lambda *a: ops.flash_attention_bwd(*a, causal=True),
+                  bwd_sets), "K1 backward, L2-cold", iters=4),
+              "SDPA bwd": device_ms(sdpa_bwd, "SDPA backward", iters=4)}
     del cold_dec, cold_pre
     mark("device_ms")
 
@@ -971,7 +1091,158 @@ def main() -> None:
     del mparams, prof, mlp, mld, mlp32, mld32
     mark("mamba2_prefill")
 
-    # -- 11. kernels line: times at the path's shapes -----------------------
+    # -- 11. the granite training path (Listing 2) ---------------------------
+    # first the smoke model's step on the card against the CPU's, fp32
+    scfg = get_config(f"{ARCH}-smoke")
+    sopt = AdamW(learning_rate=1e-3)
+    sbatch = lm_train_app(scfg, dataclasses.replace(
+        get_shape("smoke"), global_batch=8)).dataset.batch_at(0)
+    smoke = {}
+    for d in ("cpu", dev):
+        st = T.tree_map(lambda t: t.to(d), init_state(scfg, sopt, 0))
+        _, m = make_train_step(scfg, sopt)(
+            st, {k_: torch.from_numpy(v_).to(d) for k_, v_ in sbatch.items()})
+        smoke[str(d)] = (float(m["loss"]), float(m["grad_norm"]))
+    (l_c, g_c), (l_g, g_g) = smoke["cpu"], smoke[str(dev)]
+    if abs(l_g - l_c) > 1e-5 * abs(l_c) or abs(g_g - g_c) > 1e-4 * abs(g_c):
+        fail(f"smoke train step: card loss {l_g} / grad norm {g_g} vs CPU "
+             f"{l_c} / {g_c}")
+    phase("train:smoke", loss_card=f"{l_g:.7f}", loss_cpu=f"{l_c:.7f}",
+          grad_norm_card=f"{g_g:.6f}", grad_norm_cpu=f"{g_c:.6f}")
+
+    tshape = dataclasses.replace(get_shape(TRAIN_SHAPE),
+                                 global_batch=TRAIN_BATCH)
+    tokens_per_step = TRAIN_BATCH * tshape.seq_len
+
+    def train_run(c, schedule, steps):
+        """``steps`` steps of ``lm_train_app`` on ``c`` (Listing 2's loop);
+        kernel counts are zeroed just before the loop and read just after.
+        Returns the runner, its state, losses, seconds per step, counts."""
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        app = lm_train_app(c, tshape, AdamW(learning_rate=1e-3), seed=0)
+        runner = dmr.MalleableRunner(
+            app, dmr.MalleabilityParams(*TRAIN_PARAMS),
+            dmr.ScriptedRMS(schedule), devices=logical_workers(WORKERS, dev))
+        state = runner.init()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        losses, secs = [], []
+        for i in range(steps):
+            t0 = time.perf_counter()
+            state = dmr.reconfig(runner, state, i)
+            state, m = runner.step(state, i)
+            losses.append(float(m["loss"]))        # waits for the step
+            secs.append(time.perf_counter() - t0)
+        counts = dict(ops.launch_counts(),
+                      paths=dict(fa.flash_attention.path_launches))
+        L = c.num_layers
+        want = {"flash_attention": 2 * L * steps,      # remat: twice
+                "flash_attention_bwd": L * steps}
+        if {k_: counts[k_] for k_ in want} != want or \
+                counts["paths"] != {"fma": 0, "mma": 2 * L * steps,
+                                    "split_decode": 0}:
+            fail(f"{L}-layer training launched {counts}, not {want} with "
+                 "every forward on the mma path")
+        if not all(np.isfinite(losses)):
+            fail(f"{L}-layer training losses {losses}")
+        return runner, state, losses, secs, counts
+
+    def step_s(secs):
+        """Median seconds per step, the first (warm-up) step left out."""
+        return float(np.median(secs[1:]))
+
+    truns = {}
+    for label, schedule in (("static", {}), ("elastic", TRAIN_SCHEDULE)):
+        runner, state, losses, secs, counts = train_run(cfg, schedule,
+                                                        TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        truns[label] = (runner, state, losses)
+        phase(f"train:{label}", layers=cfg.num_layers,
+              batch=TRAIN_BATCH, seq=tshape.seq_len,
+              losses=",".join(f"{x:.6f}" for x in losses),
+              step_s=",".join(f"{x:.3f}" for x in secs),
+              s_per_step=f"{step_s(secs):.4f}",
+              tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
+              k1_fwd_per_step=counts["flash_attention"] / TRAIN_STEPS,
+              k1_bwd_per_step=counts["flash_attention_bwd"] / TRAIN_STEPS,
+              peak_gb=f"{peak:.2f}",
+              sizes=",".join(str(e.to_procs) for e in runner.events))
+        for ev in runner.events:
+            phase(f"train:{label}:resize", step=ev.step, action=ev.action,
+                  sizes=f"{ev.from_procs}->{ev.to_procs}",
+                  bytes_moved=ev.transfer.bytes_moved,
+                  seconds=f"{ev.transfer.seconds:.4f}")
+        if label == "elastic":
+            del state
+            truns[label] = (runner, None, losses)
+    train_launches = counts["flash_attention_bwd"]
+    static_l, elastic_l = truns["static"][2], truns["elastic"][2]
+    gap = max(abs(a - b) for a, b in zip(static_l, elastic_l))
+    actions = [e.action for e in truns["elastic"][0].events]
+    if gap > TRAIN_LOSS_TOL or actions != ["expand", "shrink"]:
+        fail(f"elastic training: losses {elastic_l} vs static {static_l} "
+             f"(gap {gap:.3e} > {TRAIN_LOSS_TOL}?), actions {actions}")
+    phase("train", elastic_vs_static_max_gap=f"{gap:.3e}",
+          tol=TRAIN_LOSS_TOL, actions=",".join(actions),
+          state_gb=f"{sum(t.nbytes for t in T.leaves(truns['static'][1])) / 1e9:.2f}")
+    mark("train")
+
+    # -- 12. one traced training step of the static run ----------------------
+    runner, state, _ = truns["static"]
+    L = cfg.num_layers
+    for attempt in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = runner.step(state, TRAIN_STEPS + attempt)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        dev_events = device_events(prof)
+        bwd_evs = [e for e in dev_events if "attn_bwd" in e.key]
+        fwd_evs = [e for e in dev_events if "attn_" in e.key and
+                   "attn_bwd" not in e.key]
+        if sum(e.count for e in bwd_evs) == 3 * L and \
+                sum(e.count for e in fwd_evs) == 2 * L:
+            break
+        print(f"chip_smoke: traced train step: the profiler kept "
+              f"{sum(e.count for e in fwd_evs)} K1 forward and "
+              f"{sum(e.count for e in bwd_evs)} backward records: taken "
+              "again", file=sys.stderr, flush=True)
+    else:
+        fail("the profiler dropped K1's records in four traced train steps")
+    t_busy = sum(device_us(e) for e in dev_events) / 1e3
+    t_fwd = sum(device_us(e) for e in fwd_evs) / 1e3
+    t_bwd = sum(device_us(e) for e in bwd_evs) / 1e3
+    top = [{"kernel": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
+           for e in dev_events[:PROFILE_TRAIN_TOP]]
+    phase("train:profile", layers=L, traced_step_s=f"{traced_s:.4f}",
+          device_busy_ms=f"{t_busy:.3f}",
+          idle_share=f"{1 - t_busy / (traced_s * 1e3):.4f}",
+          k1_fwd_ms=f"{t_fwd:.3f}", k1_fwd_share=f"{t_fwd / t_busy:.4f}",
+          k1_bwd_ms=f"{t_bwd:.3f}", k1_bwd_share=f"{t_bwd / t_busy:.4f}",
+          top=json.dumps(top, separators=(",", ":")))
+    del runner, state, truns, prof, dev_events, bwd_evs, fwd_evs
+    mark("train_profile")
+
+    # -- 13. the training path at full depth ---------------------------------
+    dcfg = get_config(ARCH)
+    runner, state, losses, secs, counts = train_run(dcfg, {}, DEPTH_STEPS)
+    phase("train:depth", layers=dcfg.num_layers,
+          losses=",".join(f"{x:.6f}" for x in losses),
+          step_s=",".join(f"{x:.3f}" for x in secs),
+          s_per_step=f"{step_s(secs):.4f}",
+          tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
+          k1_fwd_per_step=counts["flash_attention"] / DEPTH_STEPS,
+          k1_bwd_per_step=counts["flash_attention_bwd"] / DEPTH_STEPS,
+          state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    del runner, state
+    torch.cuda.empty_cache()
+    mark("train_depth")
+
+    # -- 14. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
     el = 2                                   # bf16 bytes
@@ -1012,6 +1283,41 @@ def main() -> None:
         "library_device_ms": dev_ms["SDPA prefill"],
         "library_device_ms_cold": dev_ms["SDPA prefill cold"],
         "shape": f"B={BATCH} H={H} Hkv={Hkv} D={D} Sq=Sk={PROMPT} bf16"})
+    # K1's backward at the training path's shape: the function's own work is
+    # five products over the causal pairs (S = Q K^T again, dV, dP, dQ, dK),
+    # its bytes q, k, v, o, dO and lse read and dq, dk, dv written once
+    pairs = tS * (tS + 1) // 2
+    b_bwd, by_bwd = bound_ms(
+        el * (4 * TRAIN_BATCH * tS * tH * tD + 4 * TRAIN_BATCH * tS * tHkv * tD)
+        + 4 * TRAIN_BATCH * tH * tS,
+        5 * 2 * TRAIN_BATCH * tH * tD * pairs, "bfloat16")
+
+    def plain_bwd():
+        """The plain backward one batch row at a time (its fp32 scores at
+        B=8 would take ~100 GB)."""
+        for b_ in range(TRAIN_BATCH):
+            attention_backward_reference(
+                *(t[b_:b_ + 1] for t in bwd_sets[0]), causal=True)
+
+    kernels.append({
+        "name": "flash_attention_bwd (train, causal)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "replaces_note": "the gradient of K1; the JAX package has no Pallas "
+                         "backward and differentiates chunked_attention "
+                         "(src/repro/models/attention.py:99) through XLA",
+        "path": "fma",
+        "launches": train_launches, "max_abs_err": err_bwd_train,
+        "ms": time_ms(k1_bwd, iters=5, warmup=1),
+        "device_ms": dev_ms["K1 bwd"],
+        "device_ms_cold": dev_ms["K1 bwd cold"],
+        "plain_ms": time_ms(plain_bwd, iters=2, warmup=1),
+        "bound_ms": b_bwd, "bound_by": by_bwd,
+        "library_ms": time_ms(sdpa_bwd, iters=10, warmup=2),
+        "library_device_ms": dev_ms["SDPA bwd"],
+        "shape": f"B={TRAIN_BATCH} H={tH} Hkv={tHkv} D={tD} S={tS} causal "
+                 "bf16"})
+    del bwd_sets, s_out
     # K2: the 4 -> 8 step of the block-cyclic path, one gather of the table
     b_rep, by_rep = bound_ms(2 * table.nbytes + 4 * idx.size, 0, "float32")
     err_rep = (ops.repack(src, idx) - repack_reference(src, idx_dev)

@@ -5,7 +5,9 @@ from __future__ import annotations
 import importlib
 from typing import List
 
-from repro_torch.configs.base import ArchConfig, ShapeConfig, phys_vocab, reduced
+from repro_torch.configs.base import (SHAPES_BY_NAME, SMOKE_DECODE,
+                                     SMOKE_PREFILL, SMOKE_SHAPE, ArchConfig,
+                                     ShapeConfig, phys_vocab, reduced)
 
 _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
@@ -27,5 +29,15 @@ def get_config(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
+def get_shape(name: str) -> ShapeConfig:
+    """A named input shape (``train_4k``, ..., or a smoke shape)."""
+    if name in SHAPES_BY_NAME:
+        return SHAPES_BY_NAME[name]
+    for s in (SMOKE_SHAPE, SMOKE_PREFILL, SMOKE_DECODE):
+        if s.name == name:
+            return s
+    raise KeyError(f"unknown shape {name!r}")
+
+
 __all__ = ["ArchConfig", "ShapeConfig", "phys_vocab", "reduced",
-           "list_archs", "get_config"]
+           "list_archs", "get_config", "get_shape"]

@@ -39,7 +39,13 @@ SIGNATURES = {
         "flash_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
                                 _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
                                 _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _p,
-                                _p, _i, _p],
+                                _p, _i, _p, _p],
+    },
+    # its own source, so that it builds in parallel with K1's 25 kernels
+    "flash_attention_bwd": {
+        "flash_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i,
+                                _i, _i, _i, _i, _i, _i,
+                                ctypes.POINTER(_ll), _i, _i, _f, _p],
     },
     "blockcyclic": {
         "blockcyclic_repack": [_p, _p, _p, _ll, _ll, _i, _p],

@@ -17,7 +17,9 @@
 // passed for q, k, v and out, so the (B, S, Hkv, D) cache is read in place
 // as (B, Hkv, S, D) with no transpose; the output is laid out (B, Sq, H, D).
 // A query row with no valid key yields zeros.  Head dims 16, 32, 64, 80
-// and 128 on every path.
+// and 128 on every path.  For training, the fma and mma paths also write
+// each row's log-sum-exp (fp32, (B, H, Sq)) when given a pointer for it:
+// the backward kernel (flash_attention_bwd.cu) recomputes P from it.
 //
 // One entry point, three device paths.  The wrapper chooses the path from
 // the dtype and the number of query rows per KV head, G * Sq (G = H / Hkv),
@@ -102,6 +104,7 @@ struct Params {
   long long svb, svh, svs;
   long long sob, soh, sos;
   float scale;
+  float* lse;                                   // nullptr, or (B, H, Sq) fp32
 };
 
 __device__ __forceinline__ void store_from_f32(float* p, float x) { *p = x; }
@@ -329,6 +332,8 @@ __global__ void __launch_bounds__(kThreads) attn_fma_kernel(const Params p) {
     const int g = gr / p.Sq, i = gr % p.Sq, h = kvh * G + g;
     float* orow = o + b * p.sob + h * p.soh + i * p.sos;
     const float den = fmaxf(l[rr], 1e-30f);
+    if (p.lse && lane == 0)
+      p.lse[(b * p.H + h) * p.Sq + i] = m[rr] + logf(den);
 #pragma unroll
     for (int t = 0; t < DL; ++t)
       if (D % 32 == 0 || lane + 32 * t < D)
@@ -697,18 +702,22 @@ __device__ __forceinline__ void wgmma_attend_tile(
 }
 
 // Stores a warpgroup's 64 x D output rows: oacc / l in bf16, rows ra, rb
-// of this thread (skipped past Sq).
+// of this thread (skipped past Sq); and, where lse is not null (the row
+// log-sum-exp of head h, Sq floats), m D^-0.5 + log(l) of each row.
 template <int D>
 __device__ __forceinline__ void store_rows(const Params& p, bf16* obase,
-                                           int ra, int rb,
+                                           float* lse, int ra, int rb,
                                            const float (&oacc)[D / 8][4],
+                                           const float (&m)[2],
                                            const float (&l)[2]) {
   const int tg = threadIdx.x & 3;
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
-    const float inv = 1.f / fmaxf(quad_sum(l[u]), 1e-30f);
+    const float den = fmaxf(quad_sum(l[u]), 1e-30f);
+    const float inv = 1.f / den;
     const int row = u ? rb : ra;
     if (row >= p.Sq) continue;
+    if (lse && tg == 0) lse[row] = m[u] * p.scale + logf(den);
     bf16* orow = obase + row * p.sos;
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt)
@@ -853,7 +862,10 @@ __global__ void __launch_bounds__(kThreads) attn_mma_kernel(const Params p) {
                            oacc);
       if (!resident) __syncthreads();           // the stage may be reloaded
     }
-    store_rows<D>(p, o + b * p.sob + (kvh * G + g) * p.soh, ra, rb, oacc, l);
+    const int h = kvh * G + g;
+    store_rows<D>(p, o + b * p.sob + h * p.soh,
+                  p.lse ? p.lse + (b * p.H + h) * p.Sq : nullptr, ra, rb,
+                  oacc, m, l);
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd)
 #pragma unroll
@@ -952,8 +964,10 @@ attn_mma_group_kernel(const Params p) {
                            k0 >= all_lo && k0 + kTileK <= all_hi, m, l,
                            oacc);
     }
-    store_rows<D>(p, o + b * p.sob + (kvh * G + u % G) * p.soh, ra, rb,
-                  oacc, l);
+    const int h = kvh * G + u % G;
+    store_rows<D>(p, o + b * p.sob + h * p.soh,
+                  p.lse ? p.lse + (b * p.H + h) * p.Sq : nullptr, ra, rb,
+                  oacc, m, l);
 #pragma unroll
     for (int kd = 0; kd < D / 16; ++kd)
 #pragma unroll
@@ -1511,7 +1525,10 @@ cudaError_t dispatch(int path, const Params& p, int dtype, int D, float* ws,
 // split count, and, where splits merge (nsplit > 1, or fp32, which always
 // merges through them), `ws`, an fp32 workspace of B * Hkv * nsplit * rows
 // * (D + 2) floats, and `counters`, B * Hkv int32 zeros that the kernel
-// leaves zero; the other paths ignore the three.
+// leaves zero; the other paths ignore the three.  `lse`, when not null,
+// receives each row's log-sum-exp m + log(max(l, 1e-30)) over the scaled
+// scores, (B, H, Sq) contiguous fp32, for the backward (training shapes:
+// the fma and mma paths; split_decode refuses it).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out,
     const int* kv_len_dev, int path, int dtype, int B, int H, int Hkv,
@@ -1519,7 +1536,7 @@ extern "C" int flash_attention_fwd(
     long long skb, long long skh, long long sks, long long svb, long long svh,
     long long svs, long long sob, long long soh, long long sos,
     int kv_len_host, int causal, int window, float scale, void* ws,
-    void* counters, int nsplit, void* stream) {
+    void* counters, int nsplit, float* lse, void* stream) {
   if (B <= 0 || Sq <= 0 || Hkv <= 0 || H % Hkv != 0)
     return B == 0 || Sq == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   const bool takes =
@@ -1528,12 +1545,13 @@ extern "C" int flash_attention_fwd(
       : path == kSplit ? (dtype == 0 || dtype == 1) &&
                              (H / Hkv) * Sq <= kDecodeRows && nsplit >= 1 &&
                              ((nsplit == 1 && dtype == 1) ||
-                              (ws != nullptr && counters != nullptr))
+                              (ws != nullptr && counters != nullptr)) &&
+                             lse == nullptr
                        : false;
   if (!takes) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, out, kv_len_dev, B, H, Hkv, Sq, Sk, kv_len_host, causal,
            window, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
-           scale};
+           scale, lse};
   return static_cast<int>(dispatch(path, p, dtype, D, static_cast<float*>(ws),
                                    static_cast<int*>(counters), nsplit,
                                    static_cast<cudaStream_t>(stream)));

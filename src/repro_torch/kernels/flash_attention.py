@@ -1,4 +1,5 @@
-"""Flash-attention forward: the wrapper of ``csrc/flash_attention.cu``.
+"""Flash attention: the wrappers of ``csrc/flash_attention.cu`` (forward)
+and ``csrc/flash_attention_bwd.cu`` (backward).
 
 Replaces the Pallas TPU kernel ``flash_attention_fwd``
 (``repro/kernels/flash_attention.py``).  Contract: q ``(B, H, Sq, D)``,
@@ -16,13 +17,24 @@ choice (:func:`select_path`, and :func:`decode_splits` for the split path's
 launch), pure functions of the shapes, and passes it to the entry point,
 which refuses a path whose kernels cannot take the call;
 ``flash_attention.path_launches`` counts calls by path.
+
+Training: when q, k or v requires a gradient (and grad mode is on), the
+call goes through :class:`FlashAttentionFn`, whose forward launches K1
+with its row log-sum-exp output (fma or mma path) and whose backward is
+the kernel of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`,
+counted in ``flash_attention_bwd.launches``).  CPU tensors take the plain
+version both ways: autograd differentiates ``attention_reference``.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.ref import attention_reference
+from repro_torch.kernels.ref import (attention_backward_reference,
+                                     attention_lse_reference,
+                                     attention_reference)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)
@@ -33,7 +45,8 @@ TILE_K = 64                 # kTileK: keys per shared-memory tile
 #: a split CTA's 4 warps take at most this many K/V tiles (two each)
 SPLIT_MAX_TILES = 8
 
-_fwd = None                 # the bound C function, looked up once
+_fwd = None                 # the bound C functions, looked up once
+_bwd = None
 _sm_counts = {}
 #: the split path's arrival counters, one int32 per (batch, KV head), by
 #: (device, stream): zeros that every launch leaves zero again
@@ -106,18 +119,9 @@ def _counter_block(device, stream: int, n: int) -> torch.Tensor:
     return c
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_len=None):
-    """GQA softmax attention; CPU tensors take the plain version.
-
-    ``kv_len``: None (all ``Sk`` keys), an int, or a 0-d int32 tensor on
-    q's device (read by the kernel on the device: no host sync)."""
+def _launch_fwd(q, k, v, causal, window, kv_len, with_lse):
+    """K1 on a card; returns (out, lse or None)."""
     global _fwd
-    if q.device.type == "cpu":
-        return attention_reference(q, k, v, causal=causal, window=window,
-                                   kv_len=kv_len)
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention: no kernel for {q.device}")
     _check(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
@@ -134,6 +138,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                       device=q.device).permute(0, 2, 1, 3)
     rows = H // Hkv * Sq
     path = select_path(q.dtype, rows)
+    if with_lse and path == "split_decode":
+        raise ValueError(f"flash_attention: no gradient through the decode "
+                         f"path ({rows} query rows per KV head)")
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
     ws = counters = None
     nsplit = 0
@@ -151,11 +160,130 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         kv_host, int(bool(causal)), int(window), float(D ** -0.5),
         None if ws is None else ws.data_ptr(),
-        None if counters is None else counters.data_ptr(), nsplit, stream)
+        None if counters is None else counters.data_ptr(), nsplit,
+        None if lse is None else lse.data_ptr(), stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
     flash_attention.path_launches[path] += 1
-    return out
+    return out, lse
+
+
+def _aligned(t):
+    """``t`` itself if the kernels can read it (contiguous last dim,
+    16-byte rows), else a contiguous copy."""
+    vec = 16 // t.element_size()
+    if t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and \
+            all(s % vec == 0 for s in t.stride()[:-1]):
+        return t
+    return t.contiguous()
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int = 0):
+    """Gradients (dq, dk, dv) of :func:`flash_attention` from the forward's
+    output ``o`` and row log-sum-exp ``lse`` (B, H, Sq) fp32; CPU tensors
+    take the plain version (``attention_backward_reference``).  On a card:
+    the three launches of ``csrc/flash_attention_bwd.cu``, one call counted;
+    dq comes laid out as (B, Sq, H, D), dk / dv as (B, Sk, Hkv, D)."""
+    global _bwd
+    if q.device.type == "cpu":
+        return attention_backward_reference(q, k, v, o, do, lse,
+                                            causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention_bwd: no kernel for {q.device}")
+    _check(q, k, v)
+    o, do = _aligned(o), _aligned(do)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
+            do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o{tuple(o.shape)} "
+                         f"{o.dtype} and do{tuple(do.shape)} {do.dtype} must "
+                         f"match q{tuple(q.shape)} {q.dtype}")
+    B, H, Sq, D = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 or \
+            not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError("flash_attention_bwd: lse must be a contiguous "
+                         f"float32 (B, H, Sq) = {(B, H, Sq)} on q's device")
+    dq = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                     device=q.device).permute(0, 2, 1, 3)
+    dk, dv = (torch.empty((B, Sk, Hkv, D), dtype=q.dtype,
+                          device=q.device).permute(0, 2, 1, 3)
+              for _ in range(2))
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    if _bwd is None:
+        _bwd = _build.load()["flash_attention_bwd"].flash_attention_bwd
+    err = _bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+               do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
+               B, H, Hkv, Sq, Sk, D, strides, int(bool(causal)), int(window),
+               float(D ** -0.5),
+               torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.path_launches["fma"] += 1
+    return dq, dk, dv
+
+
+#: backward calls since the last reset (each one launches three kernels)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.path_launches = {"fma": 0}
+
+
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
+    """(out, lse): K1's output and its row log-sum-exp (B, H, Sq) fp32,
+    what the backward is given; CPU tensors take the plain versions."""
+    if q.device.type == "cpu":
+        return (attention_reference(q, k, v, causal=causal, window=window),
+                attention_lse_reference(q, k, causal=causal, window=window))
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: no kernel for {q.device}")
+    return _launch_fwd(q, k, v, causal, window, None, True)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K1 with a gradient: the forward kernel (saving its row log-sum-exp)
+    and the backward kernel, for tensors on a card."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        out, lse = _launch_fwd(q, k, v, causal, window, None, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
+                                         causal=ctx.causal,
+                                         window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_len=None):
+    """GQA softmax attention; CPU tensors take the plain version.
+
+    ``kv_len``: None (all ``Sk`` keys), an int, or a 0-d int32 tensor on
+    q's device (read by the kernel on the device: no host sync).  With a
+    gradient to compute (training), :class:`FlashAttentionFn`; ``kv_len``
+    is then refused: the backward kernel is for training shapes."""
+    if q.device.type == "cpu":
+        return attention_reference(q, k, v, causal=causal, window=window,
+                                   kv_len=kv_len)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_attention: no kernel for {q.device}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
+                                    v.requires_grad):
+        if kv_len is not None:
+            raise ValueError("flash_attention: no gradient with kv_len (the "
+                             "backward kernel is for training shapes)")
+        return FlashAttentionFn.apply(q, k, v, causal, window)
+    return _launch_fwd(q, k, v, causal, window, kv_len, False)[0]
 
 
 #: kernel launches since the last reset (CPU calls are not launches), in

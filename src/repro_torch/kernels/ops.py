@@ -1,8 +1,9 @@
 """Public kernel surface of the port: dispatch, build and launch counts.
 
-``flash_attention``, ``repack`` and ``ssd_scan`` run their plain PyTorch
-version on CPU tensors and their CUDA kernel on tensors on a card; a build
-or launch failure raises.  ``launch_counts`` / ``reset_counts`` read and
+``flash_attention`` (with its backward, ``flash_attention_bwd``),
+``repack`` and ``ssd_scan`` run their plain PyTorch version on CPU tensors
+and their CUDA kernel on tensors on a card; a build or launch failure
+raises.  ``launch_counts`` / ``reset_counts`` read and
 zero the per-wrapper counters that show a run really went through the
 kernels (and each one's ``path_launches``, by path).
 """
@@ -12,10 +13,12 @@ from typing import Dict
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.blockcyclic import repack
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_bwd)
 from repro_torch.kernels.ssd_scan import ssd_scan
 
-KERNELS = {"flash_attention": flash_attention, "repack": repack,
+KERNELS = {"flash_attention": flash_attention,
+           "flash_attention_bwd": flash_attention_bwd, "repack": repack,
            "ssd_scan": ssd_scan}
 
 
@@ -34,5 +37,6 @@ def reset_counts() -> None:
         fn.path_launches = dict.fromkeys(fn.path_launches, 0)
 
 
-__all__ = ["flash_attention", "repack", "ssd_scan", "build", "launch_counts",
+__all__ = ["flash_attention", "flash_attention_bwd", "repack", "ssd_scan",
+           "build", "launch_counts",
            "reset_counts", "KERNELS"]

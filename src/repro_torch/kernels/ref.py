@@ -8,31 +8,78 @@ import torch
 NEG_INF = -1e30
 
 
-def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                        kv_len=None):
-    """Naive softmax attention.  q: (B,H,Sq,D); k,v: (B,Hkv,Sk,D).
-
-    ``kv_len`` (an int or a 0-d integer tensor) masks keys at positions
-    ``>= kv_len`` as well, the decode step's filled cache prefix."""
-    B, H, Sq, D = q.shape
-    Hkv, Sk = k.shape[1], k.shape[2]
-    g = H // Hkv
-    k = k.repeat_interleave(g, dim=1)
-    v = v.repeat_interleave(g, dim=1)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
-    qpos = torch.arange(Sq, device=q.device)[:, None]
-    kpos = torch.arange(Sk, device=q.device)[None, :]
-    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+def _attention_mask(Sq, Sk, *, causal, window, kv_len, device):
+    """(Sq, Sk) bool: key j is valid for query i (top-left causal)."""
+    qpos = torch.arange(Sq, device=device)[:, None]
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos >= kpos
     if window:
         mask &= (qpos - kpos) < window
     if kv_len is not None:
         mask &= kpos < kv_len
-    s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
+    return mask
+
+
+def _attention_scores(q, k, *, causal, window, kv_len=None):
+    """fp32 scaled scores (B, H, Sq, Sk), masked entries -1e30, and the
+    mask; k is repeated over the G query heads of each KV head."""
+    D = q.shape[-1]
+    k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    mask = _attention_mask(q.shape[2], k.shape[2], causal=causal,
+                           window=window, kv_len=kv_len, device=q.device)
+    return torch.where(mask[None, None], s, torch.full_like(s, NEG_INF)), mask
+
+
+def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
+                        kv_len=None):
+    """Naive softmax attention.  q: (B,H,Sq,D); k,v: (B,Hkv,Sk,D).
+
+    ``kv_len`` (an int or a 0-d integer tensor) masks keys at positions
+    ``>= kv_len`` as well, the decode step's filled cache prefix."""
+    s, _ = _attention_scores(q, k, causal=causal, window=window,
+                             kv_len=kv_len)
     p = torch.softmax(s, dim=-1)
+    v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
+
+
+def attention_lse_reference(q, k, *, causal: bool = True, window: int = 0):
+    """The row log-sum-exp of the scaled, masked scores, (B, H, Sq) fp32:
+    what the forward kernel writes beside its output for the backward."""
+    s, _ = _attention_scores(q, k, causal=causal, window=window)
+    return torch.logsumexp(s, dim=-1)
+
+
+def attention_backward_reference(q, k, v, o, do, lse, *, causal: bool = True,
+                                 window: int = 0):
+    """Plain attention backward from the saved row log-sum-exp.
+
+    P = exp(S - lse) on the valid keys (0 elsewhere), with S the scaled
+    scores; dV = P^T dO; dS = P o (dO V^T - rowsum(dO o O)); dQ = dS K
+    scale; dK = dS^T Q scale; dK and dV summed over the G query heads of
+    each KV head.  fp32 throughout; returns (dq, dk, dv) in the inputs'
+    dtypes.  A row with no valid key gets zero gradients."""
+    B, H, Sq, D = q.shape
+    Hkv = k.shape[1]
+    g = H // Hkv
+    scale = D ** -0.5
+    s, mask = _attention_scores(q, k, causal=causal, window=window)
+    p = torch.exp(s - lse.float()[..., None]) * mask[None, None]
+    do32, o32 = do.float(), o.float()
+    kr = k.float().repeat_interleave(g, dim=1)
+    vr = v.float().repeat_interleave(g, dim=1)
+    delta = (do32 * o32).sum(-1)                          # (B, H, Sq)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do32, vr)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kr) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    fold = lambda t: t.reshape(B, Hkv, g, *t.shape[2:]).sum(2)
+    return dq.to(q.dtype), fold(dk).to(k.dtype), fold(dv).to(v.dtype)
 
 
 def ssd_reference(xdt, a, bm, cm):

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as T
 from repro_torch.configs.base import ArchConfig
@@ -57,18 +58,32 @@ def layer(stacked, i: int):
 # ----------------------------------------------------------------------
 
 def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
-    """Trunk only -> (final normed hidden (B, S, D), aux_loss = 0)."""
+    """Trunk only -> (final normed hidden (B, S, D), aux_loss = 0).
+
+    With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
+    (non-reentrant), the counterpart of the reference's ``jax.checkpoint``
+    over the layer scan: a layer keeps only its input for the backward and
+    runs again there.  The stacked parameters are unbound once, so their
+    gradients are stacked once (indexing each layer would build a
+    full-size zero gradient per layer)."""
     _require_supported(cfg)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg)
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
+    stacks = T.tree_map(lambda t: t.unbind(0), params["layers"])
+
+    def body(h, lp):
         if cfg.is_ssm:
-            x = blocks.ssm_block_apply(lp, x, cfg)
+            return blocks.ssm_block_apply(lp, h, cfg)
+        return blocks.decoder_block_apply(lp, h, cfg, positions=positions,
+                                          causal=True)
+
+    for i in range(cfg.num_layers):
+        lp = T.tree_map(lambda views: views[i], stacks)
+        if cfg.remat and torch.is_grad_enabled():
+            x = checkpoint(body, x, lp, use_reentrant=False)
         else:
-            x = blocks.decoder_block_apply(lp, x, cfg, positions=positions,
-                                           causal=True)
+            x = body(x, lp)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

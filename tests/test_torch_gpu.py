@@ -24,7 +24,9 @@ from repro_torch.kernels import _build, ops
 from repro_torch.kernels import blockcyclic as bc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ssd_scan as ss
-from repro_torch.kernels.ref import (attention_reference, repack_reference,
+from repro_torch.kernels.ref import (attention_backward_reference,
+                                     attention_lse_reference,
+                                     attention_reference, repack_reference,
                                      ssd_chunked_reference, ssd_reference)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -64,6 +66,22 @@ GROUP_CASES = [
     (16, 8, 8, 130, 130, False, 0),                  # Hkv = H, ragged
     (70, 4, 1, 64, 64, True, 0),                     # Hkv = 1
 ]
+
+# K1's backward: (B, H, Hkv, Sq, Sk, causal, window), every head dim and
+# dtype; GQA, Hkv = H, windows, Sq = Sk not a multiple of 64, Sq < Sk
+BWD_CASES = [
+    (2, 4, 2, 256, 256, True, 0),
+    (1, 4, 1, 200, 200, True, 0),
+    (2, 8, 2, 77, 77, True, 40),
+    (1, 4, 4, 130, 130, False, 0),
+    (1, 4, 2, 100, 160, True, 0),
+    (1, 2, 2, 64, 64, False, 24),
+]
+#: the backward against its plain version: both fp32 from the same inputs
+#: and lse, differing in summation order over up to G * Sq products per
+#: dk / dv entry (~1e-5 at these lengths), so 1e-4; bf16 outputs are
+#: rounded once to 8 bits (2^-8 relative), as the forward's 2e-2
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 REPACK_CASES = [(16, 8, 32, 10), (8, 16, 16, 8), (32, 8, 128, 32), (7, 3, 5, 9)]
 # (nblocks, block, width, dtype, idx): the bulk path (16-byte blocks) with a
@@ -181,6 +199,74 @@ def test_flash_group_prefill_on_card(cuda, B, H, Hkv, Sq, Sk, causal, window,
                                rtol=TOL["bfloat16"])
 
 
+def _bwd_inputs(cuda, B, H, Hkv, Sq, Sk, D, dtype, seed=5):
+    g = torch.Generator(cuda).manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(s, generator=g, device=cuda).to(dt) for s in
+               [(B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)])
+    do = torch.randn(B, H, Sq, D, generator=g, device=cuda).to(dt)
+    return q, k, v, do
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,window", BWD_CASES)
+def test_flash_bwd_matches_plain_on_card(cuda, B, H, Hkv, Sq, Sk, causal,
+                                         window, D, dtype):
+    """K1's forward with its log-sum-exp, then the backward kernel, against
+    the plain backward from the same output and lse; the lse against the
+    plain forward's; autograd through ``flash_attention`` takes both."""
+    q, k, v, do = _bwd_inputs(cuda, B, H, Hkv, Sq, Sk, D, dtype)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=causal,
+                                       window=window)
+    torch.testing.assert_close(
+        lse, attention_lse_reference(q, k, causal=causal, window=window),
+        atol=BWD_TOL["float32"], rtol=BWD_TOL["float32"])
+    before = ops.launch_counts()["flash_attention_bwd"]
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
+                                 window=window)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    exp = attention_backward_reference(q, k, v, out, do, lse, causal=causal,
+                                       window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype], msg=name)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*leaves, causal=causal, window=window).backward(do)
+    for a, b in zip(leaves, got):
+        assert torch.equal(a.grad, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_is_bitwise_repeatable_on_card(cuda, dtype):
+    """No floating-point atomics: two runs of the backward agree bit for
+    bit (at a GQA causal shape with several key tiles per CTA)."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 8, 2, 333, 333, 64, dtype)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    b = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_flash_bwd_refusals_on_card(cuda):
+    """No gradient through kv_len or through the decode path: the backward
+    kernel is for training shapes, and split_decode writes no lse."""
+    q, k, v, _ = _bwd_inputs(cuda, 1, 4, 2, 64, 64, 64, "bfloat16")
+    q.requires_grad_()
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q, k, v, causal=False, kv_len=32)
+    with pytest.raises(ValueError, match="decode path"):
+        ops.flash_attention(q[:, :, :1], k, v, causal=False)
+    with torch.no_grad():                        # serving: no lse, no refusal
+        ops.flash_attention(q[:, :, :1], k, v, causal=False, kv_len=32)
+
+
 def _split_edges(S, nsplit):
     """kv_len values next to every tile edge (and so every split edge)."""
     edges = {1, S}
@@ -231,7 +317,7 @@ def test_flash_entry_point_refuses_a_path_that_cannot_take_the_call(cuda):
     fma, mma, split = (fa.PATHS.index(p) for p in ("fma", "mma",
                                                    "split_decode"))
 
-    def call(path, dtype, H, Sq, nsplit=1):
+    def call(path, dtype, H, Sq, nsplit=1, lse=None):
         q = torch.zeros(1, H, Sq, 64, device=cuda, dtype=dtype)
         kv = torch.zeros(1, 1, 64, 64, device=cuda, dtype=dtype)
         out = torch.empty_like(q)
@@ -239,7 +325,7 @@ def test_flash_entry_point_refuses_a_path_that_cannot_take_the_call(cuda):
                    None, path, fa._DTYPES[dtype], 1, H, 1, Sq, 64, 64,
                    *q.stride()[:3], *kv.stride()[:3], *kv.stride()[:3],
                    *out.stride()[:3], 64, 1, 0, 0.125, None, None, nsplit,
-                   stream)
+                   lse, stream)
 
     f32, bf16 = torch.float32, torch.bfloat16
     assert call(mma, f32, 4, 64) == 1            # mma: bf16 only
@@ -249,7 +335,10 @@ def test_flash_entry_point_refuses_a_path_that_cannot_take_the_call(cuda):
     assert call(split, bf16, 4, 1, nsplit=2) == 1
     assert call(split, bf16, 4, 1, nsplit=0) == 1
     assert call(len(fa.PATHS), bf16, 4, 64) == 1
+    lse = torch.empty(4 * 64, device=cuda)       # (B, H, Sq) of the mma call
+    assert call(split, bf16, 4, 1, lse=lse.data_ptr()) == 1  # no lse here
     assert call(split, bf16, 4, 1) == 0          # the path it would choose
+    assert call(mma, bf16, 4, 64, lse=lse.data_ptr()) == 0
     assert call(mma, bf16, 4, 64) == 0
     torch.cuda.synchronize()
 
@@ -513,8 +602,41 @@ def test_mamba2_smoke_on_card_matches_cpu(cuda):
     ref = decode_demo(arch, device="cpu", **run)
     ops.reset_counts()
     out = decode_demo(arch, device=cuda, **run)
-    assert ops.launch_counts() == {"flash_attention": 0, "repack": 0,
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0, "repack": 0,
                                    "ssd_scan": 0}
     np.testing.assert_array_equal(out["tokens"], ref["tokens"])
     assert [e.transfer.bytes_moved for e in out["events"]] == \
         [e.transfer.bytes_moved for e in ref["events"]]
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda):
+    """One training step of the smoke model in fp32 on the card (K1 and its
+    backward kernel under autograd) gives the CPU plain path's loss and
+    gradient norm: fp32 on both, summation orders differ."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models.train import init_state, make_train_step
+    from repro_torch.optim import AdamW
+    cfg = get_config("granite-3-2b-smoke")
+    opt = AdamW(learning_rate=1e-3)
+    batch = SyntheticDataset(cfg, ShapeConfig("t", "train", 64, 8)
+                             ).batch_at(0)
+    step = make_train_step(cfg, opt)
+    out = {}
+    for dev in ("cpu", cuda):
+        state = T.tree_map(lambda t: t.to(dev), init_state(cfg, opt, 0))
+        ops.reset_counts()
+        _, m = step(state, {k: torch.from_numpy(v).to(dev)
+                            for k, v in batch.items()})
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                         ops.launch_counts())
+    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
+    assert n_cpu["flash_attention"] == n_cpu["flash_attention_bwd"] == 0
+    assert n_gpu["flash_attention"] == n_gpu["flash_attention_bwd"] == \
+        cfg.num_layers
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu)

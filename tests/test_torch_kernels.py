@@ -8,6 +8,7 @@ only summation order differs) and 2e-2 for bfloat16 (outputs rounded to
 8 mantissa bits).  ``tests/test_torch_gpu.py`` holds the CUDA kernels
 against their plain versions on a card.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +16,12 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro.models.attention import chunked_attention
 from repro_torch.kernels import blockcyclic as bc
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels.ref import (attention_backward_reference,
+                                     attention_lse_reference)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -46,6 +50,20 @@ DECODE_CASES = [
 ]
 
 REPACK_CASES = [(16, 8, 32, 10), (8, 16, 16, 8), (32, 8, 128, 32)]
+
+# (B, H, Hkv, Sq, Sk, D, causal, window) in fp32 for the gradients: GQA,
+# Hkv = H, head dim 80, a window, non-causal; chunked_attention takes
+# chunks of 32 (Sq, Sk multiples of 32)
+GRAD_CASES = [
+    (2, 4, 2, 64, 64, 64, True, 0),
+    (1, 4, 1, 96, 96, 16, True, 24),
+    (1, 4, 2, 64, 64, 80, True, 0),
+    (1, 2, 2, 64, 64, 32, False, 0),
+    (2, 8, 2, 32, 32, 128, True, 16),
+]
+#: fp32 gradients through softmax attention; both sides in fp32 from the
+#: same inputs, summation orders differ
+GRAD_TOL = 2e-5
 
 
 def _np(rng, shape):
@@ -213,7 +231,8 @@ def test_cpu_calls_are_not_launches():
     ops.repack(torch.zeros(4, 2, 3), [3, 0])
     ops.ssd_scan(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
                  torch.zeros(1, 8, 16), torch.zeros(1, 8, 16), chunk=4)
-    assert ops.launch_counts() == {"flash_attention": 0, "repack": 0,
+    assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0, "repack": 0,
                                    "ssd_scan": 0}
     assert fa.flash_attention.path_launches == {"fma": 0, "mma": 0,
                                                 "split_decode": 0}
@@ -243,6 +262,7 @@ def test_cpu_calls_count_no_path():
                  torch.zeros(1, 64, 16, dtype=torch.bfloat16), chunk=64)
     assert {n: fn.path_launches for n, fn in ops.KERNELS.items()} == {
         "flash_attention": {"fma": 0, "mma": 0, "split_decode": 0},
+        "flash_attention_bwd": {"fma": 0},
         "repack": {"bytes": 0, "bulk": 0},
         "ssd_scan": {"fma": 0, "wgmma": 0}}
 
@@ -296,3 +316,71 @@ def test_repack_upload_pins_then_copies_without_blocking(monkeypatch):
     out = bc.upload_index(np.array([3, 0, 3]), 4, "cuda")
     assert calls == ["pin", ("copy", "cuda")]
     assert out.dtype == torch.int32 and out.tolist() == [3, 0, 3]
+
+
+def _grad_inputs(B, H, Hkv, Sq, Sk, D, seed=6):
+    rng = np.random.default_rng(seed)
+    return [_np(rng, s) for s in [(B, H, Sq, D), (B, Hkv, Sk, D),
+                                  (B, Hkv, Sk, D), (B, H, Sq, D)]]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window", GRAD_CASES)
+def test_attention_grads_match_jax(B, H, Hkv, Sq, Sk, D, causal, window):
+    """The port's attention differentiated on the CPU (autograd through its
+    plain version, the path every CPU call takes) equals ``jax.grad`` of the
+    JAX package's kernel reference and of ``chunked_attention``, the
+    function the JAX model differentiates."""
+    q, k, v, do = _grad_inputs(B, H, Hkv, Sq, Sk, D)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    got = torch.autograd.grad(out, (tq, tk, tv), torch.from_numpy(do))
+
+    def ref_loss(q_, k_, v_):
+        o = jref.attention_reference(q_, k_, v_, causal=causal, window=window)
+        return jnp.sum(o * do)
+
+    def chunked_loss(q_, k_, v_):
+        t = lambda x: jnp.transpose(x, (0, 2, 1, 3))
+        o = chunked_attention(t(q_), t(k_), t(v_), causal=causal,
+                              window=window, chunk_q=32, chunk_k=32)
+        return jnp.sum(t(o) * do)
+
+    for loss in (ref_loss, chunked_loss):
+        exp = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+        for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                       atol=GRAD_TOL, rtol=GRAD_TOL,
+                                       err_msg=f"{loss.__name__} {name}")
+
+
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,D,causal,window", GRAD_CASES + [
+    (1, 4, 2, 40, 72, 64, True, 0),          # Sq < Sk, top-left causal
+    (1, 2, 1, 50, 50, 16, True, 8)])         # Sq not a multiple of 64
+def test_attention_backward_reference_equals_autograd(B, H, Hkv, Sq, Sk, D,
+                                                      causal, window):
+    """The plain backward from the row log-sum-exp (what the backward
+    kernel is held to on the card) equals torch autograd of the plain
+    forward; its lse equals the log of the softmax denominator."""
+    q, k, v, do = (torch.from_numpy(x) for x in
+                   _grad_inputs(B, H, Hkv, Sq, Sk, D, seed=7))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = ops.flash_attention(*leaves, causal=causal, window=window)
+    exp = torch.autograd.grad(out, leaves, do)
+    lse = attention_lse_reference(q, k, causal=causal, window=window)
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    got = fa.flash_attention_bwd(q, k, v, out.detach(), do, lse,
+                                 causal=causal, window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert a.shape == b.shape, name
+        torch.testing.assert_close(a, b, atol=GRAD_TOL, rtol=GRAD_TOL,
+                                   msg=name)
+
+
+def test_cpu_backward_is_not_a_launch():
+    ops.reset_counts()
+    q = torch.zeros(1, 2, 4, 32, requires_grad=True)
+    ops.flash_attention(q, q, q).sum().backward()
+    fa.flash_attention_bwd(q.detach(), q.detach(), q.detach(), q.detach(),
+                           q.detach(), torch.zeros(1, 2, 4))
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+    assert fa.flash_attention_bwd.path_launches == {"fma": 0}
