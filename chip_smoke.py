@@ -24,9 +24,12 @@ really ran through its kernels.  Phases:
 3b. K1's backward (``flash_attention_bwd.cu``) against
    ``attention_backward_reference`` on dq, dk, dv from the forward's own
    output and row log-sum-exp: every head dim in fp32 and bf16, causal,
-   windowed with Sq = Sk = 200, non-causal; then the training shape (B=1
-   to bound the plain version's memory, H=32, Hkv=8, S=4096, D=64, bf16),
-   run twice and equal bit for bit; the lse against the plain forward's;
+   windowed with Sq = Sk = 200, non-causal, each bf16 case on the wgmma
+   path and each fp32 case on the fma path (``path_launches``); then the
+   training shape (B=1 to bound the plain version's memory, H=32, Hkv=8,
+   S=4096, D=64, bf16), run twice and equal bit for bit, and K1's forward
+   output there against ``attention_reference``; the lse against the plain
+   forward's;
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
@@ -70,11 +73,13 @@ really ran through its kernels.  Phases:
     against the CPU's; then 6 static steps and 6 elastic steps under
     ``{2: 8, 4: 2}`` (``tests/test_elastic.py``'s schedule) whose losses
     agree to 1e-4; every attention call on K1 (20 forward launches a step
-    under remat, 10 backward), none on a plain version;
+    under remat, all on the mma path; 10 backward, all on wgmma), none on a
+    plain version;
 12. one traced 10-layer training step (the static run's next): device
     busy time, idle share, K1's forward and backward device time and
     share, the largest device operators;
-13. the same training at all 40 layers: 2 static steps, s/step, peak GB;
+13. the same training at all 40 layers: 2 static steps, s/step, peak GB,
+    every backward call on wgmma (40 a step);
 14. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
@@ -87,8 +92,10 @@ really ran through its kernels.  Phases:
     than the card's 50 MB L2 holds (back-to-back calls on one set of
     inputs find them in L2; a serving step finds them cold); K2's and K3's
     inputs alone outgrow L2.  K1 decode adds ``host_us``, the wrapper's
-    host time per call; every row names the device path it timed.  Then
-    the contract line ``{"ok": true, ...}``.
+    host time per call; every row names the device path it timed.  K1
+    has four rows: decode and prefill at the serving path's shapes, and
+    its forward (with the lse, as training calls it) and backward at the
+    training shape.  Then the contract line ``{"ok": true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
@@ -533,11 +540,13 @@ def main() -> None:
     # -- 3b. K1's backward against its plain version ----------------------
     bwd_err = {"float32": 0.0, "bfloat16": 0.0}
     lse_err = 0.0
+    bwd_paths = dict.fromkeys(fa.BWD_PATHS, 0)
+    bwd_path_of = {f32: "fma", bf16: "wgmma"}    # what each dtype must take
 
     def k1_bwd_case(B, H_, Hkv_, Sq, Sk, D_, causal, window, dt, what):
-        """K1 forward with its lse, then the backward kernel, each against
-        its plain version; returns the inputs, the forward and the
-        gradients."""
+        """K1 forward with its lse, then the backward kernel (which must
+        take and count its dtype's path), each against its plain version;
+        returns the inputs, the forward and the gradients."""
         nonlocal lse_err
         name = str(dt).split(".")[1]
         q, k, v = rand((B, H_, Sq, D_), dt), rand((B, Hkv_, Sk, D_), dt), \
@@ -548,7 +557,14 @@ def main() -> None:
         lse_err = max(lse_err, check_close(
             lse, attention_lse_reference(q, k, **kw), "float32",
             f"{what} lse", BWD_TOL["float32"]))
+        before = dict(fa.flash_attention_bwd.path_launches)
         got = ops.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+        moved = {p: n - before[p]
+                 for p, n in fa.flash_attention_bwd.path_launches.items()}
+        if moved != {p: int(p == bwd_path_of[dt]) for p in moved}:
+            fail(f"{what}: backward path launches {moved}, not one on "
+                 f"{bwd_path_of[dt]}")
+        bwd_paths[bwd_path_of[dt]] += 1
         exp = attention_backward_reference(q, k, v, out, do, lse, **kw)
         for n_, a, b in zip(("dq", "dk", "dv"), got, exp):
             bwd_err[name] = max(bwd_err[name], check_close(
@@ -571,11 +587,17 @@ def main() -> None:
     torch.cuda.synchronize()
     if not all(torch.equal(a, b) for a, b in zip(tgot, again)):
         fail("K1 backward: two runs on the same inputs differ")
+    # K1's forward at the training shape (the same B=1 inputs), mma path
+    err_fwd_train = check_close(
+        targs_1[3], attention_reference(*targs_1[:3], causal=True),
+        "bfloat16", f"K1 forward at the train shape {BWD_TRAIN}")
     phase("K1:bwd", cases=len(bwd_cases) + 1,
+          paths=json.dumps(bwd_paths, separators=(",", ":")),
           max_err_f32=f"{small_err['float32']:.3e}",
           max_err_bf16=f"{max(small_err['bfloat16'], err_bwd_train):.3e}",
           train_shape=str(BWD_TRAIN).replace(" ", ""),
           train_shape_err=f"{err_bwd_train:.3e}", bitwise_repeatable=True,
+          fwd_train_shape_err=f"{err_fwd_train:.3e}",
           lse_max_err=f"{lse_err:.3e}",
           tol=json.dumps(BWD_TOL, separators=(",", ":")))
     del targs_1, tgot, again
@@ -754,6 +776,10 @@ def main() -> None:
 
     bwd_sets = [train_attn_inputs() for _ in range(2)]
     k1_bwd = lambda: ops.flash_attention_bwd(*bwd_sets[0], causal=True)
+    # K1's forward as training calls it (with its lse), and SDPA's forward
+    k1_tfwd = lambda: fa.flash_attention_lse(*bwd_sets[0][:3], causal=True)
+    sdpa_tfwd = lambda: F.scaled_dot_product_attention(
+        *bwd_sets[0][:3], is_causal=True, enable_gqa=True)
     sq_, sk_, sv_ = (t.detach().requires_grad_() for t in bwd_sets[0][:3])
     s_out = F.scaled_dot_product_attention(sq_, sk_, sv_, is_causal=True,
                                            enable_gqa=True)
@@ -788,7 +814,12 @@ def main() -> None:
               "K1 bwd cold": device_ms(cold(
                   lambda *a: ops.flash_attention_bwd(*a, causal=True),
                   bwd_sets), "K1 backward, L2-cold", iters=4),
-              "SDPA bwd": device_ms(sdpa_bwd, "SDPA backward", iters=4)}
+              "SDPA bwd": device_ms(sdpa_bwd, "SDPA backward", iters=4),
+              "K1 train fwd": device_ms(k1_tfwd, "K1 forward, train shape",
+                                        iters=8),
+              "SDPA train fwd": device_ms(sdpa_tfwd,
+                                          "SDPA forward, train shape",
+                                          iters=8)}
     del cold_dec, cold_pre
     mark("device_ms")
 
@@ -1135,15 +1166,18 @@ def main() -> None:
             losses.append(float(m["loss"]))        # waits for the step
             secs.append(time.perf_counter() - t0)
         counts = dict(ops.launch_counts(),
-                      paths=dict(fa.flash_attention.path_launches))
+                      paths=dict(fa.flash_attention.path_launches),
+                      bwd_paths=dict(fa.flash_attention_bwd.path_launches))
         L = c.num_layers
         want = {"flash_attention": 2 * L * steps,      # remat: twice
                 "flash_attention_bwd": L * steps}
         if {k_: counts[k_] for k_ in want} != want or \
                 counts["paths"] != {"fma": 0, "mma": 2 * L * steps,
-                                    "split_decode": 0}:
+                                    "split_decode": 0} or \
+                counts["bwd_paths"] != {"fma": 0, "wgmma": L * steps}:
             fail(f"{L}-layer training launched {counts}, not {want} with "
-                 "every forward on the mma path")
+                 "every forward on the mma path and every backward on "
+                 "wgmma")
         if not all(np.isfinite(losses)):
             fail(f"{L}-layer training losses {losses}")
         return runner, state, losses, secs, counts
@@ -1177,6 +1211,7 @@ def main() -> None:
             del state
             truns[label] = (runner, None, losses)
     train_launches = counts["flash_attention_bwd"]
+    train_fwd_launches = counts["flash_attention"]
     static_l, elastic_l = truns["static"][2], truns["elastic"][2]
     gap = max(abs(a - b) for a, b in zip(static_l, elastic_l))
     actions = [e.action for e in truns["elastic"][0].events]
@@ -1299,6 +1334,35 @@ def main() -> None:
             attention_backward_reference(
                 *(t[b_:b_ + 1] for t in bwd_sets[0]), causal=True)
 
+    # K1's forward at the training path's shape, as training calls it (with
+    # its lse): two products over the causal pairs; q, k, v read, out and
+    # lse written once
+    b_tfwd, by_tfwd = bound_ms(
+        el * 2 * TRAIN_BATCH * tS * (tH + tHkv) * tD
+        + 4 * TRAIN_BATCH * tH * tS,
+        2 * 2 * TRAIN_BATCH * tH * tD * pairs, "bfloat16")
+
+    def plain_tfwd():
+        """The plain forward one batch row at a time, as plain_bwd."""
+        for b_ in range(TRAIN_BATCH):
+            attention_reference(*(t[b_:b_ + 1] for t in bwd_sets[0][:3]),
+                                causal=True)
+
+    kernels.append({
+        "name": "flash_attention_fwd (train, causal, with lse)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:73",
+        "path": "mma",
+        "launches": train_fwd_launches, "max_abs_err": err_fwd_train,
+        "ms": time_ms(k1_tfwd, iters=10, warmup=2),
+        "device_ms": dev_ms["K1 train fwd"],
+        "plain_ms": time_ms(plain_tfwd, iters=2, warmup=1),
+        "bound_ms": b_tfwd, "bound_by": by_tfwd,
+        "library_ms": time_ms(sdpa_tfwd, iters=10, warmup=2),
+        "library_device_ms": dev_ms["SDPA train fwd"],
+        "shape": f"B={TRAIN_BATCH} H={tH} Hkv={tHkv} D={tD} S={tS} causal "
+                 "bf16"})
     kernels.append({
         "name": "flash_attention_bwd (train, causal)", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -1306,7 +1370,7 @@ def main() -> None:
         "replaces_note": "the gradient of K1; the JAX package has no Pallas "
                          "backward and differentiates chunked_attention "
                          "(src/repro/models/attention.py:99) through XLA",
-        "path": "fma",
+        "path": "wgmma",
         "launches": train_launches, "max_abs_err": err_bwd_train,
         "ms": time_ms(k1_bwd, iters=5, warmup=1),
         "device_ms": dev_ms["K1 bwd"],

@@ -8,7 +8,9 @@ shared library with a plain C interface::
 
 All sources compile in parallel (one ``nvcc`` each).  Libraries land in
 ``build/kernels/`` at the root of the checkout, named by a hash of their
-source, so an edited source is rebuilt and an unchanged one is reused.
+source and of the headers under ``csrc/`` (``*.cuh``) that the sources
+share, so an edited source or header is rebuilt and an unchanged one is
+reused.
 ``ptxas``'s register and shared-memory report is kept beside each library
 (``<lib>.log``).  Importing this module builds nothing; CPU-only machines
 never call :func:`load`.
@@ -44,7 +46,7 @@ SIGNATURES = {
     # its own source, so that it builds in parallel with K1's 25 kernels
     "flash_attention_bwd": {
         "flash_attention_bwd": [_p, _p, _p, _p, _p, _p, _p, _p, _p, _p, _i,
-                                _i, _i, _i, _i, _i, _i,
+                                _i, _i, _i, _i, _i, _i, _i,
                                 ctypes.POINTER(_ll), _i, _i, _f, _p],
     },
     "blockcyclic": {
@@ -76,7 +78,9 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha1(src + headers +
+                          " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

@@ -22,8 +22,11 @@ Training: when q, k or v requires a gradient (and grad mode is on), the
 call goes through :class:`FlashAttentionFn`, whose forward launches K1
 with its row log-sum-exp output (fma or mma path) and whose backward is
 the kernel of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`,
-counted in ``flash_attention_bwd.launches``).  CPU tensors take the plain
-version both ways: autograd differentiates ``attention_reference``.
+counted in ``flash_attention_bwd.launches``).  The backward has two
+device paths, ``wgmma`` for bfloat16 and ``fma`` for float32, chosen by
+:func:`select_bwd_path` and counted in ``flash_attention_bwd.path_launches``.
+CPU tensors take the plain version both ways: autograd differentiates
+``attention_reference``.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import needs_grad
 from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_lse_reference,
                                      attention_reference)
@@ -40,6 +44,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)
 #: path names, indexed by the id the C entry point takes
 PATHS = ("fma", "mma", "split_decode")
+#: the backward's path names, indexed by the id its C entry point takes
+BWD_PATHS = ("fma", "wgmma")
 DECODE_ROWS = 16            # kDecodeRows: query rows per KV head, at most
 TILE_K = 64                 # kTileK: keys per shared-memory tile
 #: a split CTA's 4 warps take at most this many K/V tiles (two each)
@@ -58,6 +64,12 @@ def select_path(dtype: torch.dtype, rows: int) -> str:
     if rows <= DECODE_ROWS:
         return "split_decode"
     return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def select_bwd_path(dtype: torch.dtype) -> str:
+    """The backward's path: the tensor cores for bfloat16, fp32 FMAs for
+    float32 (which never takes TF32)."""
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def decode_splits(bh: int, sk: int, sms: int) -> int:
@@ -183,8 +195,9 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     """Gradients (dq, dk, dv) of :func:`flash_attention` from the forward's
     output ``o`` and row log-sum-exp ``lse`` (B, H, Sq) fp32; CPU tensors
     take the plain version (``attention_backward_reference``).  On a card:
-    the three launches of ``csrc/flash_attention_bwd.cu``, one call counted;
-    dq comes laid out as (B, Sq, H, D), dk / dv as (B, Sk, Hkv, D)."""
+    the three launches of ``csrc/flash_attention_bwd.cu`` on the path
+    :func:`select_bwd_path` names, one call counted; dq comes laid out as
+    (B, Sq, H, D), dk / dv as (B, Sk, Hkv, D)."""
     global _bwd
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, o, do, lse,
@@ -214,23 +227,25 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*[
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]])
+    path = select_bwd_path(q.dtype)
     if _bwd is None:
         _bwd = _build.load()["flash_attention_bwd"].flash_attention_bwd
     err = _bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype],
-               B, H, Hkv, Sq, Sk, D, strides, int(bool(causal)), int(window),
-               float(D ** -0.5),
+               dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+               BWD_PATHS.index(path), _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D,
+               strides, int(bool(causal)), int(window), float(D ** -0.5),
                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.path_launches["fma"] += 1
+    flash_attention_bwd.path_launches[path] += 1
     return dq, dk, dv
 
 
-#: backward calls since the last reset (each one launches three kernels)
+#: backward calls since the last reset (each one launches three kernels),
+#: in all and by path
 flash_attention_bwd.launches = 0
-flash_attention_bwd.path_launches = {"fma": 0}
+flash_attention_bwd.path_launches = dict.fromkeys(BWD_PATHS, 0)
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
@@ -277,8 +292,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                                    kv_len=kv_len)
     if q.device.type != "cuda":
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or
-                                    v.requires_grad):
+    if needs_grad(q, k, v):
         if kv_len is not None:
             raise ValueError("flash_attention: no gradient with kv_len (the "
                              "backward kernel is for training shapes)")

@@ -14,12 +14,18 @@ One C entry point, two device paths (see the source for their design):
 (:func:`select_path`, a pure function of the dtype and the shapes) and
 passes it to the entry point, which refuses a path that cannot take the
 call; ``ssd_scan.path_launches`` counts calls by path.
+
+There is no gradient through the kernel yet: K3 has no backward kernel
+(ROADMAP.md §A.1/§B.5), so a call on a card that would need one raises
+rather than return a y that autograd cannot see past.  CPU tensors take
+the plain version, which autograd differentiates.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._grad import needs_grad
 from repro_torch.kernels.ref import ssd_chunked_reference
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -69,15 +75,21 @@ def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
     """SSD sequence transform; CPU tensors take the plain chunked version.
 
     Raises where the Pallas wrapper asserts (``S % chunk``) and, on the
-    card, where the chosen path's limits are not met: P and N multiples
-    of 16, at most 64 and 128, every last dim contiguous, and on the
-    wgmma path 16-byte aligned rows of xdt, bm and cm."""
+    card, when a gradient would be needed (no backward kernel yet) and
+    where the chosen path's limits are not met: P and N multiples of 16,
+    at most 64 and 128, every last dim contiguous, and on the wgmma path
+    16-byte aligned rows of xdt, bm and cm."""
     global _fwd
     _check(xdt, a, bm, cm, chunk)
     if xdt.device.type == "cpu":
         return ssd_chunked_reference(xdt, a, bm, cm, chunk)
     if xdt.device.type != "cuda":
         raise RuntimeError(f"ssd_scan: no kernel for {xdt.device}")
+    if needs_grad(xdt, a, bm, cm):
+        raise RuntimeError("ssd_scan: no gradient on the card: K3 has no "
+                           "backward kernel yet (ROADMAP.md §A.1/§B.5); "
+                           "call it under torch.no_grad(), or train the SSM "
+                           "family on the CPU")
     B, S, H, P = xdt.shape
     N = bm.shape[-1]
     if P % 16 or P > _MAX_P or N % 16 or N > _MAX_N:

@@ -15,6 +15,8 @@ kernel's own algorithm in fp32, the SSD scan is held to ``SSD_CHUNKED_TOL``
 (see there); K3's wgmma path (bf16 on the tensor cores) is held to the
 same bounds.
 """
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -224,10 +226,15 @@ def test_flash_bwd_matches_plain_on_card(cuda, B, H, Hkv, Sq, Sk, causal,
         lse, attention_lse_reference(q, k, causal=causal, window=window),
         atol=BWD_TOL["float32"], rtol=BWD_TOL["float32"])
     before = ops.launch_counts()["flash_attention_bwd"]
+    paths = dict(fa.flash_attention_bwd.path_launches)
     got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=causal,
                                  window=window)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention_bwd"] == before + 1
+    path = "wgmma" if dtype == "bfloat16" else "fma"
+    assert {p: n - paths[p] for p, n in
+            fa.flash_attention_bwd.path_launches.items()} == \
+        {p: int(p == path) for p in fa.BWD_PATHS}
     exp = attention_backward_reference(q, k, v, out, do, lse, causal=causal,
                                        window=window)
     for name, a, b in zip(("dq", "dk", "dv"), got, exp):
@@ -244,13 +251,51 @@ def test_flash_bwd_matches_plain_on_card(cuda, B, H, Hkv, Sq, Sk, causal,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_bwd_is_bitwise_repeatable_on_card(cuda, dtype):
     """No floating-point atomics: two runs of the backward agree bit for
-    bit (at a GQA causal shape with several key tiles per CTA)."""
+    bit (at a GQA causal shape with several key tiles per CTA), on the
+    path of each dtype (wgmma for bf16, fma for fp32)."""
     q, k, v, do = _bwd_inputs(cuda, 2, 8, 2, 333, 333, 64, dtype)
     out, lse = fa.flash_attention_lse(q, k, v)
+    ops.reset_counts()
     a = fa.flash_attention_bwd(q, k, v, out, do, lse)
     b = fa.flash_attention_bwd(q, k, v, out, do, lse)
     torch.cuda.synchronize()
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    path = "wgmma" if dtype == "bfloat16" else "fma"
+    assert fa.flash_attention_bwd.path_launches == {
+        p: 2 * (p == path) for p in fa.BWD_PATHS}
+
+
+@pytest.mark.gpu
+def test_flash_bwd_entry_point_refuses_a_path_that_cannot_take_the_call(
+        cuda):
+    """The wrapper chooses the backward's path; the C entry point returns
+    cudaErrorInvalidValue (1) for wgmma on fp32, fma on bf16 and a path id
+    it does not know, and launches nothing."""
+    ops.build()
+    bwd = _build.load()["flash_attention_bwd"].flash_attention_bwd
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    fma, wgmma = (fa.BWD_PATHS.index(p) for p in ("fma", "wgmma"))
+
+    def call(path, dtype):
+        q = torch.zeros(1, 4, 64, 64, device=cuda, dtype=dtype)
+        kv = torch.zeros(1, 2, 64, 64, device=cuda, dtype=dtype)
+        lse, delta = (torch.zeros(1, 4, 64, device=cuda) for _ in range(2))
+        grads = [torch.empty_like(t) for t in (q, kv, kv)]
+        strides = (ctypes.c_longlong * 24)(*[
+            s for t in (q, kv, kv, q, q, *grads) for s in t.stride()[:3]])
+        return bwd(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
+                   q.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                   *(g.data_ptr() for g in grads), path, fa._DTYPES[dtype],
+                   1, 4, 2, 64, 64, 64, strides, 1, 0, 0.125, stream)
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert call(wgmma, f32) == 1                 # wgmma: bf16 only
+    assert call(fma, bf16) == 1                  # fma: fp32 only
+    assert call(len(fa.BWD_PATHS), bf16) == 1
+    assert call(-1, f32) == 1
+    assert call(wgmma, bf16) == 0                # the paths it would choose
+    assert call(fma, f32) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.gpu
@@ -640,3 +685,43 @@ def test_train_step_on_card_matches_cpu(cuda):
         cfg.num_layers
     assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
     assert abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu)
+
+
+@pytest.mark.gpu
+def test_mamba2_train_step_on_card_raises(cuda):
+    """K3 has no backward kernel yet: a mamba2-smoke training step on the
+    card raises where the scan would need a gradient, rather than return
+    zero gradients for the parameters that reach the loss only through it
+    (the same step on the CPU differentiates the plain version:
+    tests/test_torch_ssm.py).  Without a gradient the scan still runs."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import model as M
+    from repro_torch.models.train import (_value_and_grad, init_state,
+                                          make_train_step)
+    from repro_torch.optim import AdamW
+    cfg = get_config("mamba2-370m-smoke")
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticDataset(
+        cfg, ShapeConfig("t", "train", 64, 2)).batch_at(0).items()}
+    params = T.tree_map(lambda t: t.to(cuda), M.init_params(
+        cfg, torch.Generator().manual_seed(0)))
+    ops.reset_counts()
+    with pytest.raises(RuntimeError, match="no gradient on the card"):
+        _value_and_grad(params, cfg, batch)
+    opt = AdamW(learning_rate=1e-3)
+    state = T.tree_map(lambda t: t.to(cuda), init_state(cfg, opt, 0))
+    with pytest.raises(RuntimeError, match="no gradient on the card"):
+        make_train_step(cfg, opt)(state, batch)
+    assert ops.launch_counts()["ssd_scan"] == 0
+    g = torch.Generator(cuda).manual_seed(0)
+    xdt, bm = (torch.randn(s, generator=g, device=cuda) for s in
+               [(1, 64, 2, 16), (1, 64, 16)])
+    a = -torch.rand(1, 64, 2, generator=g, device=cuda)
+    with pytest.raises(RuntimeError, match="no gradient on the card"):
+        ops.ssd_scan(xdt.requires_grad_(), a, bm, bm, chunk=64)
+    with torch.no_grad():
+        ops.ssd_scan(xdt, a, bm, bm, chunk=64)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssd_scan"] == 1

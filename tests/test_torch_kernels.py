@@ -18,8 +18,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.attention import chunked_attention
 from repro_torch.kernels import blockcyclic as bc
+from repro_torch.kernels import bwd_rounding
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.kernels._grad import needs_grad
 from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_lse_reference)
 
@@ -64,6 +66,20 @@ GRAD_CASES = [
 #: fp32 gradients through softmax attention; both sides in fp32 from the
 #: same inputs, summation orders differ
 GRAD_TOL = 2e-5
+
+# K1's backward on the card, tests/test_torch_gpu.py's BWD_CASES: (B, H,
+# Hkv, Sq, Sk, causal, window); GQA, Hkv = H, windows, Sq = Sk not a
+# multiple of 64, Sq < Sk
+BWD_CASES = [
+    (2, 4, 2, 256, 256, True, 0),
+    (1, 4, 1, 200, 200, True, 0),
+    (2, 8, 2, 77, 77, True, 40),
+    (1, 4, 4, 130, 130, False, 0),
+    (1, 4, 2, 100, 160, True, 0),
+    (1, 2, 2, 64, 64, False, 24),
+]
+#: the backward's bf16 bound on the card (BWD_TOL["bfloat16"] there)
+BWD_TOL_BF16 = 2e-2
 
 
 def _np(rng, shape):
@@ -262,7 +278,7 @@ def test_cpu_calls_count_no_path():
                  torch.zeros(1, 64, 16, dtype=torch.bfloat16), chunk=64)
     assert {n: fn.path_launches for n, fn in ops.KERNELS.items()} == {
         "flash_attention": {"fma": 0, "mma": 0, "split_decode": 0},
-        "flash_attention_bwd": {"fma": 0},
+        "flash_attention_bwd": {"fma": 0, "wgmma": 0},
         "repack": {"bytes": 0, "bulk": 0},
         "ssd_scan": {"fma": 0, "wgmma": 0}}
 
@@ -383,4 +399,61 @@ def test_cpu_backward_is_not_a_launch():
     fa.flash_attention_bwd(q.detach(), q.detach(), q.detach(), q.detach(),
                            q.detach(), torch.zeros(1, 2, 4))
     assert ops.launch_counts()["flash_attention_bwd"] == 0
-    assert fa.flash_attention_bwd.path_launches == {"fma": 0}
+    assert fa.flash_attention_bwd.path_launches == {"fma": 0, "wgmma": 0}
+
+
+@pytest.mark.parametrize("dtype,path", [(torch.bfloat16, "wgmma"),
+                                        (torch.float32, "fma")])
+def test_flash_bwd_path_choice(dtype, path):
+    """K1's backward path is a pure function of the dtype: the tensor
+    cores for bf16, fp32 FMAs for fp32 (never TF32)."""
+    assert fa.select_bwd_path(dtype) == path
+    assert path in fa.BWD_PATHS
+
+
+def test_needs_grad():
+    """The one condition under which a wrapper's call must carry a
+    gradient (K1 then takes its autograd function, K3 on a card refuses):
+    grad mode on and some input requiring a gradient."""
+    a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
+    assert not needs_grad(a)
+    assert not needs_grad(a, a.detach())
+    assert needs_grad(a, b)
+    assert needs_grad(b * 2)                     # a non-leaf result
+    with torch.no_grad():
+        assert not needs_grad(a, b)
+    with torch.inference_mode():
+        assert not needs_grad(b)
+    with torch.enable_grad():
+        assert needs_grad(b)
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,causal,window", BWD_CASES)
+def test_bwd_wgmma_rounding_model_holds_the_tolerance(B, H, Hkv, Sq, Sk,
+                                                      causal, window, D):
+    """The backward's wgmma path rounds P and dS once each to bf16 before
+    their products, sums in fp32 in tile order and rounds each output once
+    (``bwd_rounding.model_grads``): at every case and head dim the card's
+    tests run, that keeps dq, dk, dv within the bf16 bound of the plain
+    version."""
+    args = bwd_rounding.inputs(1, B, H, Hkv, Sq, Sk, D, causal=causal,
+                               window=window)
+    kw = dict(causal=causal, window=window)
+    got = bwd_rounding.model_grads(*args, **kw)
+    exp = attention_backward_reference(*args, **kw)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert a.shape == b.shape and a.dtype == b.dtype == torch.bfloat16
+        assert bwd_rounding.worst_ratio(a, b, BWD_TOL_BF16) < 1.0, name
+
+
+def test_bwd_wgmma_rounding_model_at_the_training_length():
+    """The longest sums the path takes: one KV head of the training shape
+    (G = 4 query heads, S = 4096, D = 64, causal), each dk / dv entry a sum
+    over up to 16,384 rounded products; dS rounded once (no hi + lo split)
+    stays inside the bf16 bound with room (about a third of it)."""
+    args = bwd_rounding.inputs(0, 1, 4, 1, 4096, 4096, 64)
+    got = bwd_rounding.model_grads(*args)
+    exp = bwd_rounding.reference_grads(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert bwd_rounding.worst_ratio(a, b, BWD_TOL_BF16) < 0.5, name

@@ -24,6 +24,9 @@ from repro.kernels import ref as jref
 from repro.models import model as JM
 from repro.models import params as jparams
 from repro.models import ssm as jssm
+from repro.configs.base import ShapeConfig as JShapeConfig
+from repro.data.pipeline import SyntheticDataset as JDataset
+from repro.models import train as JT
 from repro.models.train import make_prefill_step as j_prefill
 from repro_torch import tree as T
 from repro_torch.configs import get_config
@@ -35,6 +38,7 @@ from repro_torch.kernels.ref import ssd_chunked_reference, ssd_reference
 from repro_torch.models import model as TM
 from repro_torch.models import params as tparams
 from repro_torch.models import ssm as tssm
+from repro_torch.models import train as TT
 from repro_torch.models.train import make_prefill_step, prefill_logits
 
 ARCH = "mamba2-370m-smoke"
@@ -328,3 +332,34 @@ def test_prefill_matches_decode_in_the_port(setup):
             ld, cache = TM.decode_step(tp, tcfg, toks[:, i:i + 1], cache,
                                        torch.tensor(i, dtype=torch.int32))
     _close(lp, ld[:, -1].numpy())
+
+
+#: the parameters that reach the loss only through the SSD scan (w_x and
+#: conv_x reach it through the D_skip term too)
+SCAN_ONLY = ("w_B", "w_C", "w_dt", "conv_B", "conv_C", "dt_bias", "A_log")
+
+
+def test_ssm_train_step_gradients_on_the_cpu_match_jax(setup):
+    """A mamba2-370m-smoke training step on the CPU, where the scan is its
+    plain version and autograd sees through it: every parameter that
+    reaches the loss only through the scan gets a gradient, non-zero in
+    every layer, and every gradient equals ``jax.grad`` of the JAX
+    package's loss at the bounds of the dense family's step-0 test (on a
+    card the scan refuses a gradient instead: tests/test_torch_gpu.py)."""
+    jcfg, tcfg, jp, tp = setup
+    batch = JDataset(jcfg, JShapeConfig("t", "train", 64, 2)).batch_at(0)
+    jbatch = jax.tree.map(jnp.asarray, batch)
+    (jl, _), jg = jax.value_and_grad(
+        lambda p: JT.loss_fn(p, jcfg, jbatch), has_aux=True)(jp)
+    loss, _, grads = TT._value_and_grad(
+        tp, tcfg, {k: torch.from_numpy(np.asarray(v))
+                   for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(jl), rtol=1e-6)
+    got = dict(T.flatten(T.unflatten(tp, list(grads))))
+    for name in SCAN_ONLY:
+        g = got[f"layers/ssm/{name}"]
+        assert all(float(g[i].abs().sum()) > 0 for i in range(g.shape[0])), \
+            name
+    for (path, g), e in zip(got.items(), jax.tree.leaves(jg)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(e), atol=1e-6,
+                                   rtol=1e-4, err_msg=path)
