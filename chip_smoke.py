@@ -4,12 +4,13 @@
     python3 chip_smoke.py          # from the root of a checkout
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (K1
-flash attention and its backward, K2, K3), holds each against its plain
-PyTorch version, then drives the port's two serving paths and its training
-path at full width with random weights from a seed -- ``granite-3-2b``
-(dense, K1; 10 of its 40 layers, see ``GRANITE_LAYERS``; training also at
-all 40), ``mamba2-370m`` (SSM, K3; all 48 layers) -- and checks that each
-really ran through its kernels.  Phases:
+flash attention and its backward, K2, K3 and its backward), holds each
+against its plain PyTorch version, then drives the port's two serving
+paths and its two training paths at full width with random weights from a
+seed -- ``granite-3-2b`` (dense, K1; 10 of its 40 layers, see
+``GRANITE_LAYERS``; training also at all 40), ``mamba2-370m`` (SSM, K3;
+all 48 layers, serving and training) -- and checks that each really ran
+through its kernels.  Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: compile every kernel (one nvcc per source, in parallel), and
@@ -42,6 +43,17 @@ really ran through its kernels.  Phases:
    shape (B=16, H=32, S=1024, P=64, N=128, Q=256) in bf16 (on the wgmma
    path) and in f32, the latter also at the decays of mamba2's random
    init;
+5b. K3's backward (``ssd_scan_bwd.cu``) against
+   ``ssd_chunked_backward_reference`` on dx, da, dB, dC (each held to a
+   bound relative to its largest entry, ``SSD_BWD_TOL``): the smoke
+   config's scan, the JAX kernel tests' cases, a ragged chunk, and the
+   training shape (B=8, H=32, S=4096, P=64, N=128, Q=256) in bf16 and
+   fp32, at mild decays and at mamba2's (in-chunk cumsums to ~-3e3);
+   strided inputs equal to contiguous ones bit for bit; two runs at the
+   training shape equal bit for bit; and K3's forward at the training
+   shape (16 chunks of carried state) in bf16 on the wgmma path and in
+   fp32, at mamba2's decays, against ``ssd_chunked_reference``
+   (``SSD_CHUNKED_TOL``);
 6. the granite serving path: ``decode_demo`` (batch 16, prompt 256, 128
    decoded tokens, cache 512, 8 workers) without and with a 4 -> 8 -> 2
    resize schedule; tokens must agree and each run must launch K1 once
@@ -80,6 +92,19 @@ really ran through its kernels.  Phases:
     share, the largest device operators;
 13. the same training at all 40 layers: 2 static steps, s/step, peak GB,
     every backward call on wgmma (40 a step);
+13b. the SSM training path: the ``mamba2-370m-smoke`` step on the card
+    against the CPU's (loss and gradient norm, fp32), and the gradients
+    of the leaves that take theirs only through K3's backward, each
+    against the CPU's (``SSM_LEAF_TOL`` of its largest entry);
+13c. ``mamba2-370m`` training at full width and all 48 layers, granite's
+    settings (``train_4k``'s 4096 at global batch 8, bf16 over fp32
+    master weights, remat, 8 workers, ``{2: 8, 4: 2}``): 6 static and 6
+    elastic steps whose losses agree to 1e-4, s/step, tokens/s, peak GB;
+    every scan on K3 (96 forward launches a step, all on wgmma; 48
+    backward), none on a plain version, no K1;
+13d. one traced 48-layer step of the static run: device busy time, idle
+    share, K3's forward and backward device time and share, the largest
+    device operators;
 14. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
@@ -95,7 +120,9 @@ really ran through its kernels.  Phases:
     host time per call; every row names the device path it timed.  K1
     has four rows: decode and prefill at the serving path's shapes, and
     its forward (with the lse, as training calls it) and backward at the
-    training shape.  Then the contract line ``{"ok": true, ...}``.
+    training shape; K3 three, its forward at the prefill and at the
+    training shape, and its backward at the training shape.  Then the contract line ``{"ok":
+    true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
@@ -104,6 +131,7 @@ exits 1 and prints no result.
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -187,6 +215,27 @@ M_FP32_LOGITS_ATOL = 1e-2
 #: or chunk boundary decorrelates the logits, an rms gap of ~std * sqrt(2)
 #: ~ 0.9.
 M_BF16_LOGITS_MAX, M_BF16_LOGITS_RMS = 2.0, 0.4
+#: K3's backward against its plain version, max |kernel - plain| over max
+#: |plain| per output (da is a row sum minus a column sum that cancel, so
+#: it is not held elementwise): in fp32 both sum in fp32 in other orders,
+#: the plain version up to 5.2e-5 from the fp64 gradient in da at mamba2's
+#: decays (tests/test_torch_ssm_train.py), so 1e-4, the bound the plain
+#: version itself keeps to fp64; bf16 outputs are rounded once
+#: (one bf16 step, at most 2^-7 relative), so 1e-2; da is fp32 for both
+#: dtypes and keeps 1e-4
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+#: the mamba2-smoke step's gradients of the leaves that take theirs only
+#: through K3's backward (da, dB, dC), card against CPU, max |card - CPU|
+#: over the leaf's largest entry.  Both are fp32 in other summation orders;
+#: on the CPU, the plain backward's formulas in place of autograd move
+#: these leaves by up to 3.1e-6 of their largest entry (A_log), and the
+#: kernel is held to 1e-4 of its plain version (SSD_BWD_TOL), so 1e-4; a
+#: wrong da, dB or dC moves them by O(1)
+SSM_SCAN_LEAVES = ("A_log", "dt_bias", "w_dt", "w_B", "w_C", "conv_B",
+                   "conv_C")
+SSM_LEAF_TOL = 1e-4
+#: K3's backward at the SSM training path's shape: B, H, S, P, N, Q
+SSD_BWD_TRAIN = (TRAIN_BATCH, 32, 4096, 64, 128, 256)
 
 
 def fail(msg: str) -> None:
@@ -294,14 +343,13 @@ def ptxas_report(log: str) -> list:
     """ptxas's per-kernel report (``-Xptxas -v``): registers, spill bytes
     and static shared memory (the tiles and rings are dynamic shared
     memory, which ptxas does not see)."""
-    import re
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            k = re.search(r"((?:attn|ssd_scan|repack)_[a-z_]*?kernel)(.*)",
-                          name)
+            k = re.search(r"((?:attn|ssd_scan|ssd_bwd|repack)_[a-z_]*?"
+                          r"kernel)(.*)", name)
             if not k:
                 cur = None
                 continue
@@ -358,11 +406,12 @@ def main() -> None:
                                          attention_lse_reference,
                                          attention_reference,
                                          repack_reference,
+                                         ssd_chunked_backward_reference,
                                          ssd_chunked_reference, ssd_reference)
     from repro_torch.models import model as M
-    from repro_torch.models.train import (init_state, make_prefill_step,
-                                          make_serve_step, make_train_step,
-                                          prefill_logits)
+    from repro_torch.models.train import (init_state, loss_fn,
+                                          make_prefill_step, make_serve_step,
+                                          make_train_step, prefill_logits)
     from repro_torch.optim import AdamW
     from repro_torch.parallel.mesh import logical_workers
     from repro_torch.serve import decode_demo
@@ -403,7 +452,8 @@ def main() -> None:
     nsplit = fa.decode_splits(BATCH * Hkv, CACHE, sms)
     for tag, source in (("K1", "flash_attention"),
                         ("K1bwd", "flash_attention_bwd"),
-                        ("K2", "blockcyclic"), ("K3", "ssd_scan")):
+                        ("K2", "blockcyclic"), ("K3", "ssd_scan"),
+                        ("K3bwd", "ssd_scan_bwd")):
         report = ptxas_report(_build.build_log(source))
         if not report or any("regs" not in r for r in report):
             fail(f"no ptxas report for {tag}'s kernels: {report}")
@@ -728,6 +778,120 @@ def main() -> None:
           tol_vs_chunked=json.dumps(SSD_CHUNKED_TOL, separators=(",", ":")))
     mark("K3")
 
+    # -- 5b. K3's backward against its plain version ----------------------
+    def rel_err(got, exp) -> float:
+        if got.shape != exp.shape or got.dtype != exp.dtype or \
+                not bool(torch.isfinite(got).all()):
+            fail(f"K3 backward: {tuple(got.shape)} {got.dtype} (finite: "
+                 f"{bool(torch.isfinite(got).all())}) for "
+                 f"{tuple(exp.shape)} {exp.dtype}")
+        return ((got.float() - exp.float()).abs().max() /
+                exp.float().abs().max()).item()
+
+    def ssd_bwd_inputs(B, H, S, P, N, decay, dt):
+        return (*ssd_inputs(B, H, S, P, N, decay, dt),
+                rand((B, S, H, P), dt))
+
+    ssd_bwd_err = {"float32": [0.0] * 4, "bfloat16": [0.0] * 4}
+
+    def k3_bwd_case(args, chunk, what):
+        """K3's backward (one launch counted) against its plain version;
+        returns the gradients and their errors (dx, da, dB, dC)."""
+        name = str(args[0].dtype).split(".")[1]
+        before = dict(ss.ssd_scan_bwd.path_launches)
+        got = ops.ssd_scan_bwd(*args, chunk=chunk)
+        moved = {p: n_ - before[p]
+                 for p, n_ in ss.ssd_scan_bwd.path_launches.items()}
+        if moved != {"fma": 1}:
+            fail(f"{what}: K3 backward path launches {moved}")
+        exp = ssd_chunked_backward_reference(*args, chunk)
+        errs_ = []
+        for i, (g_, e_, o_) in enumerate(zip(got, exp, "xaBC")):
+            err = rel_err(g_, e_)
+            tol = SSD_BWD_TOL["float32" if o_ == "a" else name]
+            if err > tol:
+                fail(f"{what}: d{o_} off its plain version by {err:.3e} of "
+                     f"its largest entry > {tol}")
+            ssd_bwd_err[name][i] = max(ssd_bwd_err[name][i], err)
+            errs_.append(err)
+        del exp
+        return got, errs_
+
+    sm = get_config(f"{MAMBA}-smoke")
+    bwd_table = [(2, sm.ssm_num_heads, 64, sm.ssm.head_dim,
+                  sm.ssm.state_size, sm.ssm.chunk_size, 0.4, dt)
+                 for dt in ("float32", "bfloat16")]          # the smoke scan
+    bwd_table += [(*c[:6], 0.4, c[6]) for c in SSD_CASES]
+    bwd_table += [(2, 3, 300, 32, 64, 100, 0.02, "bfloat16"),  # ragged tile
+                  (16, 32, 1024, 64, 128, 256, "model", "float32")]
+    for case in bwd_table:
+        B, H_, S_, P_, N_, Q_, decay, name = case
+        k3_bwd_case(ssd_bwd_inputs(B, H_, S_, P_, N_, decay,
+                                   getattr(torch, name)), Q_,
+                    f"ssd bwd case {case}")
+    small_bwd_err = {k: list(v) for k, v in ssd_bwd_err.items()}
+    bB, bH, bS, bP, bN, bQ = SSD_BWD_TRAIN
+    train_bwd_err, train_fwd_err = {}, {}
+    for name, decay in (("bfloat16", "model"), ("float32", "model"),
+                        ("bfloat16", 0.02)):
+        targs = ssd_bwd_inputs(bB, bH, bS, bP, bN, decay,
+                               getattr(torch, name))
+        if decay == "model":
+            # K3's forward as the training path launches it: the state
+            # carried across the 16 chunks of a 4096 sequence
+            what = f"ssd fwd train shape {SSD_BWD_TRAIN} {name} decay model"
+            out, path = k3_call(*targs[:4], bQ, what)
+            if name == "bfloat16" and path != "wgmma":
+                fail(f"{what}: took K3's {path} path, not wgmma")
+            train_fwd_err[name] = check_close(
+                out, ssd_chunked_reference(*targs[:4], bQ), name, what,
+                SSD_CHUNKED_TOL[name])
+            del out
+        tgot, train_bwd_err[f"{name},{decay}"] = k3_bwd_case(
+            targs, bQ, f"ssd bwd train shape {SSD_BWD_TRAIN} {name} "
+            f"decay {decay}")
+        if (name, decay) == ("bfloat16", "model"):
+            ssd_bwd_args = targs                  # timed in phase 14
+            again = ops.ssd_scan_bwd(*targs, chunk=bQ)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(tgot, again)):
+                fail("K3 backward: two runs on the same inputs differ")
+            del again
+        del tgot, targs
+    # strided: (B, H, S, P) views of xdt, a and dy, B and C cut from a
+    # wider projection: the contiguous inputs' gradients bit for bit
+    sargs = ssd_bwd_inputs(2, 4, 512, 64, 128, 0.02, bf16)
+    tview = lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)
+    wide = torch.cat([sargs[2], sargs[3], sargs[2]], dim=-1)
+    views = (tview(sargs[0]), tview(sargs[1]), wide[..., :128],
+             wide[..., 128:256], tview(sargs[4]))
+    if views[0].is_contiguous() or views[2].is_contiguous():
+        fail("the strided K3 backward case's inputs are contiguous")
+    if not all(torch.equal(a_, b_) for a_, b_ in zip(
+            ops.ssd_scan_bwd(*views, chunk=256),
+            ops.ssd_scan_bwd(*sargs, chunk=256))):
+        fail("K3 backward on strided inputs differs from contiguous ones")
+    del sargs, views, wide
+    torch.cuda.synchronize()
+    fmt = lambda v: ",".join(f"{x:.3e}" for x in v)
+    phase("K3:bwd", cases=len(bwd_table) + 3,
+          path_launches=json.dumps(ss.ssd_scan_bwd.path_launches,
+                                   separators=(",", ":")),
+          max_err_f32=fmt(small_bwd_err["float32"]),
+          max_err_bf16=fmt(small_bwd_err["bfloat16"]),
+          train_shape=str(SSD_BWD_TRAIN).replace(" ", ""),
+          train_shape_err=json.dumps({k: fmt(v) for k, v in
+                                      train_bwd_err.items()},
+                                     separators=(",", ":")),
+          train_shape_fwd_err=f"{train_fwd_err['float32']:.3e},"
+                              f"{train_fwd_err['bfloat16']:.3e}",
+          fwd_tol=json.dumps(SSD_CHUNKED_TOL, separators=(",", ":")),
+          strided_bitwise_equal=True, bitwise_repeatable=True,
+          err_order="dx,da,dB,dC",
+          tol=json.dumps(SSD_BWD_TOL, separators=(",", ":")))
+    torch.cuda.empty_cache()
+    mark("K3_bwd")
+
     # -- device times for the kernels line (phase 14), taken here: late in
     # the process, after the long traced windows of phases 8 and 10, the
     # profiler drops device records --------------------------------------
@@ -748,6 +912,12 @@ def main() -> None:
     src = table.reshape(nblk, blk, vp_rows[1])
     idx_dev = torch.from_numpy(idx).to(dev)
     k3 = lambda: ops.ssd_scan(*ssd_args, chunk=SSD_SLICE[5])
+    # K3's backward at the SSM training path's shape (bf16, mamba2's
+    # decays): ~0.3 GB of inputs a call, past L2 already; the L2-cold
+    # window still rotates two copies
+    k3_bwd = lambda: ops.ssd_scan_bwd(*ssd_bwd_args, chunk=bQ)
+    k3_tfwd = lambda: ops.ssd_scan(*ssd_bwd_args[:4], chunk=bQ)
+    k3_bwd_sets = [ssd_bwd_args, tuple(t.clone() for t in ssd_bwd_args)]
     # L2-cold K1 and SDPA: each call on its own copy of the inputs, the
     # copies rotating through 8 x 12.6 MB (decode reads 384 of 512 cached
     # keys) and 4 x 42 MB (prefill, output included), so each call's
@@ -810,6 +980,12 @@ def main() -> None:
                   lambda: torch.index_select(src, 0, idx_dev),
                   "index_select"),
               "K3": device_ms(k3, "K3", iters=5),
+              "K3 train fwd": device_ms(k3_tfwd, "K3 forward, train shape",
+                                        iters=8),
+              "K3 bwd": device_ms(k3_bwd, "K3 backward", iters=4),
+              "K3 bwd cold": device_ms(cold(
+                  lambda *a_: ops.ssd_scan_bwd(*a_, chunk=bQ), k3_bwd_sets),
+                  "K3 backward, L2-cold", iters=4),
               "K1 bwd": device_ms(k1_bwd, "K1 backward", iters=4),
               "K1 bwd cold": device_ms(cold(
                   lambda *a: ops.flash_attention_bwd(*a, causal=True),
@@ -820,7 +996,7 @@ def main() -> None:
               "SDPA train fwd": device_ms(sdpa_tfwd,
                                           "SDPA forward, train shape",
                                           iters=8)}
-    del cold_dec, cold_pre
+    del cold_dec, cold_pre, k3_bwd_sets
     mark("device_ms")
 
     # -- 6. the granite serving path ----------------------------------------
@@ -1165,19 +1341,25 @@ def main() -> None:
             state, m = runner.step(state, i)
             losses.append(float(m["loss"]))        # waits for the step
             secs.append(time.perf_counter() - t0)
-        counts = dict(ops.launch_counts(),
-                      paths=dict(fa.flash_attention.path_launches),
-                      bwd_paths=dict(fa.flash_attention_bwd.path_launches))
         L = c.num_layers
-        want = {"flash_attention": 2 * L * steps,      # remat: twice
-                "flash_attention_bwd": L * steps}
+        fwd, bwd = 2 * L * steps, L * steps           # remat: twice
+        if c.is_ssm:     # K3 forward on wgmma, its backward; no K1
+            want = {"flash_attention": 0, "flash_attention_bwd": 0,
+                    "ssd_scan": fwd, "ssd_scan_bwd": bwd}
+            want_paths = {"ssd_scan": {"fma": 0, "wgmma": fwd},
+                          "ssd_scan_bwd": {"fma": bwd}}
+        else:            # K1 forward on mma, its backward on wgmma; no K3
+            want = {"flash_attention": fwd, "flash_attention_bwd": bwd,
+                    "ssd_scan": 0, "ssd_scan_bwd": 0}
+            want_paths = {"flash_attention": {"fma": 0, "mma": fwd,
+                                              "split_decode": 0},
+                          "flash_attention_bwd": {"fma": 0, "wgmma": bwd}}
+        counts = dict(ops.launch_counts(), paths={
+            k_: dict(ops.KERNELS[k_].path_launches) for k_ in want_paths})
         if {k_: counts[k_] for k_ in want} != want or \
-                counts["paths"] != {"fma": 0, "mma": 2 * L * steps,
-                                    "split_decode": 0} or \
-                counts["bwd_paths"] != {"fma": 0, "wgmma": L * steps}:
-            fail(f"{L}-layer training launched {counts}, not {want} with "
-                 "every forward on the mma path and every backward on "
-                 "wgmma")
+                counts["paths"] != want_paths:
+            fail(f"{L}-layer {c.name} training launched {counts}, not "
+                 f"{want} on the paths {want_paths}")
         if not all(np.isfinite(losses)):
             fail(f"{L}-layer training losses {losses}")
         return runner, state, losses, secs, counts
@@ -1276,6 +1458,144 @@ def main() -> None:
     del runner, state
     torch.cuda.empty_cache()
     mark("train_depth")
+
+    # -- 13b. the SSM training path: the smoke model's step, card vs CPU ----
+    mscfg = get_config(f"{MAMBA}-smoke")
+    msbatch = lm_train_app(mscfg, dataclasses.replace(
+        get_shape("smoke"), global_batch=8)).dataset.batch_at(0)
+    msmoke = {}
+    for d in ("cpu", dev):
+        st = T.tree_map(lambda t: t.to(d), init_state(mscfg, sopt, 0))
+        ops.reset_counts()
+        _, m = make_train_step(mscfg, sopt)(
+            st, {k_: torch.from_numpy(v_).to(d) for k_, v_ in msbatch.items()})
+        msmoke[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
+                          ops.launch_counts())
+    (l_c, g_c, n_c), (l_g, g_g, n_g) = msmoke["cpu"], msmoke[str(dev)]
+
+    def ssm_leaf_grads(d):
+        """The smoke step's gradients of SSM_SCAN_LEAVES, on device d."""
+        params = T.tree_map(lambda t: t.to(d), init_state(mscfg, sopt,
+                                                          0).params)
+        flat = T.flatten(params)
+        leaves = [p_.detach().requires_grad_() for _, p_ in flat]
+        loss, _ = loss_fn(T.unflatten(params, leaves), mscfg, {
+            k_: torch.from_numpy(v_).to(d) for k_, v_ in msbatch.items()})
+        pick = [i for i, (k_, _) in enumerate(flat)
+                if k_.rsplit("/", 1)[-1] in SSM_SCAN_LEAVES]
+        grads = torch.autograd.grad(loss, [leaves[i] for i in pick])
+        return {flat[i][0]: g_.cpu() for i, g_ in zip(pick, grads)}
+
+    leaf_c, leaf_g = ssm_leaf_grads("cpu"), ssm_leaf_grads(dev)
+    if len(leaf_c) != len(SSM_SCAN_LEAVES):
+        fail(f"mamba2 smoke: scan leaves {sorted(leaf_c)}")
+    leaf_err = {}
+    for k_, e_ in leaf_c.items():
+        leaf_err[k_.rsplit("/", 1)[-1]] = err = (
+            (leaf_g[k_] - e_).abs().max() / e_.abs().max()).item()
+        if not err <= SSM_LEAF_TOL:
+            fail(f"mamba2 smoke step: the card's gradient of {k_} is "
+                 f"{err:.3e} of its largest entry off the CPU's "
+                 f"(> {SSM_LEAF_TOL})")
+    if n_c["ssd_scan"] or n_c["ssd_scan_bwd"] or \
+            n_g["ssd_scan"] != mscfg.num_layers or \
+            n_g["ssd_scan_bwd"] != mscfg.num_layers:
+        fail(f"mamba2 smoke train step launched {n_g} on the card, {n_c} "
+             "on the CPU")
+    if abs(l_g - l_c) > 1e-5 * abs(l_c) or abs(g_g - g_c) > 1e-4 * abs(g_c):
+        fail(f"mamba2 smoke train step: card loss {l_g} / grad norm {g_g} "
+             f"vs CPU {l_c} / {g_c}")
+    phase("mamba2:train:smoke", loss_card=f"{l_g:.7f}", loss_cpu=f"{l_c:.7f}",
+          grad_norm_card=f"{g_g:.6f}", grad_norm_cpu=f"{g_c:.6f}",
+          k3_launches=f"{n_g['ssd_scan']},{n_g['ssd_scan_bwd']}",
+          scan_leaf_grad_err=json.dumps({k_: float(f"{v_:.3e}") for k_, v_
+                                         in leaf_err.items()},
+                                        separators=(",", ":")),
+          scan_leaf_tol=SSM_LEAF_TOL)
+
+    # -- 13c. mamba2 training at full width and depth ------------------------
+    mtruns = {}
+    for label, schedule in (("static", {}), ("elastic", TRAIN_SCHEDULE)):
+        runner, state, losses, secs, counts = train_run(mcfg, schedule,
+                                                        TRAIN_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        mtruns[label] = (runner, state, losses)
+        phase(f"mamba2:train:{label}", layers=mcfg.num_layers,
+              batch=TRAIN_BATCH, seq=tshape.seq_len,
+              losses=",".join(f"{x:.6f}" for x in losses),
+              step_s=",".join(f"{x:.3f}" for x in secs),
+              s_per_step=f"{step_s(secs):.4f}",
+              tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
+              k3_fwd_per_step=counts["ssd_scan"] / TRAIN_STEPS,
+              k3_bwd_per_step=counts["ssd_scan_bwd"] / TRAIN_STEPS,
+              paths=json.dumps(counts["paths"], separators=(",", ":")),
+              peak_gb=f"{peak:.2f}",
+              sizes=",".join(str(e.to_procs) for e in runner.events))
+        for ev in runner.events:
+            phase(f"mamba2:train:{label}:resize", step=ev.step,
+                  action=ev.action, sizes=f"{ev.from_procs}->{ev.to_procs}",
+                  bytes_moved=ev.transfer.bytes_moved,
+                  seconds=f"{ev.transfer.seconds:.4f}")
+        if label == "elastic":
+            del state
+            mtruns[label] = (runner, None, losses)
+        else:
+            m_train_fwd_launches = counts["ssd_scan"]
+            m_train_bwd_launches = counts["ssd_scan_bwd"]
+    static_l, elastic_l = mtruns["static"][2], mtruns["elastic"][2]
+    gap = max(abs(a - b) for a, b in zip(static_l, elastic_l))
+    actions = [e.action for e in mtruns["elastic"][0].events]
+    if gap > TRAIN_LOSS_TOL or actions != ["expand", "shrink"]:
+        fail(f"mamba2 elastic training: losses {elastic_l} vs static "
+             f"{static_l} (gap {gap:.3e} > {TRAIN_LOSS_TOL}?), actions "
+             f"{actions}")
+    phase("mamba2:train", elastic_vs_static_max_gap=f"{gap:.3e}",
+          tol=TRAIN_LOSS_TOL, actions=",".join(actions),
+          state_gb=f"{sum(t.nbytes for t in T.leaves(mtruns['static'][1])) / 1e9:.2f}")
+    mark("mamba2_train")
+
+    # -- 13d. one traced 48-layer mamba2 training step -----------------------
+    runner, state, _ = mtruns["static"]
+    L = mcfg.num_layers
+    for attempt in range(4):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = runner.step(state, TRAIN_STEPS + attempt)
+            float(m["loss"])
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        dev_events = device_events(prof)
+        bwd_evs = [e for e in dev_events if "ssd_bwd" in e.key]
+        fwd_evs = [e for e in dev_events if "ssd_scan" in e.key]
+        if sum(e.count for e in bwd_evs) == 7 * L and \
+                sum(e.count for e in fwd_evs) == 2 * L:
+            break
+        print(f"chip_smoke: traced mamba2 train step: the profiler kept "
+              f"{sum(e.count for e in fwd_evs)} K3 forward and "
+              f"{sum(e.count for e in bwd_evs)} backward records: taken "
+              "again", file=sys.stderr, flush=True)
+    else:
+        fail("the profiler dropped K3's records in four traced mamba2 "
+             "train steps")
+    t_busy = sum(device_us(e) for e in dev_events) / 1e3
+    t_fwd = sum(device_us(e) for e in fwd_evs) / 1e3
+    t_bwd = sum(device_us(e) for e in bwd_evs) / 1e3
+    top = [{"kernel": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
+           for e in dev_events[:PROFILE_TRAIN_TOP]]
+    phase("mamba2:train:profile", layers=L, traced_step_s=f"{traced_s:.4f}",
+          device_busy_ms=f"{t_busy:.3f}",
+          idle_share=f"{1 - t_busy / (traced_s * 1e3):.4f}",
+          k3_fwd_ms=f"{t_fwd:.3f}", k3_fwd_share=f"{t_fwd / t_busy:.4f}",
+          k3_bwd_ms=f"{t_bwd:.3f}", k3_bwd_share=f"{t_bwd / t_busy:.4f}",
+          k3_bwd_ms_by_kernel=json.dumps(
+              {re.search(r"ssd_bwd_(\w+?)_kernel", e.key)[1]: round(
+                  device_us(e) / 1e3, 3) for e in bwd_evs},
+              separators=(",", ":")),
+          top=json.dumps(top, separators=(",", ":")))
+    del runner, state, mtruns, prof, dev_events, bwd_evs, fwd_evs
+    torch.cuda.empty_cache()
+    mark("mamba2_train_profile")
 
     # -- 14. kernels line: times at the path's shapes -----------------------
     kernels = []
@@ -1404,13 +1724,16 @@ def main() -> None:
         "library_device_ms": dev_ms["index_select"],
         "shape": f"src=({nblk},{blk},{vp_rows[1]}) fp32 idx={idx.size}"})
     # K3: one layer of the mamba2 prefill, bf16 xdt/B/C and f32 a; the work
-    # counts G = C B^T once per (b, chunk), as the Pallas contract allows
-    nc = sS // sQ
-    b_ssd, by_ssd = bound_ms(
-        2 * sB * sS * sH * sP * 2 + 4 * sB * sS * sH + 2 * sB * sS * sN * 2,
-        nc * sB * sQ * sQ * sN + nc * sB * sH * (sQ * sQ * sP +
-                                                 4 * sQ * sP * sN),
-        "bfloat16")
+    # counts G = C B^T once per (b, chunk), as the Pallas contract allows,
+    # over the causal pairs of each chunk
+    def k3_fwd_bound(B, H, S, P, N, Q):
+        nc = S // Q
+        return bound_ms(
+            2 * B * S * H * P * 2 + 4 * B * S * H + 2 * B * S * N * 2,
+            nc * B * Q * Q * N + nc * B * H * (Q * Q * P + 4 * Q * P * N),
+            "bfloat16")
+
+    b_ssd, by_ssd = k3_fwd_bound(*SSD_SLICE)
     kernels.append({
         "name": "ssd_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -1425,6 +1748,62 @@ def main() -> None:
         "library_note": "no single PyTorch call computes an SSD chunked scan",
         "shape": f"B={sB} H={sH} S={sS} P={sP} N={sN} Q={sQ} bf16 xdt/B/C, "
                  "f32 a"})
+    # K3's forward at the SSM training path's shape, as training launches it
+    # (twice a layer under remat)
+    b_k3t, by_k3t = k3_fwd_bound(*SSD_BWD_TRAIN)
+    kernels.append({
+        "name": "ssd_scan_fwd (train)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "path": "wgmma",
+        "launches": m_train_fwd_launches,
+        "max_abs_err": train_fwd_err["bfloat16"],
+        "ms": time_ms(k3_tfwd, iters=10, warmup=2),
+        "device_ms": dev_ms["K3 train fwd"],
+        "plain_ms": time_ms(lambda: ssd_chunked_reference(
+            *ssd_bwd_args[:4], bQ), iters=2, warmup=1),
+        "bound_ms": b_k3t, "bound_by": by_k3t, "library_ms": None,
+        "library_device_ms": None,
+        "library_note": "no single PyTorch call computes an SSD chunked scan",
+        "shape": f"B={bB} H={bH} S={bS} P={bP} N={bN} Q={bQ} bf16 xdt/B/C, "
+                 "f32 a, mamba2's decays"})
+    # K3's backward at the SSM training path's shape: the work over the
+    # causal pairs of each chunk (per batch, head and chunk: the local state
+    # sums, three state-term products and D = dy x^T, dx, dC, dB over the
+    # pairs; C B^T once per batch and chunk); xdt, dy, dx (bf16), a, da
+    # (f32), B, C, dB, dC (bf16) read or written once
+    nc_b, pairs_b = bS // bQ, bQ * (bQ + 1) // 2
+    b_k3b, by_k3b = bound_ms(
+        2 * 3 * bB * bS * bH * bP + 4 * 2 * bB * bS * bH +
+        2 * 4 * bB * bS * bN,
+        2 * (bB * bH * nc_b * (5 * bQ * bP * bN + pairs_b * (2 * bP + 2 * bN))
+             + bB * nc_b * pairs_b * bN), "bfloat16")
+    got = ops.ssd_scan_bwd(*ssd_bwd_args, chunk=bQ)
+    exp = ssd_chunked_backward_reference(*ssd_bwd_args, bQ)
+    err_k3b = max((g_.float() - e_.float()).abs().max().item()
+                  for g_, e_ in zip(got, exp))
+    del got, exp
+    kernels.append({
+        "name": "ssd_scan_bwd (train)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "replaces_note": "the gradient of K3; the JAX package has no Pallas "
+                         "backward and differentiates ssd_chunked "
+                         "(src/repro/models/ssm.py:57) through XLA",
+        "path": "fma",
+        "launches": m_train_bwd_launches, "max_abs_err": err_k3b,
+        "max_abs_err_note": "largest over dx, da, dB, dC; each is held to "
+                            "SSD_BWD_TOL of its largest entry (phase 5b)",
+        "ms": time_ms(k3_bwd, iters=5, warmup=1),
+        "device_ms": dev_ms["K3 bwd"],
+        "device_ms_cold": dev_ms["K3 bwd cold"],
+        "plain_ms": time_ms(lambda: ssd_chunked_backward_reference(
+            *ssd_bwd_args, bQ), iters=2, warmup=1),
+        "bound_ms": b_k3b, "bound_by": by_k3b, "library_ms": None,
+        "library_device_ms": None,
+        "library_note": "no PyTorch call computes an SSD scan's gradient",
+        "shape": f"B={bB} H={bH} S={bS} P={bP} N={bN} Q={bQ} bf16 "
+                 "xdt/B/C/dy, f32 a, mamba2's decays"})
     mark("kernels")
     phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))

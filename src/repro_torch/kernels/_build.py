@@ -35,7 +35,8 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
-#: source name -> {C function: argtypes}; every function returns a cudaError_t
+#: source name -> {C function: argtypes}; each returns a cudaError_t unless
+#: RESTYPES names it
 SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": [_p, _p, _p, _p, _p, _i, _i, _i, _i, _i, _i,
@@ -57,7 +58,13 @@ SIGNATURES = {
                          _i, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
                          _ll, _ll, _ll, _ll, _p],
     },
+    "ssd_scan_bwd": {
+        "ssd_scan_bwd": [_p] * 10 + [_ll] + [_i] * 7 + [_ll] * 13 + [_p],
+        "ssd_scan_bwd_workspace_floats": [_i] * 6,
+    },
 }
+#: the functions that return something else than a cudaError_t
+RESTYPES = {"ssd_scan_bwd_workspace_floats": _ll}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -89,7 +96,7 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = RESTYPES.get(fn, ctypes.c_int)
     return lib
 
 

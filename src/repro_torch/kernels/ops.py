@@ -1,7 +1,8 @@
 """Public kernel surface of the port: dispatch, build and launch counts.
 
 ``flash_attention`` (with its backward, ``flash_attention_bwd``),
-``repack`` and ``ssd_scan`` run their plain PyTorch version on CPU tensors
+``repack`` and ``ssd_scan`` (with its backward, ``ssd_scan_bwd``) run
+their plain PyTorch version on CPU tensors
 and their CUDA kernel on tensors on a card; a build or launch failure
 raises.  ``launch_counts`` / ``reset_counts`` read and
 zero the per-wrapper counters that show a run really went through the
@@ -15,11 +16,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.blockcyclic import repack
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
 
 KERNELS = {"flash_attention": flash_attention,
            "flash_attention_bwd": flash_attention_bwd, "repack": repack,
-           "ssd_scan": ssd_scan}
+           "ssd_scan": ssd_scan, "ssd_scan_bwd": ssd_scan_bwd}
 
 
 def build():
@@ -38,5 +39,5 @@ def reset_counts() -> None:
 
 
 __all__ = ["flash_attention", "flash_attention_bwd", "repack", "ssd_scan",
-           "build", "launch_counts",
-           "reset_counts", "KERNELS"]
+           "ssd_scan_bwd", "build", "launch_counts", "reset_counts",
+           "KERNELS"]

@@ -139,6 +139,86 @@ def ssd_chunked_reference(xdt, a, bm, cm, chunk: int):
     return torch.cat(ys, dim=1).to(xdt.dtype)
 
 
+def ssd_chunked_backward_reference(xdt, a, bm, cm, dy, chunk: int):
+    """Plain backward of :func:`ssd_chunked_reference` (zero initial state,
+    final state discarded), from the explicit formulas, vectorised over
+    batch, heads and chunks.  Per chunk, with cum the in-chunk cumsum of a,
+    tot = cum[Q-1], L[q, s] = exp(cum_q - cum_s) on s <= q (the exponent
+    masked, never exponentiated above the diagonal), G = C B^T, D[q, s] =
+    dy_q . x_s, the chunk-start state S_in and the gradient dS_out of the
+    chunk's final state::
+
+        S_in(0) = 0,
+        S_in(c+1) = exp(tot) S_in + sum_s exp(tot - cum_s) x_s (x) B_s
+        dS_out(last) = 0,
+        dS_out(c-1) = exp(tot) dS_out + sum_q exp(cum_q) dy_q (x) C_q
+        dx_s  = sum_q (G o L)[q, s] dy_q + exp(tot - cum_s) dS_out B_s
+        dC_q  = sum_s (D o L)[q, s] B_s + exp(cum_q) dy_q S_in
+        dB_s  = sum_q (D o L)[q, s] C_q + exp(tot - cum_s) dS_out^T x_s
+        dcum  = rowsum(W) - colsum(W) + exp(cum_q) dy_q . (S_in C_q) - V_q,
+                W = G o L o D,  V_s = exp(tot - cum_s) x_s . (dS_out B_s),
+                and at q = Q-1 also + sum_s V_s + exp(tot) <dS_out, S_in>
+        da_t  = sum_{q >= t} dcum_q  (within the chunk)
+
+    dB and dC are summed over the heads (B and C are shared by them).
+    fp32 throughout (fp64 for fp64 inputs); returns (dxdt, da, dbm, dcm)
+    in xdt's, fp32 (fp64), bm's and cm's dtypes."""
+    B, S, H, P = xdt.shape
+    N = bm.shape[-1]
+    Q = chunk
+    if S % Q:
+        raise ValueError(f"ssd: sequence {S} is not a multiple of the "
+                         f"chunk {Q}")
+    nc = S // Q
+    f = torch.float64 if xdt.dtype == torch.float64 else torch.float32
+    x = xdt.to(f).reshape(B, nc, Q, H, P)
+    g = dy.to(f).reshape(B, nc, Q, H, P)
+    b_ = bm.to(f).reshape(B, nc, Q, N)
+    c_ = cm.to(f).reshape(B, nc, Q, N)
+    cum = torch.cumsum(a.to(f).reshape(B, nc, Q, H), dim=2)
+    tot = cum[:, :, -1]                                   # (B, nc, H)
+    e_tot = torch.exp(tot)
+    e_cum = torch.exp(cum)                                # (B, nc, Q, H)
+    decay = torch.exp(tot[:, :, None] - cum)              # exp(tot - cum_s)
+    # chunk-start states, then the gradients of the chunks' final states
+    local = torch.einsum("bcsn,bcshp,bcsh->bchpn", b_, x, decay)
+    state = torch.zeros((B, H, P, N), dtype=f, device=xdt.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = state * e_tot[:, c, :, None, None] + local[:, c]
+    s_in = torch.stack(s_in, dim=1)                       # (B, nc, H, P, N)
+    local = torch.einsum("bcqn,bcqhp,bcqh->bchpn", c_, g, e_cum)
+    grad = torch.zeros((B, H, P, N), dtype=f, device=xdt.device)
+    ds_out = [None] * nc
+    for c in reversed(range(nc)):
+        ds_out[c] = grad
+        grad = grad * e_tot[:, c, :, None, None] + local[:, c]
+    ds_out = torch.stack(ds_out, dim=1)                   # (B, nc, H, P, N)
+    # within the chunks
+    causal = torch.ones((Q, Q), dtype=torch.bool,
+                        device=xdt.device).tril()[None, None, :, :, None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,Q,Q,H) q, s
+    L = torch.exp(diff.masked_fill(~causal, float("-inf")))
+    GL = torch.einsum("bcqn,bcsn->bcqs", c_, b_)[..., None] * L
+    D = torch.einsum("bcqhp,bcshp->bcqsh", g, x)
+    DL = D * L
+    W = GL * D
+    dS_B = torch.einsum("bchpn,bcsn->bcshp", ds_out, b_)  # dS_out B_s
+    Sin_C = torch.einsum("bchpn,bcqn->bcqhp", s_in, c_)   # S_in C_q
+    dx = torch.einsum("bcqsh,bcqhp->bcshp", GL, g) + decay[..., None] * dS_B
+    dc = torch.einsum("bcqsh,bcsn->bcqn", DL, b_) + torch.einsum(
+        "bcqh,bcqhp,bchpn->bcqn", e_cum, g, s_in)
+    db = torch.einsum("bcqsh,bcqn->bcsn", DL, c_) + torch.einsum(
+        "bcsh,bcshp,bchpn->bcsn", decay, x, ds_out)
+    V = decay * (x * dS_B).sum(-1)                        # (B, nc, Q, H)
+    dcum = W.sum(3) - W.sum(2) + e_cum * (g * Sin_C).sum(-1) - V
+    dcum[:, :, -1] += V.sum(2) + e_tot * (ds_out * s_in).sum((-2, -1))
+    da = dcum.flip(2).cumsum(2).flip(2)
+    return (dx.reshape(B, S, H, P).to(xdt.dtype), da.reshape(B, S, H),
+            db.reshape(B, S, N).to(bm.dtype), dc.reshape(B, S, N).to(cm.dtype))
+
+
 def repack_reference(src, idx):
     """out[i] = src[idx[i]]."""
     return src[idx]

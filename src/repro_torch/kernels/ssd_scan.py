@@ -1,4 +1,5 @@
-"""Mamba2 SSD chunked scan: the wrapper of ``csrc/ssd_scan.cu``.
+"""Mamba2 SSD chunked scan: the wrappers of ``csrc/ssd_scan.cu`` (forward)
+and ``csrc/ssd_scan_bwd.cu`` (backward).
 
 Replaces the Pallas TPU kernel ``ssd_scan_fwd``
 (``repro/kernels/ssd_scan.py``) and computes what it computes, in the
@@ -15,10 +16,13 @@ One C entry point, two device paths (see the source for their design):
 passes it to the entry point, which refuses a path that cannot take the
 call; ``ssd_scan.path_launches`` counts calls by path.
 
-There is no gradient through the kernel yet: K3 has no backward kernel
-(ROADMAP.md §A.1/§B.5), so a call on a card that would need one raises
-rather than return a y that autograd cannot see past.  CPU tensors take
-the plain version, which autograd differentiates.
+Training: when an input requires a gradient (and grad mode is on), a
+call on a card goes through :class:`SSDScanFn`, whose forward launches
+the same kernel and whose backward is the kernel of
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`, fp32 FMAs for both dtypes,
+counted in ``ssd_scan_bwd.launches`` and ``.path_launches``).  CPU tensors
+take the plain version both ways: autograd differentiates
+``ssd_chunked_reference``.
 """
 from __future__ import annotations
 
@@ -26,15 +30,19 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels._grad import needs_grad
-from repro_torch.kernels.ref import ssd_chunked_reference
+from repro_torch.kernels.ref import (ssd_chunked_backward_reference,
+                                     ssd_chunked_reference)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P, _MAX_N = 64, 128
 #: path names, indexed by the id the C entry point takes
 PATHS = ("fma", "wgmma")
+#: the backward's one path (fp32 FMAs), counted as the forward's are
+BWD_PATHS = ("fma",)
 SUB = 64                    # kSub: rows per sub-chunk of the wgmma path
 
 _fwd = None                 # the bound C function, looked up once
+_bwd = None                 # the backward's library, loaded once
 
 
 def select_path(dtype: torch.dtype, P: int, N: int, Q: int) -> str:
@@ -71,37 +79,29 @@ def _check(xdt, a, bm, cm, chunk: int):
         raise ValueError("ssd_scan: inputs on different devices")
 
 
-def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
-    """SSD sequence transform; CPU tensors take the plain chunked version.
+def _check_card(xdt, bm, cm, who: str):
+    """What both kernels need beyond :func:`_check`: P and N multiples of
+    16, at most 64 and 128, and xdt, bm and cm with a contiguous last
+    dim."""
+    P, N = xdt.shape[-1], bm.shape[-1]
+    if P % 16 or P > _MAX_P or N % 16 or N > _MAX_N:
+        raise ValueError(f"{who}: P={P}, N={N}; the kernel takes "
+                         f"multiples of 16 up to {_MAX_P} and {_MAX_N}")
+    for name, t in (("xdt", xdt), ("bm", bm), ("cm", cm)):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{who}: {name}'s last dim must be contiguous")
 
-    Raises where the Pallas wrapper asserts (``S % chunk``) and, on the
-    card, when a gradient would be needed (no backward kernel yet) and
-    where the chosen path's limits are not met: P and N multiples of 16,
-    at most 64 and 128, every last dim contiguous, and on the wgmma path
-    16-byte aligned rows of xdt, bm and cm."""
+
+def _launch_fwd(xdt, a, bm, cm, chunk: int):
+    """K3's forward on a card, on the path :func:`select_path` names."""
     global _fwd
-    _check(xdt, a, bm, cm, chunk)
-    if xdt.device.type == "cpu":
-        return ssd_chunked_reference(xdt, a, bm, cm, chunk)
-    if xdt.device.type != "cuda":
-        raise RuntimeError(f"ssd_scan: no kernel for {xdt.device}")
-    if needs_grad(xdt, a, bm, cm):
-        raise RuntimeError("ssd_scan: no gradient on the card: K3 has no "
-                           "backward kernel yet (ROADMAP.md §A.1/§B.5); "
-                           "call it under torch.no_grad(), or train the SSM "
-                           "family on the CPU")
     B, S, H, P = xdt.shape
     N = bm.shape[-1]
-    if P % 16 or P > _MAX_P or N % 16 or N > _MAX_N:
-        raise ValueError(f"ssd_scan: P={P}, N={N}; the kernel takes "
-                         f"multiples of 16 up to {_MAX_P} and {_MAX_N}")
+    _check_card(xdt, bm, cm, "ssd_scan")
     if B > 65535:
         raise ValueError(f"ssd_scan: batch {B} > 65535")
     path = select_path(xdt.dtype, P, N, chunk)
     for name, t in (("xdt", xdt), ("bm", bm), ("cm", cm)):
-        if t.stride(-1) != 1:
-            raise ValueError(f"ssd_scan: {name}'s last dim must be "
-                             "contiguous")
         if path == "wgmma" and (t.data_ptr() % 16 or
                                 any(s % 8 for s in t.stride()[:-1])):
             raise ValueError(f"ssd_scan: {name} must be 16-byte aligned "
@@ -119,6 +119,113 @@ def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
     ssd_scan.launches += 1
     ssd_scan.path_launches[path] += 1
     return y
+
+
+def _bwd_lib():
+    global _bwd
+    if _bwd is None:
+        _bwd = _build.load()["ssd_scan_bwd"]
+    return _bwd
+
+
+def bwd_workspace_floats(B: int, S: int, H: int, P: int, N: int,
+                         Q: int) -> int:
+    """fp32 scratch of one backward call, as ``csrc/ssd_scan_bwd.cu`` lays
+    it out (its ``ssd_scan_bwd_workspace_floats``; builds the kernels)."""
+    return _bwd_lib().ssd_scan_bwd_workspace_floats(B, S, H, P, N, Q)
+
+
+def ssd_scan_bwd(xdt, a, bm, cm, dy, *, chunk: int = 256):
+    """Gradients (dxdt, da, dbm, dcm) of :func:`ssd_scan` from its inputs
+    and ``dy`` (y's shape and dtype); da is float32, dB and dC summed over
+    the heads.  CPU tensors take the plain version
+    (``ssd_chunked_backward_reference``).  On a card: the seven launches of
+    ``csrc/ssd_scan_bwd.cu``, one call counted; a ``dy`` whose last dim is
+    not contiguous (autograd may hand one over) is copied to a contiguous
+    one first, the other inputs are read through their strides.  Raises
+    where the forward raises."""
+    _check(xdt, a, bm, cm, chunk)
+    if dy.shape != xdt.shape or dy.dtype != xdt.dtype or \
+            dy.device != xdt.device:
+        raise ValueError(f"ssd_scan_bwd: dy{tuple(dy.shape)} {dy.dtype} "
+                         f"must match xdt{tuple(xdt.shape)} {xdt.dtype}")
+    if xdt.device.type == "cpu":
+        return ssd_chunked_backward_reference(xdt, a, bm, cm, dy, chunk)
+    if xdt.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan_bwd: no kernel for {xdt.device}")
+    B, S, H, P = xdt.shape
+    N = bm.shape[-1]
+    _check_card(xdt, bm, cm, "ssd_scan_bwd")
+    if max(B, H, S // chunk) > 65535 or chunk > 4096:
+        raise ValueError(f"ssd_scan_bwd: B={B}, H={H}, {S // chunk} chunks "
+                         f"(at most 65535 each), chunk {chunk} (at most "
+                         "4096)")
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    dev = xdt.device
+    dx = torch.empty((B, S, H, P), dtype=xdt.dtype, device=dev)
+    da = torch.empty((B, S, H), dtype=torch.float32, device=dev)
+    db = torch.empty((B, S, N), dtype=bm.dtype, device=dev)
+    dc = torch.empty((B, S, N), dtype=cm.dtype, device=dev)
+    n_ws = bwd_workspace_floats(B, S, H, P, N, chunk)
+    ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
+    path = BWD_PATHS[0]
+    err = _bwd_lib().ssd_scan_bwd(
+        xdt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+        dy.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(),
+        dc.data_ptr(), ws.data_ptr(), n_ws, _DTYPES[xdt.dtype], B, S, H, P,
+        N, chunk, *xdt.stride()[:3], *a.stride(), *bm.stride()[:2],
+        *cm.stride()[:2], *dy.stride()[:3],
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "ssd_scan_bwd")
+    ssd_scan_bwd.launches += 1
+    ssd_scan_bwd.path_launches[path] += 1
+    return dx, da, db, dc
+
+
+#: backward calls since the last reset (each one launches seven kernels),
+#: in all and by path
+ssd_scan_bwd.launches = 0
+ssd_scan_bwd.path_launches = dict.fromkeys(BWD_PATHS, 0)
+
+
+class SSDScanFn(torch.autograd.Function):
+    """K3 with a gradient: the forward (the plain version for CPU tensors,
+    the kernel on a card) saving its inputs, and :func:`ssd_scan_bwd`."""
+
+    @staticmethod
+    def forward(ctx, xdt, a, bm, cm, chunk):
+        if xdt.device.type == "cpu":
+            y = ssd_chunked_reference(xdt, a, bm, cm, chunk)
+        else:
+            y = _launch_fwd(xdt, a, bm, cm, chunk)
+        ctx.save_for_backward(xdt, a, bm, cm)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        dx, da, db, dc = ssd_scan_bwd(*ctx.saved_tensors, dy,
+                                      chunk=ctx.chunk)
+        return dx, da, db, dc, None
+
+
+def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
+    """SSD sequence transform; CPU tensors take the plain chunked version.
+
+    Raises where the Pallas wrapper asserts (``S % chunk``) and, on the
+    card, where the chosen path's limits are not met: P and N multiples of
+    16, at most 64 and 128, every last dim contiguous, and on the wgmma
+    path 16-byte aligned rows of xdt, bm and cm.  With a gradient to
+    compute, :class:`SSDScanFn` (the backward kernel)."""
+    _check(xdt, a, bm, cm, chunk)
+    if xdt.device.type == "cpu":
+        return ssd_chunked_reference(xdt, a, bm, cm, chunk)
+    if xdt.device.type != "cuda":
+        raise RuntimeError(f"ssd_scan: no kernel for {xdt.device}")
+    if needs_grad(xdt, a, bm, cm):
+        return SSDScanFn.apply(xdt, a, bm, cm, chunk)
+    return _launch_fwd(xdt, a, bm, cm, chunk)
 
 
 #: kernel launches since the last reset (CPU calls are not launches), in

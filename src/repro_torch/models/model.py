@@ -63,7 +63,9 @@ def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
     With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
     (non-reentrant), the counterpart of the reference's ``jax.checkpoint``
     over the layer scan: a layer keeps only its input for the backward and
-    runs again there.  The stacked parameters are unbound once, so their
+    runs again there, so a training step launches each layer's kernel (K1
+    or K3) forward twice and its backward once.  The stacked parameters
+    are unbound once, so their
     gradients are stacked once (indexing each layer would build a
     full-size zero gradient per layer)."""
     _require_supported(cfg)

@@ -3,9 +3,13 @@
 
 The full-sequence forward (``ssm_apply``) runs the SSD chunked scan through
 kernel K3 (``repro_torch.kernels.ops.ssd_scan``), in place of the JAX
-package's pure-jnp ``ssd_chunked`` scan; the decode step
-(``ssm_decode_step``) is the single-token recurrence, the SSM analogue of a
-KV cache, with no kernel of its own.
+package's pure-jnp ``ssd_chunked`` scan, which the JAX package trains by
+differentiating it through XLA.  Here training on a card takes K3's
+autograd function: the forward kernel, and the backward kernel
+(``csrc/ssd_scan_bwd.cu``) for dxdt, da, dB and dC; on the CPU autograd
+differentiates the plain version.  The decode step (``ssm_decode_step``) is
+the single-token recurrence, the SSM analogue of a KV cache, with no
+kernel of its own.
 
 ``F.softplus`` switches to the identity above 20 (its default threshold)
 where ``jax.nn.softplus`` keeps ``log1p(exp(x))``; the two differ there by
@@ -66,7 +70,8 @@ def _causal_conv(x, w, state=None):
 
 
 def ssd_chunked(x, dt, A, Bm, Cm, chunk: int):
-    """SSD sequence transform through kernel K3.
+    """SSD sequence transform through kernel K3 (and, under autograd on a
+    card, K3's backward kernel).
 
     x: (B,S,H,P); dt: (B,S,H) positive step sizes; A: (H,) negative decay
     rates; Bm, Cm: (B,S,N) shared across heads.  Returns y (B,S,H,P) in

@@ -29,6 +29,7 @@ from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_lse_reference,
                                      attention_reference, repack_reference,
+                                     ssd_chunked_backward_reference,
                                      ssd_chunked_reference, ssd_reference)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -649,7 +650,7 @@ def test_mamba2_smoke_on_card_matches_cpu(cuda):
     out = decode_demo(arch, device=cuda, **run)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0, "repack": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
     np.testing.assert_array_equal(out["tokens"], ref["tokens"])
     assert [e.transfer.bytes_moved for e in out["events"]] == \
         [e.transfer.bytes_moved for e in ref["events"]]
@@ -688,40 +689,223 @@ def test_train_step_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
-def test_mamba2_train_step_on_card_raises(cuda):
-    """K3 has no backward kernel yet: a mamba2-smoke training step on the
-    card raises where the scan would need a gradient, rather than return
-    zero gradients for the parameters that reach the loss only through it
-    (the same step on the CPU differentiates the plain version:
-    tests/test_torch_ssm.py).  Without a gradient the scan still runs."""
+def test_mamba2_train_step_on_card_matches_cpu(cuda):
+    """One mamba2-370m-smoke training step in fp32 on the card, the scan
+    forward and backward on K3's kernels under autograd, gives the CPU
+    plain path's loss and gradient norm (fp32 on both, summation orders
+    differ: the dense family's bounds); with remat, every layer launches
+    K3's forward twice and its backward once.  The gradients of the leaves
+    that take theirs only through K3's backward (da, dB, dC) each equal
+    the CPU's within ``SSM_LEAF_TOL`` of their largest entry."""
+    import dataclasses
     from repro_torch import tree as T
     from repro_torch.configs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import SyntheticDataset
-    from repro_torch.models import model as M
-    from repro_torch.models.train import (_value_and_grad, init_state,
-                                          make_train_step)
+    from repro_torch.models import train as TT
     from repro_torch.optim import AdamW
-    cfg = get_config("mamba2-370m-smoke")
-    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticDataset(
-        cfg, ShapeConfig("t", "train", 64, 2)).batch_at(0).items()}
-    params = T.tree_map(lambda t: t.to(cuda), M.init_params(
-        cfg, torch.Generator().manual_seed(0)))
-    ops.reset_counts()
-    with pytest.raises(RuntimeError, match="no gradient on the card"):
-        _value_and_grad(params, cfg, batch)
     opt = AdamW(learning_rate=1e-3)
-    state = T.tree_map(lambda t: t.to(cuda), init_state(cfg, opt, 0))
-    with pytest.raises(RuntimeError, match="no gradient on the card"):
-        make_train_step(cfg, opt)(state, batch)
-    assert ops.launch_counts()["ssd_scan"] == 0
-    g = torch.Generator(cuda).manual_seed(0)
-    xdt, bm = (torch.randn(s, generator=g, device=cuda) for s in
-               [(1, 64, 2, 16), (1, 64, 16)])
-    a = -torch.rand(1, 64, 2, generator=g, device=cuda)
-    with pytest.raises(RuntimeError, match="no gradient on the card"):
-        ops.ssd_scan(xdt.requires_grad_(), a, bm, bm, chunk=64)
-    with torch.no_grad():
-        ops.ssd_scan(xdt, a, bm, bm, chunk=64)
+    out, leaf = {}, {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(get_config("mamba2-370m-smoke"),
+                                  remat=remat)
+        batch = SyntheticDataset(cfg, ShapeConfig("t", "train", 64, 8)
+                                 ).batch_at(0)
+        for dev in ("cpu", cuda):
+            state = T.tree_map(lambda t: t.to(dev),
+                               TT.init_state(cfg, opt, 0))
+            tbatch = {k: torch.from_numpy(v).to(dev)
+                      for k, v in batch.items()}
+            ops.reset_counts()
+            _, m = TT.make_train_step(cfg, opt)(state, tbatch)
+            out[str(dev), remat] = (float(m["loss"]), float(m["grad_norm"]),
+                                    ops.launch_counts())
+            state = T.tree_map(lambda t: t.to(dev),
+                               TT.init_state(cfg, opt, 0))
+            grads = TT._value_and_grad(state.params, cfg, tbatch)[2]
+            leaf[str(dev), remat] = {
+                k: g.cpu() for (k, _), g in zip(T.flatten(state.params),
+                                                grads)
+                if k.rsplit("/", 1)[-1] in SSM_SCAN_LEAVES}
+    L = get_config("mamba2-370m-smoke").num_layers
+    for remat in (False, True):
+        (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = \
+            out["cpu", remat], out["cuda", remat]
+        assert n_cpu["ssd_scan"] == n_cpu["ssd_scan_bwd"] == 0
+        assert n_gpu["ssd_scan"] == (2 * L if remat else L)
+        assert n_gpu["ssd_scan_bwd"] == L
+        assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+        assert abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu)
+        assert len(leaf["cpu", remat]) == len(SSM_SCAN_LEAVES)
+        for k, exp in leaf["cpu", remat].items():
+            assert _rel_err(leaf["cuda", remat][k], exp) <= SSM_LEAF_TOL, k
+
+
+# -- K3's backward -----------------------------------------------------------
+
+SSD_BWD_CASES = [
+    # (B, H, S, P, N, Q, decay, dtype): tests/test_kernels.py's SSD cases,
+    # the smoke config's scan, a chunk that is not a multiple of the
+    # kernel's 64-row tile (Q=48, and Q=100: a ragged second tile), the
+    # serving path's P, N, Q with a state alive across chunks, and
+    # mamba2's decays (in-chunk cumsums reach ~-3e3)
+    (2, 4, 256, 32, 16, 64, 0.4, "float32"),
+    (1, 2, 128, 64, 128, 32, 0.4, "float32"),
+    (1, 2, 128, 32, 16, 128, 0.4, "float32"),
+    (2, 2, 64, 16, 16, 16, 0.4, "bfloat16"),
+    (2, 8, 64, 16, 16, 32, 0.4, "float32"),
+    (2, 8, 64, 16, 16, 32, 0.4, "bfloat16"),
+    (2, 3, 144, 48, 32, 48, 0.02, "float32"),
+    (2, 3, 300, 32, 64, 100, 0.02, "bfloat16"),
+    (2, 4, 768, 64, 128, 256, 0.02, "bfloat16"),
+    (1, 32, 512, 64, 128, 256, "model", "float32"),
+    (1, 32, 512, 64, 128, 256, "model", "bfloat16"),
+]
+#: the backward against its plain version, max |kernel - plain| over max
+#: |plain| per output: in fp32 both sum in fp32 in other orders (cumsum
+#: included), the plain version up to 5.2e-5 from the fp64 gradient in da
+#: at mamba2's decays (tests/test_torch_ssm_train.py), so 1e-4, the bound
+#: the plain version itself keeps to fp64; bf16 outputs are
+#: rounded once (one bf16 step, 2^-7 relative at most), so 1e-2; da is
+#: fp32 for both dtypes and keeps 1e-4
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+#: the leaves whose gradient comes only through K3's backward, card
+#: against CPU in fp32, relative to the leaf's largest entry (chip_smoke.py's
+#: SSM_LEAF_TOL; on the CPU the plain backward's formulas in place of
+#: autograd move them by up to 3.1e-6)
+SSM_SCAN_LEAVES = ("A_log", "dt_bias", "w_dt", "w_B", "w_C", "conv_B",
+                   "conv_C")
+SSM_LEAF_TOL = 1e-4
+
+
+def _rel_err(got, ref) -> float:
+    assert got.shape == ref.shape and got.dtype == ref.dtype
+    assert bool(torch.isfinite(got).all())
+    return ((got.float() - ref.float()).abs().max() /
+            ref.float().abs().max()).item()
+
+
+def _ssd_bwd_inputs(device, B, H, S, P, N, decay, dtype, seed=0):
+    xdt, a, bm, cm = _ssd_inputs(device, B, H, S, P, N, decay, dtype,
+                                 seed=seed)
+    g = torch.Generator(device).manual_seed(seed + 1)
+    dy = torch.randn(B, S, H, P, generator=g, device=device).to(xdt.dtype)
+    return xdt, a, bm, cm, dy
+
+
+def _hold_bwd(got, exp, dtype):
+    for name, g_, e_ in zip(("dx", "da", "dB", "dC"), got, exp):
+        tol = SSD_BWD_TOL["float32" if name == "da" else dtype]
+        assert _rel_err(g_, e_) <= tol, name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,S,P,N,Q,decay,dtype", SSD_BWD_CASES)
+def test_ssd_bwd_kernel_matches_plain_on_card(cuda, B, H, S, P, N, Q, decay,
+                                              dtype):
+    args = _ssd_bwd_inputs(cuda, B, H, S, P, N, decay, dtype)
+    before = ops.launch_counts()["ssd_scan_bwd"]
+    got = ops.ssd_scan_bwd(*args, chunk=Q)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["ssd_scan"] == 1
+    assert ops.launch_counts()["ssd_scan_bwd"] == before + 1
+    _hold_bwd(got, ssd_chunked_backward_reference(*args, Q), dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_through_autograd_on_card(cuda, dtype):
+    """``ops.ssd_scan`` with inputs that need a gradient goes through
+    ``SSDScanFn``: the forward on its path, the backward kernel once, and
+    the gradients of the direct call."""
+    xdt, a, bm, cm, dy = _ssd_bwd_inputs(cuda, 2, 4, 512, 64, 128, "model",
+                                         dtype)
+    leaves = [t.clone().requires_grad_() for t in (xdt, a, bm, cm)]
+    ops.reset_counts()
+    y = ops.ssd_scan(*leaves, chunk=256)
+    assert y.grad_fn is not None
+    torch.testing.assert_close(y.detach(), ops.ssd_scan(xdt, a, bm, cm,
+                                                        chunk=256),
+                               atol=0, rtol=0)
+    got = torch.autograd.grad(y, leaves, dy)
+    torch.cuda.synchronize()
+    path = ss.select_path(getattr(torch, dtype), 64, 128, 256)
+    assert ss.ssd_scan.path_launches[path] == 2
+    assert ops.launch_counts()["ssd_scan_bwd"] == 1
+    for g_, e_ in zip(got, ops.ssd_scan_bwd(xdt, a, bm, cm, dy, chunk=256)):
+        torch.testing.assert_close(g_, e_, atol=0, rtol=0)
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_reads_strided_inputs_on_card(cuda):
+    """Transposed views of xdt, a and dy, B and C cut from a wider
+    projection, and a dy whose last dim is not contiguous (copied by the
+    wrapper): the contiguous inputs' gradients bit for bit."""
+    xdt, a, bm, cm, dy = _ssd_bwd_inputs(cuda, 2, 4, 256, 64, 128, 0.02,
+                                         "bfloat16")
+    xt, at, dyt = (t.transpose(1, 2).contiguous().transpose(1, 2)
+                   for t in (xdt, a, dy))
+    wide = torch.cat([bm, cm, bm], dim=-1)
+    bw, cw = wide[..., :128], wide[..., 128:256]
+    dyf = dy.transpose(-1, -2).contiguous().transpose(-1, -2)
+    assert not xt.is_contiguous() and not bw.is_contiguous()
+    assert dyf.stride(-1) != 1
+    exp = ops.ssd_scan_bwd(xdt, a, bm, cm, dy, chunk=128)
+    for args in ((xt, at, bw, cw, dyt), (xdt, a, bm, cm, dyf)):
+        for g_, e_ in zip(ops.ssd_scan_bwd(*args, chunk=128), exp):
+            torch.testing.assert_close(g_, e_, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.ssd_scan_bwd(xdt.transpose(-1, -2).contiguous().transpose(-1, -2),
+                         a, bm, cm, dy, chunk=128)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_bwd_is_bitwise_repeatable_on_card(cuda, dtype):
+    """dB and dC sum the heads in a fixed order (no atomics): two runs on
+    the same inputs are equal bit for bit."""
+    args = _ssd_bwd_inputs(cuda, 2, 32, 1024, 64, 128, "model", dtype)
+    first = ops.ssd_scan_bwd(*args, chunk=256)
+    second = ops.ssd_scan_bwd(*args, chunk=256)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+@pytest.mark.gpu
+def test_bwd_workspace_at_the_training_shape(cuda):
+    """The kernel's fp32 scratch at mamba2-370m's training shape (B=8,
+    S=4096, H=32, P=64, N=128, Q=256), as its source lays it out: dB and dC
+    per head (2 x 0.54 GB), the chunk states and their gradients
+    (2 x 0.13 GB), C B^T, cum and the dcum parts: ~1.4 GB, in whole
+    multiples of 4 floats."""
+    n = ss.bwd_workspace_floats(8, 4096, 32, 64, 128, 256)
+    assert 1.3e9 < 4 * n < 1.5e9
+    assert ss.bwd_workspace_floats(1, 6, 1, 16, 16, 3) % 4 == 0
+    assert ss.bwd_workspace_floats(1, 64, 1, 16, 16, 0) == 0
+
+
+@pytest.mark.gpu
+def test_ssd_bwd_entry_point_refuses_what_it_cannot_take(cuda):
+    """The C entry point returns cudaErrorInvalidValue (1), launching
+    nothing, for a short workspace or shapes past its limits."""
+    bwd = _build.load()["ssd_scan_bwd"].ssd_scan_bwd
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def call(P=64, N=128, Q=64, S=128, short=0):
+        x = torch.zeros(1, S, 2, P, device=cuda)
+        a = torch.zeros(1, S, 2, device=cuda)
+        bm = torch.zeros(1, S, N, device=cuda)
+        n = ss.bwd_workspace_floats(1, S, 2, P, N, Q) - short if Q else 0
+        ws = torch.empty(max(n, 1), device=cuda)
+        return bwd(x.data_ptr(), a.data_ptr(), bm.data_ptr(), bm.data_ptr(),
+                   x.data_ptr(), x.data_ptr(), a.data_ptr(), bm.data_ptr(),
+                   bm.data_ptr(), ws.data_ptr(), n, 0, 1, S, 2, P, N,
+                   Q, *x.stride()[:3], *a.stride(), *bm.stride()[:2],
+                   *bm.stride()[:2], *x.stride()[:3], stream)
+
+    assert call(short=4) == 1
+    assert call(P=72) == 1
+    assert call(N=144) == 1
+    assert call(Q=48) == 1                       # S % Q != 0
+    assert call(Q=0) == 1
+    assert call() == 0
+    torch.cuda.synchronize()

@@ -249,7 +249,7 @@ def test_cpu_calls_are_not_launches():
                  torch.zeros(1, 8, 16), torch.zeros(1, 8, 16), chunk=4)
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0, "repack": 0,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert fa.flash_attention.path_launches == {"fma": 0, "mma": 0,
                                                 "split_decode": 0}
 
@@ -280,7 +280,8 @@ def test_cpu_calls_count_no_path():
         "flash_attention": {"fma": 0, "mma": 0, "split_decode": 0},
         "flash_attention_bwd": {"fma": 0, "wgmma": 0},
         "repack": {"bytes": 0, "bulk": 0},
-        "ssd_scan": {"fma": 0, "wgmma": 0}}
+        "ssd_scan": {"fma": 0, "wgmma": 0},
+        "ssd_scan_bwd": {"fma": 0}}
 
 
 @pytest.mark.parametrize("block_bytes,src,out,path", [
@@ -413,7 +414,7 @@ def test_flash_bwd_path_choice(dtype, path):
 
 def test_needs_grad():
     """The one condition under which a wrapper's call must carry a
-    gradient (K1 then takes its autograd function, K3 on a card refuses):
+    gradient (K1 and K3 on a card then take their autograd functions):
     grad mode on and some input requiring a gradient."""
     a, b = torch.zeros(2), torch.zeros(2, requires_grad=True)
     assert not needs_grad(a)
