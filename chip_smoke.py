@@ -45,10 +45,13 @@ through its kernels.  Phases:
    init;
 5b. K3's backward (``ssd_scan_bwd.cu``) against
    ``ssd_chunked_backward_reference`` on dx, da, dB, dC (each held to a
-   bound relative to its largest entry, ``SSD_BWD_TOL``): the smoke
-   config's scan, the JAX kernel tests' cases, a ragged chunk, and the
-   training shape (B=8, H=32, S=4096, P=64, N=128, Q=256) in bf16 and
-   fp32, at mild decays and at mamba2's (in-chunk cumsums to ~-3e3);
+   bound relative to its largest entry, ``SSD_BWD_TOL``), each case on the
+   path its dtype and shapes select (``select_bwd_path``: bf16 on wgmma
+   with whole 64-row tiles, up to four a chunk; else fma): the smoke
+   config's scan, the JAX kernel tests' cases, a ragged chunk, bf16 on
+   wgmma at three tiles a chunk, and the training shape (B=8, H=32,
+   S=4096, P=64, N=128, Q=256) in bf16 and fp32, at mild decays and at
+   mamba2's (in-chunk cumsums to ~-3e3);
    strided inputs equal to contiguous ones bit for bit; two runs at the
    training shape equal bit for bit; and K3's forward at the training
    shape (16 chunks of carried state) in bf16 on the wgmma path and in
@@ -101,7 +104,7 @@ through its kernels.  Phases:
     master weights, remat, 8 workers, ``{2: 8, 4: 2}``): 6 static and 6
     elastic steps whose losses agree to 1e-4, s/step, tokens/s, peak GB;
     every scan on K3 (96 forward launches a step, all on wgmma; 48
-    backward), none on a plain version, no K1;
+    backward, all on wgmma), none on a plain version, no K1;
 13d. one traced 48-layer step of the static run: device busy time, idle
     share, K3's forward and backward device time and share, the largest
     device operators;
@@ -120,9 +123,10 @@ through its kernels.  Phases:
     host time per call; every row names the device path it timed.  K1
     has four rows: decode and prefill at the serving path's shapes, and
     its forward (with the lse, as training calls it) and backward at the
-    training shape; K3 three, its forward at the prefill and at the
-    training shape, and its backward at the training shape.  Then the contract line ``{"ok":
-    true, ...}``.
+    training shape; K3 four, its forward at the prefill and at the
+    training shape, and its backward at the training shape on both paths
+    (bf16 on wgmma, the main path's; fp32 on fma, the smoke step's).  Then
+    the contract line ``{"ok": true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
@@ -221,8 +225,10 @@ M_BF16_LOGITS_MAX, M_BF16_LOGITS_RMS = 2.0, 0.4
 #: the plain version up to 5.2e-5 from the fp64 gradient in da at mamba2's
 #: decays (tests/test_torch_ssm_train.py), so 1e-4, the bound the plain
 #: version itself keeps to fp64; bf16 outputs are rounded once
-#: (one bf16 step, at most 2^-7 relative), so 1e-2; da is fp32 for both
-#: dtypes and keeps 1e-4
+#: (one bf16 step, at most 2^-7 relative), so 1e-2, which the bf16 wgmma
+#: path's operand roundings keep to 0.34 of at worst at the training shape
+#: (kernels/ssd_rounding.py, model_grads); da is fp32 for both dtypes and
+#: keeps 1e-4
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 #: the mamba2-smoke step's gradients of the leaves that take theirs only
 #: through K3's backward (da, dB, dC), card against CPU, max |card - CPU|
@@ -794,16 +800,23 @@ def main() -> None:
 
     ssd_bwd_err = {"float32": [0.0] * 4, "bfloat16": [0.0] * 4}
 
+    bwd_case_paths = dict.fromkeys(ss.BWD_PATHS, 0)
+
     def k3_bwd_case(args, chunk, what):
-        """K3's backward (one launch counted) against its plain version;
-        returns the gradients and their errors (dx, da, dB, dC)."""
+        """K3's backward (one launch counted, on the path its dtype and
+        shapes select) against its plain version; returns the gradients
+        and their errors (dx, da, dB, dC)."""
         name = str(args[0].dtype).split(".")[1]
+        path = ss.select_bwd_path(args[0].dtype, args[0].shape[-1],
+                                  args[2].shape[-1], chunk)
         before = dict(ss.ssd_scan_bwd.path_launches)
         got = ops.ssd_scan_bwd(*args, chunk=chunk)
         moved = {p: n_ - before[p]
                  for p, n_ in ss.ssd_scan_bwd.path_launches.items()}
-        if moved != {"fma": 1}:
-            fail(f"{what}: K3 backward path launches {moved}")
+        if moved != {p: int(p == path) for p in moved}:
+            fail(f"{what}: K3 backward path launches {moved}, not one on "
+                 f"{path}")
+        bwd_case_paths[path] += 1
         exp = ssd_chunked_backward_reference(*args, chunk)
         errs_ = []
         for i, (g_, e_, o_) in enumerate(zip(got, exp, "xaBC")):
@@ -823,6 +836,7 @@ def main() -> None:
                  for dt in ("float32", "bfloat16")]          # the smoke scan
     bwd_table += [(*c[:6], 0.4, c[6]) for c in SSD_CASES]
     bwd_table += [(2, 3, 300, 32, 64, 100, 0.02, "bfloat16"),  # ragged tile
+                  (1, 5, 576, 48, 96, 192, "model", "bfloat16"),  # 3 tiles
                   (16, 32, 1024, 64, 128, 256, "model", "float32")]
     for case in bwd_table:
         B, H_, S_, P_, N_, Q_, decay, name = case
@@ -850,6 +864,10 @@ def main() -> None:
         tgot, train_bwd_err[f"{name},{decay}"] = k3_bwd_case(
             targs, bQ, f"ssd bwd train shape {SSD_BWD_TRAIN} {name} "
             f"decay {decay}")
+        want = "wgmma" if name == "bfloat16" else "fma"
+        if ss.select_bwd_path(targs[0].dtype, bP, bN, bQ) != want:
+            fail(f"K3 backward at the training shape in {name} does not "
+                 f"take its {want} path")
         if (name, decay) == ("bfloat16", "model"):
             ssd_bwd_args = targs                  # timed in phase 14
             again = ops.ssd_scan_bwd(*targs, chunk=bQ)
@@ -875,6 +893,7 @@ def main() -> None:
     torch.cuda.synchronize()
     fmt = lambda v: ",".join(f"{x:.3e}" for x in v)
     phase("K3:bwd", cases=len(bwd_table) + 3,
+          case_paths=json.dumps(bwd_case_paths, separators=(",", ":")),
           path_launches=json.dumps(ss.ssd_scan_bwd.path_launches,
                                    separators=(",", ":")),
           max_err_f32=fmt(small_bwd_err["float32"]),
@@ -916,6 +935,10 @@ def main() -> None:
     # decays): ~0.3 GB of inputs a call, past L2 already; the L2-cold
     # window still rotates two copies
     k3_bwd = lambda: ops.ssd_scan_bwd(*ssd_bwd_args, chunk=bQ)
+    # the same inputs in fp32, for the fma path's row (made anew in phase
+    # 14, so that they are not held through the training phases)
+    ssd_bwd_f32_args = tuple(t.float() for t in ssd_bwd_args)
+    k3_bwd_f32 = lambda: ops.ssd_scan_bwd(*ssd_bwd_f32_args, chunk=bQ)
     k3_tfwd = lambda: ops.ssd_scan(*ssd_bwd_args[:4], chunk=bQ)
     k3_bwd_sets = [ssd_bwd_args, tuple(t.clone() for t in ssd_bwd_args)]
     # L2-cold K1 and SDPA: each call on its own copy of the inputs, the
@@ -983,6 +1006,8 @@ def main() -> None:
               "K3 train fwd": device_ms(k3_tfwd, "K3 forward, train shape",
                                         iters=8),
               "K3 bwd": device_ms(k3_bwd, "K3 backward", iters=4),
+              "K3 bwd fp32": device_ms(k3_bwd_f32, "K3 backward, fp32",
+                                       iters=4),
               "K3 bwd cold": device_ms(cold(
                   lambda *a_: ops.ssd_scan_bwd(*a_, chunk=bQ), k3_bwd_sets),
                   "K3 backward, L2-cold", iters=4),
@@ -996,7 +1021,7 @@ def main() -> None:
               "SDPA train fwd": device_ms(sdpa_tfwd,
                                           "SDPA forward, train shape",
                                           iters=8)}
-    del cold_dec, cold_pre, k3_bwd_sets
+    del cold_dec, cold_pre, k3_bwd_sets, ssd_bwd_f32_args
     mark("device_ms")
 
     # -- 6. the granite serving path ----------------------------------------
@@ -1347,7 +1372,7 @@ def main() -> None:
             want = {"flash_attention": 0, "flash_attention_bwd": 0,
                     "ssd_scan": fwd, "ssd_scan_bwd": bwd}
             want_paths = {"ssd_scan": {"fma": 0, "wgmma": fwd},
-                          "ssd_scan_bwd": {"fma": bwd}}
+                          "ssd_scan_bwd": {"fma": 0, "wgmma": bwd}}
         else:            # K1 forward on mma, its backward on wgmma; no K3
             want = {"flash_attention": fwd, "flash_attention_bwd": bwd,
                     "ssd_scan": 0, "ssd_scan_bwd": 0}
@@ -1470,8 +1495,10 @@ def main() -> None:
         _, m = make_train_step(mscfg, sopt)(
             st, {k_: torch.from_numpy(v_).to(d) for k_, v_ in msbatch.items()})
         msmoke[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
-                          ops.launch_counts())
-    (l_c, g_c, n_c), (l_g, g_g, n_g) = msmoke["cpu"], msmoke[str(dev)]
+                          ops.launch_counts(),
+                          dict(ss.ssd_scan_bwd.path_launches))
+    (l_c, g_c, n_c, _), (l_g, g_g, n_g, p_g) = msmoke["cpu"], msmoke[str(dev)]
+    m_smoke_fma_launches = p_g["fma"]             # fp32: K3 backward's fma
 
     def ssm_leaf_grads(d):
         """The smoke step's gradients of SSM_SCAN_LEAVES, on device d."""
@@ -1499,15 +1526,17 @@ def main() -> None:
                  f"(> {SSM_LEAF_TOL})")
     if n_c["ssd_scan"] or n_c["ssd_scan_bwd"] or \
             n_g["ssd_scan"] != mscfg.num_layers or \
-            n_g["ssd_scan_bwd"] != mscfg.num_layers:
-        fail(f"mamba2 smoke train step launched {n_g} on the card, {n_c} "
-             "on the CPU")
+            n_g["ssd_scan_bwd"] != mscfg.num_layers or \
+            p_g != {"fma": mscfg.num_layers, "wgmma": 0}:
+        fail(f"mamba2 smoke train step launched {n_g} on the card (K3 "
+             f"backward by path {p_g}), {n_c} on the CPU")
     if abs(l_g - l_c) > 1e-5 * abs(l_c) or abs(g_g - g_c) > 1e-4 * abs(g_c):
         fail(f"mamba2 smoke train step: card loss {l_g} / grad norm {g_g} "
              f"vs CPU {l_c} / {g_c}")
     phase("mamba2:train:smoke", loss_card=f"{l_g:.7f}", loss_cpu=f"{l_c:.7f}",
           grad_norm_card=f"{g_g:.6f}", grad_norm_cpu=f"{g_c:.6f}",
           k3_launches=f"{n_g['ssd_scan']},{n_g['ssd_scan_bwd']}",
+          k3_bwd_paths=json.dumps(p_g, separators=(",", ":")),
           scan_leaf_grad_err=json.dumps({k_: float(f"{v_:.3e}") for k_, v_
                                          in leaf_err.items()},
                                         separators=(",", ":")),
@@ -1568,7 +1597,7 @@ def main() -> None:
         dev_events = device_events(prof)
         bwd_evs = [e for e in dev_events if "ssd_bwd" in e.key]
         fwd_evs = [e for e in dev_events if "ssd_scan" in e.key]
-        if sum(e.count for e in bwd_evs) == 7 * L and \
+        if sum(e.count for e in bwd_evs) == ss.BWD_KERNELS["wgmma"] * L and \
                 sum(e.count for e in fwd_evs) == 2 * L:
             break
         print(f"chip_smoke: traced mamba2 train step: the profiler kept "
@@ -1790,7 +1819,7 @@ def main() -> None:
         "replaces_note": "the gradient of K3; the JAX package has no Pallas "
                          "backward and differentiates ssd_chunked "
                          "(src/repro/models/ssm.py:57) through XLA",
-        "path": "fma",
+        "path": "wgmma",
         "launches": m_train_bwd_launches, "max_abs_err": err_k3b,
         "max_abs_err_note": "largest over dx, da, dB, dC; each is held to "
                             "SSD_BWD_TOL of its largest entry (phase 5b)",
@@ -1804,6 +1833,43 @@ def main() -> None:
         "library_note": "no PyTorch call computes an SSD scan's gradient",
         "shape": f"B={bB} H={bH} S={bS} P={bP} N={bN} Q={bQ} bf16 "
                  "xdt/B/C/dy, f32 a, mamba2's decays"})
+    # the same function in fp32 on the fma path (the fp32 smoke step's),
+    # on the bf16 row's inputs widened: the same work at the fp32 FMA
+    # peak, every tensor but a and da twice the bytes
+    ssd_bwd_f32_args = tuple(t.float() for t in ssd_bwd_args)
+    b_k3f, by_k3f = bound_ms(
+        4 * 3 * bB * bS * bH * bP + 4 * 2 * bB * bS * bH +
+        4 * 4 * bB * bS * bN,
+        2 * (bB * bH * nc_b * (5 * bQ * bP * bN + pairs_b * (2 * bP + 2 * bN))
+             + bB * nc_b * pairs_b * bN), "float32")
+    got = ops.ssd_scan_bwd(*ssd_bwd_f32_args, chunk=bQ)
+    exp = ssd_chunked_backward_reference(*ssd_bwd_f32_args, bQ)
+    err_k3f = max((g_.float() - e_.float()).abs().max().item()
+                  for g_, e_ in zip(got, exp))
+    del got, exp
+    kernels.append({
+        "name": "ssd_scan_bwd (train, fp32)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:59",
+        "replaces_note": "the gradient of K3 (as the row above), on its "
+                         "fp32 path",
+        "path": "fma",
+        "launches": m_smoke_fma_launches,
+        "launches_note": "the fp32 mamba2-370m-smoke step on the card "
+                         "(phase 13b); the bf16 main path takes wgmma",
+        "max_abs_err": err_k3f,
+        "max_abs_err_note": "largest over dx, da, dB, dC; each is held to "
+                            "SSD_BWD_TOL of its largest entry (phase 5b)",
+        "ms": time_ms(k3_bwd_f32, iters=5, warmup=1),
+        "device_ms": dev_ms["K3 bwd fp32"],
+        "plain_ms": time_ms(lambda: ssd_chunked_backward_reference(
+            *ssd_bwd_f32_args, bQ), iters=2, warmup=1),
+        "bound_ms": b_k3f, "bound_by": by_k3f, "library_ms": None,
+        "library_device_ms": None,
+        "library_note": "no PyTorch call computes an SSD scan's gradient",
+        "shape": f"B={bB} H={bH} S={bS} P={bP} N={bN} Q={bQ} fp32 "
+                 "xdt/B/C/dy, f32 a, mamba2's decays"})
+    del ssd_bwd_f32_args
     mark("kernels")
     phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))

@@ -59,8 +59,8 @@ SIGNATURES = {
                          _ll, _ll, _ll, _ll, _p],
     },
     "ssd_scan_bwd": {
-        "ssd_scan_bwd": [_p] * 10 + [_ll] + [_i] * 7 + [_ll] * 13 + [_p],
-        "ssd_scan_bwd_workspace_floats": [_i] * 6,
+        "ssd_scan_bwd": [_p] * 10 + [_ll] + [_i] * 8 + [_ll] * 13 + [_p],
+        "ssd_scan_bwd_workspace_floats": [_i] * 7,
     },
 }
 #: the functions that return something else than a cudaError_t

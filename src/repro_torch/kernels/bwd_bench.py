@@ -15,8 +15,9 @@ back-to-back calls, and each of its kernels' device time per call from
   (default 64), K1's forward with its lse first; dq, dk, dv as the largest
   error and the count over the bf16 bound 2e-2 + 2e-2 |ref|.
 * K3: bf16 xdt, B, C, dy and fp32 a = dt * A at mamba2-370m's decays, at
-  B (default 8) x S=4096 x H=32 x P=64, N=128, chunk 256; dx, da, dB, dC
-  as the largest error over the largest entry (``chip_smoke.py``'s
+  B (default 8) x S=4096 x H=32 x P=64, N=128, chunk 256, on the path
+  ``select_bwd_path`` names (``wgmma``, four kernels); dx, da, dB, dC as
+  the largest error over the largest entry (``chip_smoke.py``'s
   ``SSD_BWD_TOL``: 1e-2 for the bf16 outputs, 1e-4 for da).
 """
 from __future__ import annotations
@@ -112,7 +113,8 @@ def ssd(B: int = 8) -> None:
     print(f"B={B} ms={ms:.3f} device_ms={split} "
           f"device_total={sum(split.values()):.3f} "
           f"rel_err(dx,da,dB,dC)={errs} bitwise={same} "
-          f"launches={ss.ssd_scan_bwd.launches}", flush=True)
+          f"launches={ss.ssd_scan_bwd.launches} "
+          f"paths={ss.ssd_scan_bwd.path_launches}", flush=True)
 
 
 def main(argv) -> None:

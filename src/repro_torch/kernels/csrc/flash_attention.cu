@@ -131,22 +131,7 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// ---- PTX: ldmatrix, mma (cp.async and wgmma: hopper.cuh) -------------
-
-// Four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix m.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
-               : "memory");
-}
+// ---- PTX: mma (cp.async, ldmatrix and wgmma: hopper.cuh) ----------------
 
 // c (16x8 fp32) += a (16x16 bf16, row) * b (16x8 bf16, col).
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],

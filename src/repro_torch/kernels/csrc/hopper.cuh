@@ -1,8 +1,10 @@
 // PTX helpers shared by K1's forward (flash_attention.cu) and backward
-// (flash_attention_bwd.cu), sm_90a: bf16 packing, cp.async copies, wgmma
-// (warpgroup MMA) with A from registers or from shared memory, its fences,
-// and the no-swizzle shared-memory matrix descriptor.  Everything here is
-// internal to the source that includes it.
+// (flash_attention_bwd.cu) and K3's forward (ssd_scan.cu) and backward
+// (ssd_scan_bwd.cu), sm_90a: bf16 packing and hi + lo splitting, cp.async
+// copies, ldmatrix, wgmma (warpgroup MMA) with A from registers or from
+// shared memory, its fences, the no-swizzle and 128-byte-swizzle
+// shared-memory matrix descriptors, and K3's swizzled 64-row tiles.
+// Everything here is internal to the source that includes it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -14,6 +16,17 @@ namespace {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+// v = hi + lo, each rounded to bf16 (together ~16 significant bits).
+__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
+}
+__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+  return make_float2(__low2float(h), __high2float(h));
 }
 
 // ---- PTX: asynchronous copies ------------------------------------------
@@ -48,6 +61,23 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(d), "l"(src), "r"(ok ? 4 : 0) : "memory");
+}
+
+// ---- PTX: ldmatrix --------------------------------------------------------
+
+// Four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix m.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
+               : "memory");
 }
 
 // ---- PTX: wgmma (warpgroup MMA, sm_90a) --------------------------------
@@ -233,10 +263,24 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 // Keeps the compiler from moving accesses of x across a wgmma wait.
+// Also keeps registers that an in-flight wgmma reads alive until it ends.
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&x)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&x)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(x[i][c]) :: "memory");
+}
+// 64 of a larger accumulator's columns, from column 64 h (the m64n64
+// accumulator layout: d[4 i + c] is row 16 warp + lane / 4 + 8 (c / 2),
+// column 8 i + 2 (lane % 4) + c % 2).
+__device__ __forceinline__ float (&cols64(float* d, int h))[32] {
+  return *reinterpret_cast<float(*)[32]>(d + 32 * h);
 }
 
 // Shared-memory matrix descriptor, no swizzle: the matrix is made of 8 x 16
@@ -247,6 +291,43 @@ __device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo,
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   return uint64_t((a & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
          uint64_t((sbo >> 4) & 0x3FFF) << 32;
+}
+// 128-byte swizzle: rows of 128 bytes whose 16-byte chunks are permuted by
+// the row index mod 8, in atoms of 8 rows (1024 bytes, 1024-byte aligned);
+// sbo is the byte distance between atoms along the rows, lbo (N-contiguous
+// B only) between atoms along the 128-byte rows.
+__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p, int lbo) {
+  return smem_desc(p, lbo, 1024) | uint64_t(1) << 62;
+}
+
+// ---- K3's tiles: 64 rows x W bf16 columns, 128-byte swizzle ---------------
+// W / 64 column blocks of 64 rows x 128 bytes each (8 KB), element (r, c) in
+// block c / 64, row r, 16-byte chunk (c % 64 / 8) ^ (r % 8).  As a K-major
+// operand (rows M or N, K along the columns) k-step kd starts at
+// (kd / 4) * 4096 + (kd % 4) * 16 elements with lbo 16; as an N-contiguous B
+// operand (rows K) k-step kk and 64-column block hn start at hn * 4096 +
+// kk * 1024 with lbo 8192.
+__device__ __forceinline__ int sw_off(int r, int c) {
+  return (c >> 6) * (64 * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
+         (c & 7);
+}
+
+// 64 rows of `valid` bf16 values (row stride ld) into a swizzled 64 x W
+// tile by `nthreads` threads, this one being `tid`; columns at or past
+// `valid` read as zero.  8 lanes take one row's 128 bytes: whole lines of
+// global memory, and, through the swizzle, 8 distinct bank groups of shared
+// memory.
+template <int W>
+__device__ __forceinline__ void load_tile_sw128(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long ld, int valid,
+                                                int tid, int nthreads) {
+  constexpr int CPR = W / 8;                    // 16-byte chunks per row
+  for (int e = tid; e < 64 * CPR; e += nthreads) {
+    const int r = e / CPR, c = (e % CPR) * 8;
+    const bool ok = c < valid;
+    cp_async16(dst + sw_off(r, c), src + r * ld + (ok ? c : 0), ok);
+  }
 }
 
 }  // namespace

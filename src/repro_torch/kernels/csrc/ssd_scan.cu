@@ -82,6 +82,8 @@
 #include <cstdint>
 #include <initializer_list>
 
+#include "hopper.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -361,165 +363,12 @@ constexpr int kSub = 64;                        // rows per sub-chunk
 constexpr int kPP = 64;                         // P, padded
 constexpr float kLog2e = 1.4426950408889634f;
 
-// ---- PTX: cp.async, ldmatrix ----------------------------------------------
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !ok.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8x8 b16 matrices; lanes 8m..8m+7 give the row addresses of matrix m.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a)
-               : "memory");
-}
-
-// ---- PTX: wgmma (warpgroup MMA, sm_90a) -----------------------------------
-//
-// d (64 x 64 fp32, the warpgroup's accumulators) = (acc ? d : 0) + a (64 x
-// 16 bf16: each warp's 16 rows as mma.sync A fragments) * B (16 x 64 bf16 in
-// shared memory, described by b).  TB = 1: B is stored N-contiguous
-// (transposed).  Accumulator layout: d[4 i + c] is row 16 warp + lane / 4
-// + 8 (c / 2), column 8 i + 2 (lane % 4) + c % 2.
-template <int TB>
-__device__ __forceinline__ void wg64(float (&d)[32], const uint32_t (&a)[4],
-                                     uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,"
-      "%16,%17,%18,%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc),
-        "n"(TB));
-}
-// 64 of a larger accumulator's columns, from column 64 h.
-__device__ __forceinline__ float (&cols64(float* d, int h))[32] {
-  return *reinterpret_cast<float(*)[32]>(d + 32 * h);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-// Generic-proxy writes to shared memory (cp.async, stores) made visible to
-// wgmma.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// Keeps the compiler from moving accesses of x across a wgmma wait, and
-// keeps registers that an in-flight wgmma reads alive until it has ended.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&x)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i]) :: "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&x)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) asm volatile("" : "+r"(x[i][c]) :: "memory");
-}
-
-// Shared-memory matrix descriptors.  No swizzle: the matrix is made of 8 x
-// 16 byte core matrices (128 contiguous bytes); lbo is the byte distance
-// between core matrices adjacent along K, sbo along M or N.  128-byte
-// swizzle: rows of 128 bytes whose 16-byte chunks are permuted by the row
-// index mod 8, in atoms of 8 rows (1024 bytes, 1024-byte aligned); sbo is
-// the byte distance between atoms along the rows, lbo (N-contiguous B only)
-// between atoms along the 128-byte rows.
-__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo,
-                                              int sbo) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  return uint64_t((a & 0x3FFFF) >> 4) | uint64_t((lbo >> 4) & 0x3FFF) << 16 |
-         uint64_t((sbo >> 4) & 0x3FFF) << 32;
-}
-__device__ __forceinline__ uint64_t smem_desc_sw128(const void* p, int lbo) {
-  return smem_desc(p, lbo, 1024) | uint64_t(1) << 62;
-}
-
-// ---- end of PTX ------------------------------------------------------------
-
-// Tiles of 64 rows x W bf16 columns.  C, B and x: 128-byte swizzle, W / 64
-// column blocks of 64 rows x 128 bytes each (8 KB), element (r, c) in block
-// c / 64, row r, 16-byte chunk (c % 64 / 8) ^ (r % 8).  The state: no
-// swizzle, core matrices row block by row block.
-__device__ __forceinline__ int sw_off(int r, int c) {
-  return (c >> 6) * (kSub * 64) + r * 64 + ((((c >> 3) & 7) ^ (r & 7)) << 3) +
-         (c & 7);
-}
+// PTX (cp.async, ldmatrix, wgmma, descriptors) and the 128-byte-swizzled
+// tiles of C, B and x (sw_off, load_tile_sw128): hopper.cuh.  The state:
+// no swizzle, core matrices row block by row block.
 template <int W>
 __device__ __forceinline__ int cm_off(int r, int c) {
   return ((r >> 3) * (W / 8) + (c >> 3)) * 64 + (r & 7) * 8 + (c & 7);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// v = hi + lo, each rounded to bf16 (together ~16 significant bits).
-__device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(v0 - __low2float(h), v1 - __high2float(h));
-}
-__device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
-  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
-  return make_float2(__low2float(h), __high2float(h));
-}
-
-// 64 rows of `valid` bf16 values (row stride ld) into a swizzled 64 x W
-// tile; columns at or past `valid` read as zero.  8 lanes take one row's
-// 128 bytes: whole lines of global memory, and, through the swizzle, 8
-// distinct bank groups of shared memory.
-template <int W>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          long long ld, int valid) {
-  constexpr int CPR = W / 8;                    // 16-byte chunks per row
-  for (int e = threadIdx.x; e < kSub * CPR; e += kWgThreads) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    const bool ok = c < valid;
-    cp_async16(dst + sw_off(r, c), src + r * ld + (ok ? c : 0), ok);
-  }
 }
 
 // Shared memory of the wgmma path, in bytes (see the kernel).
@@ -568,16 +417,20 @@ ssd_scan_wgmma_kernel(const Params p) {
   bf16* yh = y + b * p.syb + h * p.syh;
 
   auto load_c = [&](int j) {
-    load_tile<NP>(Cs, cb + (long long)j * kSub * p.scs, p.scs, p.N);
+    load_tile_sw128<NP>(Cs, cb + (long long)j * kSub * p.scs, p.scs, p.N,
+                        tid, kWgThreads);
   };
   auto load_bxa = [&](int j) {                  // into stage j % 2
     const int st = j & 1;
-    load_tile<NP>(Bs + st * kSub * NP, bb + (long long)j * kSub * p.sbs,
-                  p.sbs, p.N);
-    load_tile<kPP>(Xs + st * kSub * kPP, xh + (long long)j * kSub * p.sxs,
-                   p.sxs, p.P);
+    load_tile_sw128<NP>(Bs + st * kSub * NP,
+                        bb + (long long)j * kSub * p.sbs, p.sbs, p.N, tid,
+                        kWgThreads);
+    load_tile_sw128<kPP>(Xs + st * kSub * kPP,
+                         xh + (long long)j * kSub * p.sxs, p.sxs, p.P, tid,
+                         kWgThreads);
     if (tid < kSub)
-      cp_async4(As + st * kSub + tid, ah + ((long long)j * kSub + tid) * p.sas);
+      cp_async4(As + st * kSub + tid, ah + ((long long)j * kSub + tid) * p.sas,
+                true);
   };
 
   // the state: S (rows p, columns n) in the accumulators, S_j in Sh + Sl
@@ -596,7 +449,7 @@ ssd_scan_wgmma_kernel(const Params p) {
     const int st = j & 1;
     const bf16* Bj = Bs + st * kSub * NP;
     const bf16* Xj = Xs + st * kSub * kPP;
-    cp_async_wait_all();                        // sub-chunk j landed
+    cp_async_wait<0>();                         // sub-chunk j landed
     fence_proxy_async();                        // ... and S_j, for wgmma
     __syncthreads();
 
@@ -655,16 +508,17 @@ ssd_scan_wgmma_kernel(const Params p) {
     wgmma_fence();
 #pragma unroll
     for (int kd = 0; kd < KN; ++kd)
-      wg64<0>(yacc, cf[kd], smem_desc(Sh + kd * 128, 128, (NP / 8) * 128),
-              kd);
+      Wgmma<64, 0>::run(yacc, cf[kd],
+                        smem_desc(Sh + kd * 128, 128, (NP / 8) * 128), kd);
 #pragma unroll
     for (int kd = 0; kd < KN; ++kd)
-      wg64<0>(yacc, cf[kd], smem_desc(Sl + kd * 128, 128, (NP / 8) * 128), 1);
+      Wgmma<64, 0>::run(yacc, cf[kd],
+                        smem_desc(Sl + kd * 128, 128, (NP / 8) * 128), 1);
 #pragma unroll
     for (int kd = 0; kd < KN; ++kd)             // B K-major: 32 bytes a k-step
-      wg64<0>(gacc, cf[kd],
-              smem_desc_sw128(Bj + (kd / 4) * kSub * 64 + (kd % 4) * 16, 16),
-              kd);
+      Wgmma<64, 0>::run(
+          gacc, cf[kd],
+          smem_desc_sw128(Bj + (kd / 4) * kSub * 64 + (kd % 4) * 16, 16), kd);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk)             // B N-contiguous: 16 rows a
@@ -672,8 +526,8 @@ ssd_scan_wgmma_kernel(const Params p) {
       for (int hn = 0; hn < HN; ++hn) {
         const uint64_t bd = smem_desc_sw128(Bj + hn * kSub * 64 + kk * 16 * 64,
                                             kSub * 128);
-        wg64<1>(cols64(sacc, hn), uh[kk], bd, 1);
-        wg64<1>(cols64(sacc, hn), ul[kk], bd, 1);
+        Wgmma<64, 1>::run(cols64(sacc, hn), uh[kk], bd, 1);
+        Wgmma<64, 1>::run(cols64(sacc, hn), ul[kk], bd, 1);
       }
     wgmma_commit();
     wgmma_wait<1>();                            // group 1 done
@@ -709,8 +563,8 @@ ssd_scan_wgmma_kernel(const Params p) {
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const uint64_t xd = smem_desc_sw128(Xj + kk * 16 * 64, kSub * 128);
-      wg64<1>(yacc, ph[kk], xd, 1);
-      wg64<1>(yacc, pl[kk], xd, 1);
+      Wgmma<64, 1>::run(yacc, ph[kk], xd, 1);
+      Wgmma<64, 1>::run(yacc, pl[kk], xd, 1);
     }
     wgmma_commit();
     wgmma_wait<0>();

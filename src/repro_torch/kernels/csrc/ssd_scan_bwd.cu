@@ -29,11 +29,46 @@
 // What bounds it on the card: at the training shape (B=8, S=4096, H=32,
 // P=64, N=128, Q=256, bf16) the work: ~1.9e11 flop over the causal pairs
 // against ~0.44 GB of inputs and outputs (0.19 ms at the bf16 tensor-core
-// peak, 0.13 ms at 3.35 TB/s).  This first version is simple and right
-// rather than fast: every product is fp32 FMAs on the CUDA cores (bf16
-// inputs are widened on load, so both dtypes accumulate in fp32), which
-// puts it near ~3 ms even at the full fp32 FMA rate.  Seven launches, each
-// a plain tiled loop:
+// peak, 0.13 ms at 3.35 TB/s).  One entry point, two device paths; the
+// wrapper chooses and passes the path, and the entry point refuses one that
+// cannot take the call:
+//
+// * wgmma (bf16; P, N multiples of 16 up to 64 and 128; Q a multiple of 64
+//   up to 256; 16-byte aligned rows).  Every product on the tensor cores
+//   with fp32 accumulators, four launches:
+//   w1. states  (b, h, direction): one warpgroup walks the sequence in
+//       64-row sub-chunks with the state in its accumulators, as the forward
+//       kernel does: forward S <- e^l63 S + (x o e^(l63 - l))^T B, storing
+//       S_in at each chunk's start (and cum, tot); backward dS <- e^l63 dS
+//       + (dy o e^l)^T C, storing dS_out at each chunk's end.  l is the
+//       sub-chunk's local cumsum, so no exponent leaves [l63, 0].
+//   w2. pairs   (b, chunk, key tile s): two warpgroups walk the heads.  G^T
+//       = B C^T of the tile's pairs is made once for all heads and kept in
+//       shared memory (fp32); per head and pair D^T = x dy^T on wgmma, then
+//       L, G o L, D o L and W = G o L o D once, on the CUDA cores: dx +=
+//       (G o L)^T dy on wgmma, the row and column sums of W in fp32, and M
+//       = sum_h D o L summed in the accumulators over the heads.  dx's state
+//       term e^(tot - cum) (B dS_out^T) and V come first, so dx is whole
+//       when the head ends.  M goes out once, as bf16 hi + lo.
+//   w3. tiles   (b, chunk, tile): two warpgroups walk the heads, one
+//       summing dB's state term e^(tot - cum) (x dS_out), the other dC's
+//       e^cum (dy S_in) and dcum's e^cum dy . (S_in C); then dB += M^T C and
+//       dC += M B over the tile's pairs.  The head sums stay in the
+//       accumulators (no per-head workspace, no atomics: a fixed order).
+//   w4. da      (b, h, chunk): dcum from its parts and its reverse cumsum.
+//   Operands: x, dy, B, C are bf16 inputs, exact.  The carried states and
+//   the decayed rows of their sums go in as bf16 hi + lo (~16 bits), and M
+//   too; G o L is rounded once.  Row scales that depend on the head stay
+//   fp32, applied to the accumulators.  The CPU rounding model
+//   (kernels/ssd_rounding.py, model_grads) shows why: at the training shape
+//   this holds SSD_BWD_TOL with ~2.9x to spare, and rounding the states or
+//   the decayed rows once puts da 6.0x or 5.1x past its 1e-4.  Loads:
+//   cp.async into 128-byte-swizzled tiles, each head's tiles landing while
+//   the previous head computes.  Workspace ~0.34 GB at the training shape.
+// * fma (fp32, and bf16 shapes the wgmma path does not take).  The first
+//   version: every product fp32 FMAs on the CUDA cores (bf16 inputs are
+//   widened on load, so both dtypes accumulate in fp32).  Seven launches,
+//   each a plain tiled loop:
 //   1. local   (b, h, chunk): cum (kept for the others), tot, and the
 //              chunk's own state sums sum_s exp(tot - cum_s) x_s (x) B_s and
 //              sum_q exp(cum_q) dy_q (x) C_q;
@@ -48,13 +83,15 @@
 //   6. heads   dB and dC summed over the heads in a fixed order (no
 //              atomics: two runs are equal bit for bit);
 //   7. da      (b, h, chunk): dcum and its reverse cumsum.
-// The per-head dB / dC partials (B, H, S, N) and the states (B, H, S/Q, P,
-// N) live in one fp32 workspace that the wrapper allocates (~1.4 GB at the
-// training shape, transient).  Tensor cores, TMA and a single pass are
-// later work (ROADMAP).
+//   The per-head dB / dC partials (B, H, S, N) and the states (B, H, S/Q, P,
+//   N) live in one fp32 workspace that the wrapper allocates (~1.4 GB at the
+//   training shape, transient).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cstdint>
+#include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -97,12 +134,17 @@ struct Params {
   float* gram;                                  // (B, nc, Q, Q): C B^T
   float* dbh;                                   // (B, H, S, N): dB per head
   float* dch;                                   // (B, H, S, N): dC per head
+  // the wgmma path's own (cum, tot and inner as above)
+  float* wd;                                    // (kSlots, B, H, S): dcum's parts
+  bf16* sin;                                    // (B, H, nc, hi / lo, 64, NP): S_in
+  bf16* dso;                                    // (B, H, nc, hi / lo, 64, NP): dS_out
+  bf16* mt;                                     // (B, nc, nt, nt, hi / lo, 64, 64): M^T
 };
 
 long long round4(long long n) { return (n + 3) / 4 * 4; }
 
-// Floats of workspace for a call, in the order ssd_scan_bwd takes them.
-long long workspace_floats(int B, int S, int H, int P, int N, int Q) {
+// Floats of the fma path's workspace, in the order ssd_scan_bwd takes them.
+long long fma_workspace_floats(int B, int S, int H, int P, int N, int Q) {
   const long long bh = static_cast<long long>(B) * H, nc = S / Q;
   return 4 * round4(bh * S) + 2 * round4(bh * nc) +
          2 * round4(bh * nc * P * N) + round4(B * nc * Q * Q) +
@@ -728,7 +770,7 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
+cudaError_t launch_fma(const Params& p, cudaStream_t stream) {
   const int P = p.P, N = p.N, Q = p.Q, nt = p.ntiles;
   const size_t f = sizeof(float);
   const size_t local_smem = f * (2 * size_t(Q) + size_t(kTile) * (P + N));
@@ -763,18 +805,793 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+
+// =========================================================================
+// wgmma path: bf16 on the tensor cores
+// =========================================================================
+
+constexpr int kFma = 0, kWgmma = 1;             // path ids (the wrapper's)
+constexpr int kWg = 128;                        // threads of a warpgroup
+constexpr int kPP = 64;                         // P, padded
+constexpr int kMaxNt = 4;                       // 64-row tiles a chunk
+constexpr int kSlots = 7;                       // dcum's parts a row (w4)
+constexpr int kTT = kTile * kTile;              // elements of a 64 x 64 tile
+
+// The wgmma path's workspace, offsets in floats (each part a multiple of 4
+// floats, so every bf16 plane starts 16-byte aligned).
+struct WgLayout {
+  long long cum, tot, inner, wd, sin, dso, mt, total;
+};
+WgLayout wg_layout(int B, int S, int H, int N, int Q) {
+  const long long bh = static_cast<long long>(B) * H, nc = S / Q,
+                  nt = Q / kTile, np = N <= 64 ? 64 : 128;
+  WgLayout l{};
+  long long o = 0;
+  auto take = [&o](long long n) { const long long r = o; o += round4(n); return r; };
+  l.cum = take(bh * S);
+  l.tot = take(bh * nc);
+  l.inner = take(bh * nc);
+  l.wd = take(kSlots * bh * S);
+  l.sin = take(bh * nc * kTile * np);           // hi + lo bf16: a float each
+  l.dso = take(bh * nc * kTile * np);
+  l.mt = take(static_cast<long long>(B) * nc * nt * nt * kTT);
+  l.total = o;
+  return l;
+}
+
+// The named barrier `id` of one warpgroup's 128 threads.
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(kWg) : "memory");
+}
+// Sum over the four lanes of an accumulator row (lane % 4).
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+// A operand (rows 16 warp .., K = the tile's columns 16 kk ..) of a
+// swizzled tile stored rows M, columns K; with trans, of one stored rows K,
+// columns M.
+__device__ __forceinline__ void frag(uint32_t (&r)[4], const bf16* tile,
+                                     int warp, int lane, int kk, bool trans) {
+  const int mi = lane >> 3;
+  if (trans)
+    ldmatrix_x4_trans(r, tile + sw_off(16 * kk + (mi >> 1) * 8 + (lane & 7),
+                                       16 * warp + (mi & 1) * 8));
+  else
+    ldmatrix_x4(r, tile + sw_off(16 * warp + (lane & 7) + (mi & 1) * 8,
+                                 16 * kk + (mi >> 1) * 8));
+}
+// B operand descriptors of a swizzled tile: K-major (rows N, K along the
+// columns), k-step kd; N-contiguous (rows K), k-step kk, 64-column block hn.
+__device__ __forceinline__ uint64_t desc_k(const bf16* t, int kd) {
+  return smem_desc_sw128(t + (kd / 4) * kTT + (kd % 4) * 16, 16);
+}
+__device__ __forceinline__ uint64_t desc_n(const bf16* t, int kk, int hn) {
+  return smem_desc_sw128(t + hn * kTT + kk * 16 * 64, kTile * 128);
+}
+// Two accumulator values of a row as bf16 hi and lo at `hi` and `lo`.
+__device__ __forceinline__ void store_split(bf16* hi, bf16* lo, float v0,
+                                            float v1) {
+  uint32_t h, l;
+  split_bf16(v0, v1, h, l);
+  *reinterpret_cast<uint32_t*>(hi) = h;
+  *reinterpret_cast<uint32_t*>(lo) = l;
+}
+
+// -- w1. chunk-start states, chunk-end state gradients ----------------------
+// grid (H, B, 2), one warpgroup.  Thread layout of the state (rows p,
+// columns n): the wgmma accumulator's.
+template <int NP>
+size_t states_smem_bytes() {
+  return sizeof(bf16) * 2 * size_t(kTile) * (NP + kPP) +
+         sizeof(float) * (3 * kTile + 1);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(kWg, 2) ssd_bwd_wg_states_kernel(const Params p) {
+  constexpr int HN = NP / 64;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* Ms = reinterpret_cast<bf16*>(wg_smem);  // 2 x (64 x NP): B or C
+  bf16* Rs = Ms + 2 * kTile * NP;               // 2 x (64 x 64): x or dy
+  float* As = reinterpret_cast<float*>(Rs + 2 * kTile * kPP);  // 2 x 64: a
+  float* Sc = As + 2 * kTile;                   // 64 row scales, e^l63
+  const int dir = blockIdx.z, h = blockIdx.x;
+  const long long b = blockIdx.y, bh = b * p.H + h;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int ra = 16 * warp + g, rb = ra + 8;
+  const int nsub = p.S / kTile, spc = p.Q / kTile;
+  const bf16* rsrc = static_cast<const bf16*>(dir ? p.dy : p.x) +
+                     b * (dir ? p.sgb : p.sxb) + h * (dir ? p.sgh : p.sxh);
+  const long long rst = dir ? p.sgs : p.sxs;
+  const bf16* msrc = static_cast<const bf16*>(dir ? p.cm : p.bm) +
+                     b * (dir ? p.scb : p.sbb);
+  const long long mst = dir ? p.scs : p.sbs;
+  const float* ah = p.a + b * p.sab + h * p.sah;
+  bf16* planes = (dir ? p.dso : p.sin) + bh * p.nc * 2 * kTile * NP;
+
+  auto load = [&](int j, int st) {
+    load_tile_sw128<NP>(Ms + st * kTile * NP, msrc + j * kTile * mst, mst,
+                        p.N, tid, kWg);
+    load_tile_sw128<kPP>(Rs + st * kTile * kPP, rsrc + j * kTile * rst, rst,
+                         p.P, tid, kWg);
+    if (tid < kTile)
+      cp_async4(As + st * kTile + tid,
+                ah + (static_cast<long long>(j) * kTile + tid) * p.sas, true);
+  };
+
+  float acc[NP / 2];
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+  float off = 0.f;                              // forward, warp 0: the chunk's cumsum so far
+  load(dir ? nsub - 1 : 0, 0);
+  cp_async_commit();
+  for (int k = 0; k < nsub; ++k) {
+    const int j = dir ? nsub - 1 - k : k, st = k & 1;
+    const bf16* Mj = Ms + st * kTile * NP;
+    const bf16* Rj = Rs + st * kTile * kPP;
+    cp_async_wait<0>();                         // sub-chunk j landed
+    fence_proxy_async();
+    __syncthreads();
+    if (warp == 0) {                            // local cumsum l, inclusive
+      const float a0 = As[st * kTile + 2 * lane];
+      const float a1 = As[st * kTile + 2 * lane + 1];
+      float inc = a0 + a1;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float up = __shfl_up_sync(kFull, inc, o);
+        if (lane >= o) inc += up;
+      }
+      const float l0 = inc - a1, l1 = inc, tot = __shfl_sync(kFull, inc, 31);
+      if (dir == 0) {
+        Sc[2 * lane] = expf(tot - l0);
+        Sc[2 * lane + 1] = expf(tot - l1);
+        float* cum = p.cum + bh * p.S + static_cast<long long>(j) * kTile;
+        cum[2 * lane] = off + l0;
+        cum[2 * lane + 1] = off + l1;
+        off += tot;
+        if (j % spc == spc - 1) {
+          if (lane == 0) p.tot[bh * p.nc + j / spc] = off;
+          off = 0.f;
+        }
+      } else {
+        Sc[2 * lane] = expf(l0);
+        Sc[2 * lane + 1] = expf(l1);
+      }
+      if (lane == 0) Sc[kTile] = expf(tot);
+    }
+    __syncthreads();                            // Sc ready; the other stage free
+    if (k + 1 < nsub) load(dir ? j - 1 : j + 1, st ^ 1);
+    cp_async_commit();
+    if (dir ? j % spc == spc - 1 : j % spc == 0) {   // at the chunk's edge
+      bf16* hi = planes + static_cast<long long>(j / spc) * 2 * kTile * NP;
+#pragma unroll
+      for (int hn = 0; hn < HN; ++hn)
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int off2 = (u ? rb : ra) * NP + 64 * hn + 8 * i + 2 * t;
+            store_split(hi + off2, hi + kTile * NP + off2,
+                        acc[32 * hn + 4 * i + 2 * u],
+                        acc[32 * hn + 4 * i + 2 * u + 1]);
+          }
+    }
+    // (R o scale)^T, hi and lo: the A operand (rows p, K = the rows of R)
+    uint32_t uh[4][4], ul[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t r[4];
+      frag(r, Rj, warp, lane, kk, true);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int s = 16 * kk + (c >> 1) * 8 + 2 * t;
+        const float2 v = unpack_bf16(r[c]);
+        split_bf16(v.x * Sc[s], v.y * Sc[s + 1], uh[kk][c], ul[kk][c]);
+      }
+    }
+    const float e = Sc[kTile];
+#pragma unroll
+    for (int i = 0; i < NP / 2; ++i) acc[i] *= e;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hn = 0; hn < HN; ++hn) {
+        Wgmma<64, 1>::run(cols64(acc, hn), uh[kk], desc_n(Mj, kk, hn), 1);
+        Wgmma<64, 1>::run(cols64(acc, hn), ul[kk], desc_n(Mj, kk, hn), 1);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(uh);
+    fence_regs(ul);
+  }
+}
+
+// -- w2. pairs: dx, M = sum_h D o L, the sums of W ---------------------------
+// grid (nt, nc, B), two warpgroups; warpgroup w takes the pairs (qt, st)
+// with qt - st = w, w + 2.  Products in the frame of the key tile: rows s
+// (the accumulator rows), columns q.
+template <int NP>
+constexpr size_t pairs_smem_bytes() {
+  return sizeof(bf16) * (size_t(kTile) * NP + 2 * 5 * size_t(kTT) +
+                         2 * size_t(kTile) * NP) +
+         sizeof(float) * (size_t(kMaxNt) * kTT + kTT + 2 * kMaxNt * kTile +
+                          2 * 2 * 4 * kTile + kTile);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(2 * kWg, 1) ssd_bwd_wg_pairs_kernel(const Params p) {
+  constexpr int KN = NP / 16;
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* Bst = reinterpret_cast<bf16*>(wg_smem); // 64 x NP: B of the key tile
+  bf16* Stg = Bst + kTile * NP;                 // 2 stages of x, 4 dy tiles
+  bf16* Dsh = Stg + 2 * 5 * kTT;                // 64 x NP: dS_out hi
+  bf16* Dsl = Dsh + kTile * NP;                 //          and lo
+  float* Gc = reinterpret_cast<float*>(Dsl + kTile * NP);  // G^T, per thread
+  float* Dxp = Gc + kMaxNt * kTT;               // warpgroup 1's dx, per thread
+  float* Cum = Dxp + kTT;                       // 2 stages x Q: cum
+  float* Red = Cum + 2 * kMaxNt * kTile;        // W's column sums by warp
+  float* Csx = Red + 2 * 2 * 4 * kTile;         // warpgroup 1's row sums
+  const int st = blockIdx.x, c = blockIdx.y;
+  const long long b = blockIdx.z;
+  const int Q = p.Q, np = p.ntiles - st;        // pairs: qt = st .. nt - 1
+  const int tid = threadIdx.x, w = tid / kWg, wt = tid % kWg;
+  const int warp = wt / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int ra = 16 * warp + g, rb = ra + 8;
+  const long long row0 = static_cast<long long>(c) * Q;
+  const int s0 = st * kTile;
+  const long long BHS = static_cast<long long>(p.B) * p.H * p.S;
+  const bf16* bm = static_cast<const bf16*>(p.bm) + b * p.sbb + row0 * p.sbs;
+  const bf16* cm = static_cast<const bf16*>(p.cm) + b * p.scb + row0 * p.scs;
+
+  // G^T = B C^T of this warpgroup's pairs, once for every head
+  load_tile_sw128<NP>(Bst, bm + s0 * p.sbs, p.sbs, p.N, tid, 2 * kWg);
+  for (int j = 0; j < np; ++j)
+    load_tile_sw128<NP>(Stg + j * kTile * NP, cm + (s0 + j * kTile) * p.scs,
+                        p.scs, p.N, tid, 2 * kWg);
+  cp_async_commit();
+  cp_async_wait<0>();
+  fence_proxy_async();
+  __syncthreads();
+  for (int j = w; j < np; j += 2) {
+    uint32_t bf[KN][4];
+    float gacc[32];
+#pragma unroll
+    for (int kd = 0; kd < KN; ++kd) frag(bf[kd], Bst, warp, lane, kd, false);
+    wgmma_fence();
+#pragma unroll
+    for (int kd = 0; kd < KN; ++kd)
+      Wgmma<64, 0>::run(gacc, bf[kd], desc_k(Stg + j * kTile * NP, kd), kd);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(gacc);
+    fence_regs(bf);
+    float4* gc = reinterpret_cast<float4*>(Gc) + j * 8 * kWg + wt;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      gc[i * kWg] = make_float4(gacc[4 * i], gacc[4 * i + 1], gacc[4 * i + 2],
+                                gacc[4 * i + 3]);
+  }
+  __syncthreads();                              // the C tiles read
+
+  auto load_head = [&](int h, int sg) {         // x, dy tiles and cum
+    bf16* X = Stg + sg * 5 * kTT;
+    load_tile_sw128<kPP>(X, static_cast<const bf16*>(p.x) + b * p.sxb +
+                                (row0 + s0) * p.sxs + h * p.sxh,
+                         p.sxs, p.P, tid, 2 * kWg);
+    const bf16* dy = static_cast<const bf16*>(p.dy) + b * p.sgb +
+                     (row0 + s0) * p.sgs + h * p.sgh;
+    for (int j = 0; j < np; ++j)
+      load_tile_sw128<kPP>(X + (1 + j) * kTT, dy + j * kTile * p.sgs, p.sgs,
+                           p.P, tid, 2 * kWg);
+    const float* cum = p.cum + (b * p.H + h) * p.S + row0;
+    for (int e = tid; e < Q; e += 2 * kWg)
+      cp_async4(Cum + sg * kMaxNt * kTile + e, cum + e, true);
+  };
+  auto load_ds = [&](int h, int i0, int n) {    // dS_out, hi and lo
+    const bf16* src = p.dso + ((b * p.H + h) * p.nc + c) * 2 * kTile * NP;
+    load_tile_sw128<NP>(Dsh, src, NP, NP, i0, n);
+    load_tile_sw128<NP>(Dsl, src + kTile * NP, NP, NP, i0, n);
+  };
+  load_head(0, 0);
+  load_ds(0, tid, 2 * kWg);
+  cp_async_commit();
+
+  float macc[2][32];                            // the pairs' M^T, over the heads
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) macc[jj][i] = 0.f;
+  for (int h = 0; h < p.H; ++h) {
+    const int sg = h & 1;
+    const bf16* X = Stg + sg * 5 * kTT;
+    const float* cum = Cum + sg * kMaxNt * kTile;
+    const long long bh = b * p.H + h;
+    cp_async_wait<0>();                         // head h landed
+    fence_proxy_async();
+    __syncthreads();
+    if (h + 1 < p.H) load_head(h + 1, sg ^ 1);
+    cp_async_commit();
+    const float tot = cum[Q - 1];
+    const float cs_a = cum[s0 + ra], cs_b = cum[s0 + rb];
+
+    // dx's state term: e^(tot - cum_s) (B_s dS_out^T), and V (warpgroup 0)
+    float dxa[32], va = 0.f, vb = 0.f;
+    if (w == 0) {
+      uint32_t bf[KN][4];
+#pragma unroll
+      for (int kd = 0; kd < KN; ++kd) frag(bf[kd], Bst, warp, lane, kd, false);
+      wgmma_fence();
+#pragma unroll
+      for (int kd = 0; kd < KN; ++kd)
+        Wgmma<64, 0>::run(dxa, bf[kd], desc_k(Dsh, kd), kd);
+#pragma unroll
+      for (int kd = 0; kd < KN; ++kd)
+        Wgmma<64, 0>::run(dxa, bf[kd], desc_k(Dsl, kd), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dxa);
+      fence_regs(bf);
+      wg_barrier(1);                            // every warp's products read dS_out
+      if (h + 1 < p.H) load_ds(h + 1, wt, kWg);
+      cp_async_commit();
+      const float da_ = expf(tot - cs_a), db_ = expf(tot - cs_b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * i + 2 * t;
+        const float2 xa = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(X + sw_off(ra, col)));
+        const float2 xb = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(X + sw_off(rb, col)));
+        va += xa.x * dxa[4 * i] + xa.y * dxa[4 * i + 1];
+        vb += xb.x * dxa[4 * i + 2] + xb.y * dxa[4 * i + 3];
+        dxa[4 * i] *= da_;
+        dxa[4 * i + 1] *= da_;
+        dxa[4 * i + 2] *= db_;
+        dxa[4 * i + 3] *= db_;
+      }
+      va = quad_sum(va) * da_;
+      vb = quad_sum(vb) * db_;
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dxa[i] = 0.f;
+    }
+
+    // the pairs: D^T = x dy^T, then L, G o L, D o L and W once each
+    float csa = 0.f, csb = 0.f;                 // row sums of W^T: colsum(W)
+    uint32_t xf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) frag(xf[kk], X, warp, lane, kk, false);
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      const int j = w + 2 * jj;
+      if (j >= np) break;
+      const int q0 = (st + j) * kTile;
+      const bf16* Yj = X + (1 + j) * kTT;
+      float dacc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<64, 0>::run(dacc, xf[kk], desc_k(Yj, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dacc);
+      fence_regs(xf);
+      const float4* gc = reinterpret_cast<const float4*>(Gc) + j * 8 * kWg + wt;
+      uint32_t ph[4][4];
+      float rs[16];                             // W's column sums, own rows
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 gv = gc[i * kWg];
+        const float gg[4] = {gv.x, gv.y, gv.z, gv.w};
+        float gl[4], wv[4];
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          const int row = cc < 2 ? ra : rb, col = 8 * i + 2 * t + (cc & 1);
+          // causal: only q >= s is ever exponentiated
+          const float l = (j > 0 || col >= row)
+                              ? expf(cum[q0 + col] - (cc < 2 ? cs_a : cs_b))
+                              : 0.f;
+          const float d = dacc[4 * i + cc];
+          gl[cc] = gg[cc] * l;
+          wv[cc] = gl[cc] * d;
+          macc[jj][4 * i + cc] += d * l;
+        }
+        csa += wv[0] + wv[1];
+        csb += wv[2] + wv[3];
+        rs[2 * i] = wv[0] + wv[2];
+        rs[2 * i + 1] = wv[1] + wv[3];
+        ph[i / 2][(i & 1) * 2] = pack_bf16(gl[0], gl[1]);
+        ph[i / 2][(i & 1) * 2 + 1] = pack_bf16(gl[2], gl[3]);
+      }
+      // dx_s += sum_q (G o L)[q, s] dy_q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        Wgmma<64, 1>::run(dxa, ph[kk], desc_n(Yj, kk, 0), 1);
+      wgmma_commit();
+      // rowsum(W) of the query tile, this key tile's part: over the rows
+      float* red = Red + (w * 2 + jj) * 4 * kTile;
+#pragma unroll
+      for (int k = 0; k < 16; ++k) {
+        float v = rs[k];
+        v += __shfl_xor_sync(kFull, v, 4);
+        v += __shfl_xor_sync(kFull, v, 8);
+        v += __shfl_xor_sync(kFull, v, 16);
+        if (g == 0) red[warp * kTile + 8 * (k / 2) + 2 * t + (k & 1)] = v;
+      }
+      wg_barrier(2 + w);
+      if (wt < kTile)
+        p.wd[st * BHS + bh * p.S + row0 + q0 + wt] =
+            red[wt] + red[kTile + wt] + red[2 * kTile + wt] + red[3 * kTile + wt];
+      wgmma_wait<0>();
+      fence_regs(dxa);
+      fence_regs(ph);
+    }
+
+    // dx whole: warpgroup 1's part through shared memory
+    csa = quad_sum(csa);
+    csb = quad_sum(csb);
+    if (w == 1) {
+      float4* dp = reinterpret_cast<float4*>(Dxp) + wt;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        dp[i * kWg] = make_float4(dxa[4 * i], dxa[4 * i + 1], dxa[4 * i + 2],
+                                  dxa[4 * i + 3]);
+      if (t == 0) {
+        Csx[ra] = csa;
+        Csx[rb] = csb;
+      }
+    }
+    __syncthreads();
+    if (w == 0) {
+      const float4* dp = reinterpret_cast<const float4*>(Dxp) + wt;
+      bf16* dx = static_cast<bf16*>(p.dx) +
+                 ((b * p.S + row0 + s0) * p.H + h) * p.P;
+      const long long rs_ = static_cast<long long>(p.H) * p.P;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 o = dp[i * kWg];
+        const int col = 8 * i + 2 * t;
+        if (col < p.P) {
+          *reinterpret_cast<__nv_bfloat162*>(dx + ra * rs_ + col) =
+              __floats2bfloat162_rn(dxa[4 * i] + o.x, dxa[4 * i + 1] + o.y);
+          *reinterpret_cast<__nv_bfloat162*>(dx + rb * rs_ + col) =
+              __floats2bfloat162_rn(dxa[4 * i + 2] + o.z, dxa[4 * i + 3] + o.w);
+        }
+      }
+      if (t == 0) {
+        float* wr = p.wd + bh * p.S + row0 + s0;
+        wr[4 * BHS + ra] = -(csa + Csx[ra]) - va;
+        wr[4 * BHS + rb] = -(csb + Csx[rb]) - vb;
+        wr[5 * BHS + ra] = va;
+        wr[5 * BHS + rb] = vb;
+      }
+    }
+  }
+
+  // M^T of each pair, bf16 hi + lo, rows s
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) {
+    const int j = w + 2 * jj;
+    if (j >= np) break;
+    bf16* hi = p.mt +
+               (((b * p.nc + c) * p.ntiles + st + j) * p.ntiles + st) * 2 * kTT;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int o = (u ? rb : ra) * kTile + 8 * i + 2 * t;
+        store_split(hi + o, hi + kTT + o, macc[jj][4 * i + 2 * u],
+                    macc[jj][4 * i + 2 * u + 1]);
+      }
+  }
+}
+
+// -- w3. tiles: dB and dC, summed over the heads ----------------------------
+// grid (nt, nc, B), two warpgroups on the tile's 64 rows: 0 dB (rows s), 1
+// dC (rows q).
+template <int NP>
+constexpr size_t tiles_smem_bytes() {
+  return sizeof(bf16) * (size_t(kTile) * NP +
+                         2 * (2 * size_t(kTT) + 4 * size_t(kTile) * NP)) +
+         sizeof(float) * (2 * (kTile + 1) + 8);
+}
+
+template <int NP>
+__global__ void __launch_bounds__(2 * kWg, 1) ssd_bwd_wg_tiles_kernel(const Params p) {
+  constexpr int HN = NP / 64;
+  constexpr int SS = 2 * kTT + 4 * kTile * NP;  // a stage, in elements
+  constexpr int MR = 2 * kTT + kTile * NP;      // a warpgroup's M-phase share
+  extern __shared__ __align__(1024) unsigned char wg_smem[];
+  bf16* Ct = reinterpret_cast<bf16*>(wg_smem);  // 64 x NP: C of the tile
+  bf16* Stg = Ct + kTile * NP;                  // 2 stages: x, dy, S_in, dS_out
+  float* Cum = reinterpret_cast<float*>(Stg + 2 * SS);  // 2 x 65: cum, tot
+  float* Red = Cum + 2 * (kTile + 1);           // 8: a block sum's warp parts
+  const int tt = blockIdx.x, c = blockIdx.y, nt = p.ntiles;
+  const long long b = blockIdx.z;
+  const int tid = threadIdx.x, w = tid / kWg, wt = tid % kWg;
+  const int warp = wt / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int ra = 16 * warp + g, rb = ra + 8;
+  const long long crow = static_cast<long long>(c) * p.Q;   // the chunk's first row
+  const long long row0 = crow + tt * kTile;     // the tile's first row
+  const long long BHS = static_cast<long long>(p.B) * p.H * p.S;
+  const bf16* bm = static_cast<const bf16*>(p.bm) + b * p.sbb;
+  const bf16* cm = static_cast<const bf16*>(p.cm) + b * p.scb;
+
+  load_tile_sw128<NP>(Ct, cm + row0 * p.scs, p.scs, p.N, tid, 2 * kWg);
+  auto load_head = [&](int h, int sg) {
+    bf16* S_ = Stg + sg * SS;
+    const long long bh = b * p.H + h;
+    load_tile_sw128<kPP>(S_, static_cast<const bf16*>(p.x) + b * p.sxb +
+                                 row0 * p.sxs + h * p.sxh,
+                         p.sxs, p.P, tid, 2 * kWg);
+    load_tile_sw128<kPP>(S_ + kTT, static_cast<const bf16*>(p.dy) + b * p.sgb +
+                                       row0 * p.sgs + h * p.sgh,
+                         p.sgs, p.P, tid, 2 * kWg);
+    const long long pl = (bh * p.nc + c) * 2 * kTile * NP;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {               // S_in, then dS_out: hi, lo
+      load_tile_sw128<NP>(S_ + 2 * kTT + 2 * k * kTile * NP,
+                          (k ? p.dso : p.sin) + pl, NP, NP, tid, 2 * kWg);
+      load_tile_sw128<NP>(S_ + 2 * kTT + (2 * k + 1) * kTile * NP,
+                          (k ? p.dso : p.sin) + pl + kTile * NP, NP, NP, tid,
+                          2 * kWg);
+    }
+    if (tid < kTile)
+      cp_async4(Cum + sg * (kTile + 1) + tid, p.cum + bh * p.S + row0 + tid, true);
+    else if (tid == kTile)
+      cp_async4(Cum + sg * (kTile + 1) + kTile, p.tot + bh * p.nc + c, true);
+  };
+  load_head(0, 0);
+  cp_async_commit();
+
+  float acc[NP / 2];                            // dB (warpgroup 0) or dC (1)
+#pragma unroll
+  for (int i = 0; i < NP / 2; ++i) acc[i] = 0.f;
+  for (int h = 0; h < p.H; ++h) {
+    const int sg = h & 1;
+    const bf16* S_ = Stg + sg * SS;
+    const bf16* SIh = S_ + 2 * kTT;
+    const bf16* SOh = SIh + 2 * kTile * NP;
+    const float* cum = Cum + sg * (kTile + 1);
+    const long long bh = b * p.H + h;
+    cp_async_wait<0>();                         // head h landed
+    fence_proxy_async();
+    __syncthreads();
+    if (h + 1 < p.H) load_head(h + 1, sg ^ 1);
+    cp_async_commit();
+    // 0: x dS_out scaled by e^(tot - cum_s); 1: dy S_in scaled by e^cum_q
+    const bf16* A = w ? S_ + kTT : S_;
+    const bf16* Sh = w ? SIh : SOh;
+    uint32_t af[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) frag(af[kk], A, warp, lane, kk, false);
+    float tmp[NP / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hn = 0; hn < HN; ++hn)
+        Wgmma<64, 1>::run(cols64(tmp, hn), af[kk], desc_n(Sh, kk, hn), kk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hn = 0; hn < HN; ++hn)
+        Wgmma<64, 1>::run(cols64(tmp, hn), af[kk],
+                          desc_n(Sh + kTile * NP, kk, hn), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(tmp);
+    fence_regs(af);
+    const float tot = cum[kTile];
+    const float sa = expf(w ? cum[ra] : tot - cum[ra]);
+    const float sb = expf(w ? cum[rb] : tot - cum[rb]);
+    float pa = 0.f, pb = 0.f;                   // dy_q . (S_in C_q)
+#pragma unroll
+    for (int hn = 0; hn < HN; ++hn)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = 32 * hn + 4 * i + 2 * u, row = u ? rb : ra;
+          const float s_ = u ? sb : sa;
+          acc[e] = fmaf(s_, tmp[e], acc[e]);
+          acc[e + 1] = fmaf(s_, tmp[e + 1], acc[e + 1]);
+          if (w == 1) {
+            const float2 cv = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(
+                    Ct + sw_off(row, 64 * hn + 8 * i + 2 * t)));
+            const float part = tmp[e] * cv.x + tmp[e + 1] * cv.y;
+            if (u) pb += part; else pa += part;
+          }
+        }
+    if (w == 1) {
+      pa = quad_sum(pa) * sa;
+      pb = quad_sum(pb) * sb;
+      if (t == 0) {
+        float* wr = p.wd + 6 * BHS + bh * p.S + row0;
+        wr[ra] = pa;
+        wr[rb] = pb;
+      }
+    }
+    if (tt == 0) {                              // <dS_out, S_in> of (b, h, c)
+      float part = 0.f;
+      for (int e = tid; e < kTile * NP; e += 2 * kWg) {
+        const float si = __bfloat162float(SIh[e]) +
+                         __bfloat162float(SIh[kTile * NP + e]);
+        const float so = __bfloat162float(SOh[e]) +
+                         __bfloat162float(SOh[kTile * NP + e]);
+        part = fmaf(si, so, part);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(kFull, part, o);
+      if (lane == 0) Red[tid / 32] = part;
+      __syncthreads();
+      if (tid == 0) {
+        float s_ = 0.f;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) s_ += Red[k];
+        p.inner[bh * p.nc + c] = s_;
+      }
+    }
+  }
+
+  // dB += sum_{qt >= tt} M(qt, tt)^T C(qt); dC += sum_{st <= tt} M(tt, st) B(st)
+  __syncthreads();                              // every stage free
+  const int R = max(nt - tt, tt + 1);
+  auto load_round = [&](int r, int sg) {
+    bf16* dst = Stg + sg * SS + w * MR;
+    const int k = w ? tt - r : tt + r;          // the pair's other tile
+    if (k < 0 || k >= nt) return;
+    const bf16* m = p.mt + (((b * p.nc + c) * nt + (w ? tt : k)) * nt +
+                            (w ? k : tt)) * 2 * kTT;
+    load_tile_sw128<kPP>(dst, m, kTile, kTile, wt, kWg);
+    load_tile_sw128<kPP>(dst + kTT, m + kTT, kTile, kTile, wt, kWg);
+    load_tile_sw128<NP>(dst + 2 * kTT,
+                        w ? bm + (crow + k * kTile) * p.sbs
+                          : cm + (crow + k * kTile) * p.scs,
+                        w ? p.sbs : p.scs, p.N, wt, kWg);
+  };
+  load_round(0, 0);
+  cp_async_commit();
+  for (int r = 0; r < R; ++r) {
+    const int sg = r & 1, k = w ? tt - r : tt + r;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    if (r + 1 < R) load_round(r + 1, sg ^ 1);
+    cp_async_commit();
+    if (k < 0 || k >= nt) continue;
+    const bf16* M_ = Stg + sg * SS + w * MR;
+    uint32_t mh[4][4], ml[4][4];                // M^T (rows s) or M (rows q)
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      frag(mh[kk], M_, warp, lane, kk, w == 1);
+      frag(ml[kk], M_ + kTT, warp, lane, kk, w == 1);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int hn = 0; hn < HN; ++hn) {
+        Wgmma<64, 1>::run(cols64(acc, hn), mh[kk], desc_n(M_ + 2 * kTT, kk, hn), 1);
+        Wgmma<64, 1>::run(cols64(acc, hn), ml[kk], desc_n(M_ + 2 * kTT, kk, hn), 1);
+      }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(mh);
+    fence_regs(ml);
+  }
+  bf16* out = static_cast<bf16*>(w ? p.dcm : p.dbm) + (b * p.S + row0) * p.N;
+#pragma unroll
+  for (int hn = 0; hn < HN; ++hn)
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 64 * hn + 8 * i + 2 * t;
+      if (col >= p.N) continue;
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+        *reinterpret_cast<__nv_bfloat162*>(out + (u ? rb : ra) * p.N + col) =
+            __floats2bfloat162_rn(acc[32 * hn + 4 * i + 2 * u],
+                                  acc[32 * hn + 4 * i + 2 * u + 1]);
+    }
+}
+
+// -- w4. da: dcum from its parts, and its reverse cumsum --------------------
+// grid (nc, H, B).  wd's slots, per row r of the chunk: 0-3 rowsum(W) from
+// key tile 0-3 (those at or before r's tile), 4 -colsum(W) - V, 5 V, 6
+// e^cum dy . (S_in C); at r = Q-1 also sum V + e^tot <dS_out, S_in>.
+__global__ void __launch_bounds__(kThreads) ssd_bwd_wg_da_kernel(const Params p) {
+  extern __shared__ float smem[];
+  __shared__ float wsum[kWarps];
+  const int Q = p.Q;
+  float* v = smem;                              // Q, reversed: v[Q-1-t] = dcum_t
+  const int c = blockIdx.x, h = blockIdx.y;
+  const long long b = blockIdx.z, bh = b * p.H + h;
+  const long long BHS = static_cast<long long>(p.B) * p.H * p.S;
+  const float* wd = p.wd + bh * p.S + static_cast<long long>(c) * Q;
+  float part = 0.f;
+  for (int t = threadIdx.x; t < Q; t += kThreads) part += wd[5 * BHS + t];
+  const float vsum = block_sum(part, wsum);
+  const float extra = vsum + expf(p.tot[bh * p.nc + c]) * p.inner[bh * p.nc + c];
+  for (int t = threadIdx.x; t < Q; t += kThreads) {
+    float d = 0.f;
+    for (int k = 0; k <= t / kTile; ++k) d += wd[k * BHS + t];
+    v[Q - 1 - t] = d + wd[4 * BHS + t] + wd[6 * BHS + t] +
+                   (t == Q - 1 ? extra : 0.f);
+  }
+  __syncthreads();
+  block_cumsum(v, Q, wsum);
+  for (int t = threadIdx.x; t < Q; t += kThreads)
+    p.da[((b * p.S + static_cast<long long>(c) * Q + t) * p.H) + h] = v[Q - 1 - t];
+}
+
+template <int NP>
+cudaError_t launch_wgmma_n(const Params& p, cudaStream_t stream) {
+  const size_t st_smem = states_smem_bytes<NP>();
+  const size_t pr_smem = pairs_smem_bytes<NP>();
+  const size_t tl_smem = tiles_smem_bytes<NP>();
+  const size_t da_smem = sizeof(float) * size_t(p.Q);
+  cudaError_t err;
+  if ((err = allow_smem(ssd_bwd_wg_states_kernel<NP>, st_smem)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_wg_pairs_kernel<NP>, pr_smem)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_wg_tiles_kernel<NP>, tl_smem)) != cudaSuccess ||
+      (err = allow_smem(ssd_bwd_wg_da_kernel, da_smem)) != cudaSuccess)
+    return err;
+  ssd_bwd_wg_states_kernel<NP><<<dim3(p.H, p.B, 2), kWg, st_smem, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const dim3 tiles(p.ntiles, p.nc, p.B);
+  ssd_bwd_wg_pairs_kernel<NP><<<tiles, 2 * kWg, pr_smem, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_wg_tiles_kernel<NP><<<tiles, 2 * kWg, tl_smem, stream>>>(p);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  ssd_bwd_wg_da_kernel<<<dim3(p.nc, p.H, p.B), kThreads, da_smem, stream>>>(p);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
+}
+
+// What the wgmma path needs beyond the common limits: bf16, chunks of one
+// to four whole 64-row tiles, and 16-byte aligned rows of x, B, C and dy.
+bool wgmma_takes(const Params& p, int dtype) {
+  bool ok = dtype == 1 && p.Q % kTile == 0 && p.Q <= kMaxNt * kTile &&
+            aligned16(p.x) && aligned16(p.bm) && aligned16(p.cm) &&
+            aligned16(p.dy);
+  for (long long s : {p.sxb, p.sxs, p.sxh, p.sbb, p.sbs, p.scb, p.scs, p.sgb,
+                      p.sgs, p.sgh})
+    ok = ok && s % 8 == 0;
+  return ok;
+}
+
+// Floats of workspace a call on `path` needs; -1 for an unknown path.
+long long workspace_floats(int path, int B, int S, int H, int P, int N,
+                           int Q) {
+  if (path == kFma) return fma_workspace_floats(B, S, H, P, N, Q);
+  if (path == kWgmma) return wg_layout(B, S, H, N, Q).total;
+  return -1;
+}
+
 }  // namespace
 
-// dtype (of x, B, C, dy, dx, dB and dC): 0 = float32, 1 = bfloat16; a and da are float32.  Takes what the forward
-// takes: P and N multiples of 16, at most 64 and 128; S % Q == 0 (and Q at
-// most 4096); B, H and the chunk count at most 65535.  Inputs by strides
-// with a contiguous last dim; outputs contiguous.  ws holds ws_floats
-// floats, at least workspace_floats(...).  Returns a cudaError_t (0 =
-// launched); a call it cannot take is cudaErrorInvalidValue.
+// path: 0 = fma, 1 = wgmma (the wrapper's choice).  dtype (of x, B, C, dy,
+// dx, dB and dC): 0 = float32, 1 = bfloat16; a and da are float32.  Takes
+// what the forward takes: P and N multiples of 16, at most 64 and 128; S %
+// Q == 0 (and Q at most 4096); B, H and the chunk count at most 65535; the
+// wgmma path also bf16, Q a multiple of 64 up to 256 and 16-byte aligned
+// rows.  Inputs by strides with a contiguous last dim; outputs contiguous.
+// ws holds ws_floats floats, at least ssd_scan_bwd_workspace_floats(path,
+// ...).  Returns a cudaError_t (0 = launched); a call it cannot take is
+// cudaErrorInvalidValue.
 extern "C" int ssd_scan_bwd(
     const void* x, const float* a, const void* bm, const void* cm,
     const void* dy, void* dx, float* da, void* dbm, void* dcm, float* ws,
-    long long ws_floats, int dtype, int B, int S, int H, int P,
+    long long ws_floats, int path, int dtype, int B, int S, int H, int P,
     int N, int Q, long long sxb, long long sxs, long long sxh, long long sab,
     long long sas, long long sah, long long sbb, long long sbs, long long scb,
     long long scs, long long sgb, long long sgs, long long sgh,
@@ -782,15 +1599,30 @@ extern "C" int ssd_scan_bwd(
   if (B < 0 || B > 65535 || H < 0 || H > 65535 || S < 0 ||
       Q <= 0 || Q > kMaxQ || S % Q != 0 || S / Q > 65535 || P <= 0 ||
       P > kMaxP || P % 16 != 0 || N <= 0 || N > kMaxN || N % 16 != 0 ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || (path != kFma && path != kWgmma))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (ws_floats < workspace_floats(B, S, H, P, N, Q))
+  if (ws_floats < workspace_floats(path, B, S, H, P, N, Q))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (B == 0 || S == 0 || H == 0) return 0;
   const int nc = S / Q, nt = (Q + kTile - 1) / kTile;
   const long long bh = static_cast<long long>(B) * H;
   Params p{x, a, bm, cm, dy, dx, da, dbm, dcm, B, S, H, P, N, Q, nc, nt,
            sxb, sxs, sxh, sab, sas, sah, sbb, sbs, scb, scs, sgb, sgs, sgh};
+  if (path == kWgmma && !wgmma_takes(p, dtype))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || S == 0 || H == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (path == kWgmma) {
+    const WgLayout l = wg_layout(B, S, H, N, Q);
+    p.cum = ws + l.cum;
+    p.tot = ws + l.tot;
+    p.inner = ws + l.inner;
+    p.wd = ws + l.wd;
+    p.sin = reinterpret_cast<bf16*>(ws + l.sin);
+    p.dso = reinterpret_cast<bf16*>(ws + l.dso);
+    p.mt = reinterpret_cast<bf16*>(ws + l.mt);
+    return static_cast<int>(N <= 64 ? launch_wgmma_n<64>(p, s)
+                                    : launch_wgmma_n<128>(p, s));
+  }
   float* w = ws;
   auto take = [&w](long long n) { float* r = w; w += round4(n); return r; };
   p.cum = take(bh * S);
@@ -804,14 +1636,17 @@ extern "C" int ssd_scan_bwd(
   p.gram = take(static_cast<long long>(B) * nc * Q * Q);
   p.dbh = take(bh * S * N);
   p.dch = take(bh * S * N);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dtype == 0 ? launch<float>(p, s) : launch<bf16>(p, s));
+  return static_cast<int>(dtype == 0 ? launch_fma<float>(p, s)
+                                     : launch_fma<bf16>(p, s));
 }
 
-// The fp32 workspace ssd_scan_bwd needs for these shapes (the wrapper
-// allocates it); 0 for a chunk that is not positive or a negative size.
-extern "C" long long ssd_scan_bwd_workspace_floats(int B, int S, int H,
-                                                   int P, int N, int Q) {
+// The fp32 workspace ssd_scan_bwd needs on `path` for these shapes (the
+// wrapper allocates it); 0 for an unknown path, a chunk that is not
+// positive or a negative size.
+extern "C" long long ssd_scan_bwd_workspace_floats(int path, int B, int S,
+                                                   int H, int P, int N,
+                                                   int Q) {
   if (B < 0 || H < 0 || S < 0 || P < 0 || N < 0 || Q <= 0) return 0;
-  return workspace_floats(B, S, H, P, N, Q);
+  const long long n = workspace_floats(path, B, S, H, P, N, Q);
+  return n < 0 ? 0 : n;
 }

@@ -19,10 +19,11 @@ call; ``ssd_scan.path_launches`` counts calls by path.
 Training: when an input requires a gradient (and grad mode is on), a
 call on a card goes through :class:`SSDScanFn`, whose forward launches
 the same kernel and whose backward is the kernel of
-``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`, fp32 FMAs for both dtypes,
-counted in ``ssd_scan_bwd.launches`` and ``.path_launches``).  CPU tensors
-take the plain version both ways: autograd differentiates
-``ssd_chunked_reference``.
+``csrc/ssd_scan_bwd.cu`` (:func:`ssd_scan_bwd`), again with two paths:
+``wgmma`` for the bfloat16 shapes :func:`select_bwd_path` names, ``fma``
+otherwise (every float32 call), counted in ``ssd_scan_bwd.launches`` and
+``.path_launches``.  CPU tensors take the plain version both ways:
+autograd differentiates ``ssd_chunked_reference``.
 """
 from __future__ import annotations
 
@@ -37,9 +38,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_P, _MAX_N = 64, 128
 #: path names, indexed by the id the C entry point takes
 PATHS = ("fma", "wgmma")
-#: the backward's one path (fp32 FMAs), counted as the forward's are
-BWD_PATHS = ("fma",)
+#: the backward's paths, indexed by the id its C entry point takes
+BWD_PATHS = ("fma", "wgmma")
 SUB = 64                    # kSub: rows per sub-chunk of the wgmma path
+_BWD_MAX_Q = 256            # the backward's wgmma path: at most 4 tiles
 
 _fwd = None                 # the bound C function, looked up once
 _bwd = None                 # the backward's library, loaded once
@@ -54,6 +56,23 @@ def select_path(dtype: torch.dtype, P: int, N: int, Q: int) -> str:
             N % 16 == 0 and 16 <= N <= _MAX_N:
         return "wgmma"
     return "fma"
+
+
+def select_bwd_path(dtype: torch.dtype, P: int, N: int, Q: int) -> str:
+    """The backward's path: the tensor cores for bfloat16 when the chunk is
+    one to four whole 64-row tiles (the forward's condition, and Q at most
+    256), fp32 FMAs otherwise (float32 never takes TF32)."""
+    if select_path(dtype, P, N, Q) == "wgmma" and Q <= _BWD_MAX_Q:
+        return "wgmma"
+    return "fma"
+
+
+def _check_aligned(tensors, who: str):
+    """The wgmma paths' loads: 16-byte aligned rows (cp.async)."""
+    for name, t in tensors:
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:-1]):
+            raise ValueError(f"{who}: {name} must be 16-byte aligned with "
+                             "strides in multiples of 16 bytes")
 
 
 def _check(xdt, a, bm, cm, chunk: int):
@@ -101,11 +120,8 @@ def _launch_fwd(xdt, a, bm, cm, chunk: int):
     if B > 65535:
         raise ValueError(f"ssd_scan: batch {B} > 65535")
     path = select_path(xdt.dtype, P, N, chunk)
-    for name, t in (("xdt", xdt), ("bm", bm), ("cm", cm)):
-        if path == "wgmma" and (t.data_ptr() % 16 or
-                                any(s % 8 for s in t.stride()[:-1])):
-            raise ValueError(f"ssd_scan: {name} must be 16-byte aligned "
-                             "with strides in multiples of 16 bytes")
+    if path == "wgmma":
+        _check_aligned((("xdt", xdt), ("bm", bm), ("cm", cm)), "ssd_scan")
     y = torch.empty((B, S, H, P), dtype=xdt.dtype, device=xdt.device)
     if _fwd is None:
         _fwd = _build.load()["ssd_scan"].ssd_scan_fwd
@@ -128,22 +144,26 @@ def _bwd_lib():
     return _bwd
 
 
-def bwd_workspace_floats(B: int, S: int, H: int, P: int, N: int,
-                         Q: int) -> int:
-    """fp32 scratch of one backward call, as ``csrc/ssd_scan_bwd.cu`` lays
-    it out (its ``ssd_scan_bwd_workspace_floats``; builds the kernels)."""
-    return _bwd_lib().ssd_scan_bwd_workspace_floats(B, S, H, P, N, Q)
+def bwd_workspace_floats(B: int, S: int, H: int, P: int, N: int, Q: int,
+                         path: str) -> int:
+    """fp32 scratch of one backward call on ``path``, as
+    ``csrc/ssd_scan_bwd.cu`` lays it out (its
+    ``ssd_scan_bwd_workspace_floats``; builds the kernels)."""
+    return _bwd_lib().ssd_scan_bwd_workspace_floats(BWD_PATHS.index(path),
+                                                    B, S, H, P, N, Q)
 
 
 def ssd_scan_bwd(xdt, a, bm, cm, dy, *, chunk: int = 256):
     """Gradients (dxdt, da, dbm, dcm) of :func:`ssd_scan` from its inputs
     and ``dy`` (y's shape and dtype); da is float32, dB and dC summed over
     the heads.  CPU tensors take the plain version
-    (``ssd_chunked_backward_reference``).  On a card: the seven launches of
-    ``csrc/ssd_scan_bwd.cu``, one call counted; a ``dy`` whose last dim is
-    not contiguous (autograd may hand one over) is copied to a contiguous
-    one first, the other inputs are read through their strides.  Raises
-    where the forward raises."""
+    (``ssd_chunked_backward_reference``).  On a card: the launches of
+    ``csrc/ssd_scan_bwd.cu`` on the path :func:`select_bwd_path` names
+    (``BWD_KERNELS`` of them), one call counted; a ``dy`` whose last dim
+    is not contiguous (autograd may hand one over) is copied to a
+    contiguous one first, the other inputs are read through their
+    strides.  Raises where the forward raises, and on the wgmma path for
+    rows that are not 16-byte aligned."""
     _check(xdt, a, bm, cm, chunk)
     if dy.shape != xdt.shape or dy.dtype != xdt.dtype or \
             dy.device != xdt.device:
@@ -162,20 +182,23 @@ def ssd_scan_bwd(xdt, a, bm, cm, dy, *, chunk: int = 256):
                          "4096)")
     if dy.stride(-1) != 1:
         dy = dy.contiguous()
+    path = select_bwd_path(xdt.dtype, P, N, chunk)
+    if path == "wgmma":
+        _check_aligned((("xdt", xdt), ("bm", bm), ("cm", cm), ("dy", dy)),
+                       "ssd_scan_bwd")
     dev = xdt.device
     dx = torch.empty((B, S, H, P), dtype=xdt.dtype, device=dev)
     da = torch.empty((B, S, H), dtype=torch.float32, device=dev)
     db = torch.empty((B, S, N), dtype=bm.dtype, device=dev)
     dc = torch.empty((B, S, N), dtype=cm.dtype, device=dev)
-    n_ws = bwd_workspace_floats(B, S, H, P, N, chunk)
+    n_ws = bwd_workspace_floats(B, S, H, P, N, chunk, path)
     ws = torch.empty(n_ws, dtype=torch.float32, device=dev)
-    path = BWD_PATHS[0]
     err = _bwd_lib().ssd_scan_bwd(
         xdt.data_ptr(), a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
         dy.data_ptr(), dx.data_ptr(), da.data_ptr(), db.data_ptr(),
-        dc.data_ptr(), ws.data_ptr(), n_ws, _DTYPES[xdt.dtype], B, S, H, P,
-        N, chunk, *xdt.stride()[:3], *a.stride(), *bm.stride()[:2],
-        *cm.stride()[:2], *dy.stride()[:3],
+        dc.data_ptr(), ws.data_ptr(), n_ws, BWD_PATHS.index(path),
+        _DTYPES[xdt.dtype], B, S, H, P, N, chunk, *xdt.stride()[:3],
+        *a.stride(), *bm.stride()[:2], *cm.stride()[:2], *dy.stride()[:3],
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "ssd_scan_bwd")
     ssd_scan_bwd.launches += 1
@@ -183,8 +206,9 @@ def ssd_scan_bwd(xdt, a, bm, cm, dy, *, chunk: int = 256):
     return dx, da, db, dc
 
 
-#: backward calls since the last reset (each one launches seven kernels),
-#: in all and by path
+#: kernels one backward call launches, by path
+BWD_KERNELS = {"fma": 7, "wgmma": 4}
+#: backward calls since the last reset, in all and by path
 ssd_scan_bwd.launches = 0
 ssd_scan_bwd.path_launches = dict.fromkeys(BWD_PATHS, 0)
 

@@ -760,14 +760,27 @@ SSD_BWD_CASES = [
     (2, 4, 768, 64, 128, 256, 0.02, "bfloat16"),
     (1, 32, 512, 64, 128, 256, "model", "float32"),
     (1, 32, 512, 64, 128, 256, "model", "bfloat16"),
+    # the wgmma path at its other shapes: one chunk of one tile; N padded
+    # to 64, one tile a chunk; P = N = 16, two tiles; three tiles (an odd
+    # count), P and N not powers of two, at mamba2's decays
+    (2, 8, 64, 16, 16, 64, 0.4, "bfloat16"),
+    (2, 3, 256, 32, 64, 64, 0.02, "bfloat16"),
+    (2, 2, 384, 16, 16, 128, 0.4, "bfloat16"),
+    (1, 5, 576, 48, 96, 192, "model", "bfloat16"),
 ]
+#: each case with the path its dtype and shapes select
+SSD_BWD_PATH_CASES = [(*c, ss.select_bwd_path(getattr(torch, c[7]), c[3],
+                                              c[4], c[5]))
+                      for c in SSD_BWD_CASES]
 #: the backward against its plain version, max |kernel - plain| over max
 #: |plain| per output: in fp32 both sum in fp32 in other orders (cumsum
 #: included), the plain version up to 5.2e-5 from the fp64 gradient in da
 #: at mamba2's decays (tests/test_torch_ssm_train.py), so 1e-4, the bound
 #: the plain version itself keeps to fp64; bf16 outputs are
-#: rounded once (one bf16 step, 2^-7 relative at most), so 1e-2; da is
-#: fp32 for both dtypes and keeps 1e-4
+#: rounded once (one bf16 step, 2^-7 relative at most), so 1e-2, which
+#: the wgmma path's operand roundings keep to 0.34 of at worst at the
+#: training shape (kernels/ssd_rounding.py, model_grads); da is fp32 for
+#: both dtypes and keeps 1e-4
 SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 #: the leaves whose gradient comes only through K3's backward, card
 #: against CPU in fp32, relative to the leaf's largest entry (chip_smoke.py's
@@ -799,15 +812,23 @@ def _hold_bwd(got, exp, dtype):
         assert _rel_err(g_, e_) <= tol, name
 
 
+def _bwd_moved(before):
+    return {p: n - before[p] for p, n in ss.ssd_scan_bwd.path_launches.items()}
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,H,S,P,N,Q,decay,dtype", SSD_BWD_CASES)
+@pytest.mark.parametrize("B,H,S,P,N,Q,decay,dtype,path", SSD_BWD_PATH_CASES)
 def test_ssd_bwd_kernel_matches_plain_on_card(cuda, B, H, S, P, N, Q, decay,
-                                              dtype):
+                                              dtype, path):
+    """Each case on the path its dtype and shapes select (bf16 with whole
+    64-row tiles, up to four a chunk: wgmma; else fma), one launch."""
     args = _ssd_bwd_inputs(cuda, B, H, S, P, N, decay, dtype)
     before = ops.launch_counts()["ssd_scan_bwd"]
+    paths = dict(ss.ssd_scan_bwd.path_launches)
     got = ops.ssd_scan_bwd(*args, chunk=Q)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssd_scan_bwd"] == before + 1
+    assert _bwd_moved(paths) == {p: int(p == path) for p in ss.BWD_PATHS}
     _hold_bwd(got, ssd_chunked_backward_reference(*args, Q), dtype)
 
 
@@ -831,17 +852,24 @@ def test_ssd_bwd_through_autograd_on_card(cuda, dtype):
     path = ss.select_path(getattr(torch, dtype), 64, 128, 256)
     assert ss.ssd_scan.path_launches[path] == 2
     assert ops.launch_counts()["ssd_scan_bwd"] == 1
+    assert ss.ssd_scan_bwd.path_launches[
+        ss.select_bwd_path(getattr(torch, dtype), 64, 128, 256)] == 1
     for g_, e_ in zip(got, ops.ssd_scan_bwd(xdt, a, bm, cm, dy, chunk=256)):
         torch.testing.assert_close(g_, e_, atol=0, rtol=0)
 
 
 @pytest.mark.gpu
-def test_ssd_bwd_reads_strided_inputs_on_card(cuda):
+@pytest.mark.parametrize("dtype,path", [("float32", "fma"),
+                                        ("bfloat16", "wgmma")])
+def test_ssd_bwd_reads_strided_inputs_on_card(cuda, dtype, path):
     """Transposed views of xdt, a and dy, B and C cut from a wider
     projection, and a dy whose last dim is not contiguous (copied by the
-    wrapper): the contiguous inputs' gradients bit for bit."""
+    wrapper): the contiguous inputs' gradients bit for bit, on the path
+    the dtype selects."""
+    assert ss.select_bwd_path(getattr(torch, dtype), 64, 128, 128) == path
     xdt, a, bm, cm, dy = _ssd_bwd_inputs(cuda, 2, 4, 256, 64, 128, 0.02,
-                                         "bfloat16")
+                                         dtype)
+    before = dict(ss.ssd_scan_bwd.path_launches)
     xt, at, dyt = (t.transpose(1, 2).contiguous().transpose(1, 2)
                    for t in (xdt, a, dy))
     wide = torch.cat([bm, cm, bm], dim=-1)
@@ -853,59 +881,88 @@ def test_ssd_bwd_reads_strided_inputs_on_card(cuda):
     for args in ((xt, at, bw, cw, dyt), (xdt, a, bm, cm, dyf)):
         for g_, e_ in zip(ops.ssd_scan_bwd(*args, chunk=128), exp):
             torch.testing.assert_close(g_, e_, atol=0, rtol=0)
+    assert _bwd_moved(before) == {p: 3 * (p == path) for p in ss.BWD_PATHS}
     with pytest.raises(ValueError, match="contiguous"):
         ops.ssd_scan_bwd(xdt.transpose(-1, -2).contiguous().transpose(-1, -2),
                          a, bm, cm, dy, chunk=128)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_ssd_bwd_is_bitwise_repeatable_on_card(cuda, dtype):
+@pytest.mark.parametrize("dtype,path", [("float32", "fma"),
+                                        ("bfloat16", "wgmma")])
+def test_ssd_bwd_is_bitwise_repeatable_on_card(cuda, dtype, path):
     """dB and dC sum the heads in a fixed order (no atomics): two runs on
-    the same inputs are equal bit for bit."""
+    the same inputs are equal bit for bit, on the path the dtype
+    selects."""
+    assert ss.select_bwd_path(getattr(torch, dtype), 64, 128, 256) == path
     args = _ssd_bwd_inputs(cuda, 2, 32, 1024, 64, 128, "model", dtype)
+    before = dict(ss.ssd_scan_bwd.path_launches)
     first = ops.ssd_scan_bwd(*args, chunk=256)
     second = ops.ssd_scan_bwd(*args, chunk=256)
     torch.cuda.synchronize()
+    assert _bwd_moved(before) == {p: 2 * (p == path) for p in ss.BWD_PATHS}
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
 @pytest.mark.gpu
 def test_bwd_workspace_at_the_training_shape(cuda):
     """The kernel's fp32 scratch at mamba2-370m's training shape (B=8,
-    S=4096, H=32, P=64, N=128, Q=256), as its source lays it out: dB and dC
-    per head (2 x 0.54 GB), the chunk states and their gradients
-    (2 x 0.13 GB), C B^T, cum and the dcum parts: ~1.4 GB, in whole
-    multiples of 4 floats."""
-    n = ss.bwd_workspace_floats(8, 4096, 32, 64, 128, 256)
+    S=4096, H=32, P=64, N=128, Q=256), as its source lays it out.  fma: dB
+    and dC per head (2 x 0.54 GB), the chunk states and their gradients
+    (2 x 0.13 GB), C B^T, cum and the dcum parts: ~1.4 GB.  wgmma: no
+    per-head dB or dC, the states as bf16 hi + lo (2 x 0.13 GB), M^T (34
+    MB), cum and dcum's seven parts: ~0.34 GB.  In whole multiples of 4
+    floats."""
+    n = ss.bwd_workspace_floats(8, 4096, 32, 64, 128, 256, "fma")
     assert 1.3e9 < 4 * n < 1.5e9
-    assert ss.bwd_workspace_floats(1, 6, 1, 16, 16, 3) % 4 == 0
-    assert ss.bwd_workspace_floats(1, 64, 1, 16, 16, 0) == 0
+    n = ss.bwd_workspace_floats(8, 4096, 32, 64, 128, 256, "wgmma")
+    assert 0.3e9 < 4 * n < 0.4e9
+    for path in ss.BWD_PATHS:
+        assert ss.bwd_workspace_floats(1, 6, 1, 16, 16, 3, path) % 4 == 0
+        assert ss.bwd_workspace_floats(1, 64, 1, 16, 16, 0, path) == 0
 
 
 @pytest.mark.gpu
 def test_ssd_bwd_entry_point_refuses_what_it_cannot_take(cuda):
     """The C entry point returns cudaErrorInvalidValue (1), launching
-    nothing, for a short workspace or shapes past its limits."""
+    nothing, for a short workspace, shapes past its limits, an unknown
+    path, or a wgmma call the path cannot take: fp32, P or N not multiples
+    of 16, a chunk that is not whole 64-row tiles or more than four, rows
+    that are not 16-byte aligned."""
     bwd = _build.load()["ssd_scan_bwd"].ssd_scan_bwd
     stream = torch.cuda.current_stream(cuda).cuda_stream
+    fma, wgmma = (ss.BWD_PATHS.index(p) for p in ("fma", "wgmma"))
 
-    def call(P=64, N=128, Q=64, S=128, short=0):
-        x = torch.zeros(1, S, 2, P, device=cuda)
+    def call(P=64, N=128, Q=64, S=128, short=0, path=fma, dtype=0,
+             shift=0):
+        dt = torch.bfloat16 if dtype else torch.float32
+        x = torch.zeros(1, S, 2, P + 8, device=cuda, dtype=dt)[..., shift:]
+        x = x[..., :P]
         a = torch.zeros(1, S, 2, device=cuda)
-        bm = torch.zeros(1, S, N, device=cuda)
-        n = ss.bwd_workspace_floats(1, S, 2, P, N, Q) - short if Q else 0
+        bm = torch.zeros(1, S, N, device=cuda, dtype=dt)
+        name = ss.BWD_PATHS[min(path, 1)]
+        n = ss.bwd_workspace_floats(1, S, 2, P, N, Q, name) - short \
+            if Q else 0
         ws = torch.empty(max(n, 1), device=cuda)
         return bwd(x.data_ptr(), a.data_ptr(), bm.data_ptr(), bm.data_ptr(),
                    x.data_ptr(), x.data_ptr(), a.data_ptr(), bm.data_ptr(),
-                   bm.data_ptr(), ws.data_ptr(), n, 0, 1, S, 2, P, N,
-                   Q, *x.stride()[:3], *a.stride(), *bm.stride()[:2],
+                   bm.data_ptr(), ws.data_ptr(), n, path, dtype, 1, S, 2, P,
+                   N, Q, *x.stride()[:3], *a.stride(), *bm.stride()[:2],
                    *bm.stride()[:2], *x.stride()[:3], stream)
 
-    assert call(short=4) == 1
-    assert call(P=72) == 1
-    assert call(N=144) == 1
-    assert call(Q=48) == 1                       # S % Q != 0
-    assert call(Q=0) == 1
-    assert call() == 0
+    for path, dtype in ((fma, 0), (fma, 1), (wgmma, 1)):
+        assert call(short=4, path=path, dtype=dtype) == 1
+        assert call(P=72, path=path, dtype=dtype) == 1
+        assert call(P=40, path=path, dtype=dtype) == 1   # P % 16 != 0
+        assert call(N=144, path=path, dtype=dtype) == 1
+        assert call(N=24, path=path, dtype=dtype) == 1   # N % 16 != 0
+        assert call(Q=48, path=path, dtype=dtype) == 1   # S % Q != 0
+        assert call(Q=0, path=path, dtype=dtype) == 1
+        assert call(path=path, dtype=dtype) == 0
+    assert call(path=wgmma, dtype=0) == 1                # fp32
+    assert call(Q=32, path=wgmma, dtype=1) == 1          # not whole tiles
+    assert call(Q=512, S=512, path=wgmma, dtype=1) == 1  # five tiles or more
+    assert call(Q=512, S=512, path=fma, dtype=1) == 0
+    assert call(path=wgmma, dtype=1, shift=4) == 1       # 8-byte aligned rows
+    assert call(path=len(ss.BWD_PATHS), dtype=1) == 1
     torch.cuda.synchronize()

@@ -281,7 +281,7 @@ def test_cpu_calls_count_no_path():
         "flash_attention_bwd": {"fma": 0, "wgmma": 0},
         "repack": {"bytes": 0, "bulk": 0},
         "ssd_scan": {"fma": 0, "wgmma": 0},
-        "ssd_scan_bwd": {"fma": 0}}
+        "ssd_scan_bwd": {"fma": 0, "wgmma": 0}}
 
 
 @pytest.mark.parametrize("block_bytes,src,out,path", [

@@ -41,7 +41,7 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.lm_app import lm_train_app
 from repro_torch.interop import train_state_from_numpy
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ssd_rounding
 from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.ref import (ssd_chunked_backward_reference,
                                      ssd_chunked_reference)
@@ -206,7 +206,7 @@ def test_ssd_scan_fn_backward_takes_the_bwd_wrapper_on_the_cpu():
     for name, g, e in zip(("dx", "da", "dB", "dC"), got, exp):
         assert _rel_err(g, e) <= AUTOGRAD_TOL["float32"], name
     assert ops.launch_counts()["ssd_scan_bwd"] == 0
-    assert ss.ssd_scan_bwd.path_launches == {"fma": 0}
+    assert ss.ssd_scan_bwd.path_launches == {"fma": 0, "wgmma": 0}
     assert ops.launch_counts()["ssd_scan"] == 0
 
 
@@ -242,6 +242,87 @@ def test_ssd_scan_bwd_reads_strided_inputs_on_the_cpu():
     for g, e in zip(ops.ssd_scan_bwd(*views, chunk=32),
                     ops.ssd_scan_bwd(*args, chunk=32)):
         assert torch.equal(g, e)
+
+
+# -- K3's backward on the card: its path, and its bf16 roundings ----------
+
+@pytest.mark.parametrize("dtype,P,N,Q,path", [
+    (torch.bfloat16, 64, 128, 256, "wgmma"),     # mamba2-370m's training
+    (torch.bfloat16, 16, 16, 64, "wgmma"),
+    (torch.bfloat16, 48, 96, 192, "wgmma"),
+    (torch.bfloat16, 64, 128, 320, "fma"),       # five 64-row tiles a chunk
+    (torch.bfloat16, 64, 128, 512, "fma"),
+    (torch.bfloat16, 16, 16, 32, "fma"),         # the smoke config's chunk
+    (torch.bfloat16, 32, 64, 100, "fma"),        # not whole 64-row tiles
+    (torch.bfloat16, 72, 128, 256, "fma"),       # P past 64 (the card refuses)
+    (torch.bfloat16, 64, 136, 256, "fma"),       # N past 128
+    (torch.bfloat16, 40, 128, 256, "fma"),       # P not a multiple of 16
+    (torch.float32, 64, 128, 256, "fma"),        # fp32 never takes TF32
+])
+def test_ssd_bwd_path_choice(dtype, P, N, Q, path):
+    """K3's backward path is a pure function of the dtype and the shapes:
+    the tensor cores for bfloat16 with P and N multiples of 16 up to 64
+    and 128 and a chunk of one to four whole 64-row tiles, fp32 FMAs
+    otherwise."""
+    assert ss.select_bwd_path(dtype, P, N, Q) == path
+    assert path in ss.BWD_PATHS
+
+
+def test_ssd_bwd_path_of_the_training_configs():
+    """mamba2-370m's bf16 training scan takes the backward's wgmma path,
+    the fp32 smoke config's the fma path."""
+    from repro_torch.models import params as tparams
+    for arch, path in (("mamba2-370m", "wgmma"), (ARCH, "fma")):
+        cfg = get_config(arch)
+        assert ss.select_bwd_path(tparams.torch_dtype(cfg.dtype),
+                                  cfg.ssm.head_dim, cfg.ssm.state_size,
+                                  cfg.ssm.chunk_size) == path, arch
+
+
+def test_bwd_rounding_model_with_exact_operands_is_the_plain_backward():
+    """``ssd_rounding.model_grads`` with every operand exact is the plain
+    backward in fp64 (its 64-row sub-chunk states, M = sum_h D o L and the
+    state terms as row scales are the same function), up to the final
+    rounding of each output: bf16 for dx, dB, dC, fp32 for da."""
+    args = ssd_rounding.grad_inputs(1, 2, 3, 512, 32, 64, 0.02)
+    got = ssd_rounding.model_grads(*args, 128, states=None, rows=None,
+                                   gl=None, m=None)
+    exp = ssd_chunked_backward_reference(*(t.double() for t in args), 128)
+    for name, g, e, tol in zip(("dx", "da", "dB", "dC"), got, exp,
+                               (2 ** -8, 1e-7, 2 ** -8, 2 ** -8)):
+        assert g.dtype == (torch.float32 if name == "da" else torch.bfloat16)
+        assert _rel_err(g.double(), e) <= tol, name
+
+
+def test_bwd_wgmma_rounding_model_holds_the_tolerance():
+    """The backward's wgmma path rounds as ``model_grads`` does by default:
+    the carried states, their chunk sums' decayed rows and M split into
+    bf16 hi + lo, G o L rounded once, outputs rounded once.  At S = 4096
+    (16 chunks of 256, the training path's P, N, Q) and mamba2's decays
+    that keeps every output within SSD_BWD_TOL of the fp32 plain version,
+    with room (at the full training shape, B=8 and H=32, it is 0.34 of the
+    bound at worst: ``python -m repro_torch.kernels.ssd_rounding bwd``)."""
+    args = ssd_rounding.grad_inputs(0, 1, 4, 4096, 64, 128)
+    ref = ssd_chunked_backward_reference(*args, 256)
+    got = ssd_rounding.model_grads(*args, 256)
+    for a_, r_ in zip(got, ref):
+        assert a_.shape == r_.shape and a_.dtype == r_.dtype
+    ratios = ssd_rounding.bwd_ratios(got, ref)
+    assert max(ratios) < 0.7, ratios
+
+
+def test_bwd_rounding_the_states_once_misses_da():
+    """Why the states go in split: rounding S_in and dS_out once to bf16
+    where they enter their products puts da past its 1e-4 bound (da sums
+    row and column sums of W that cancel, and the state terms' share of it
+    is not small), while the split keeps it inside."""
+    args = ssd_rounding.grad_inputs(0, 1, 4, 4096, 64, 128)
+    ref = ssd_chunked_backward_reference(*args, 256)
+    once = ssd_rounding.bwd_ratios(
+        ssd_rounding.model_grads(*args, 256, states=False), ref)
+    assert once[1] > 1.0, once
+    split = ssd_rounding.bwd_ratios(ssd_rounding.model_grads(*args, 256), ref)
+    assert split[1] < 1.0, split
 
 
 # -- mamba2-370m-smoke training --------------------------------------------
