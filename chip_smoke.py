@@ -5,12 +5,14 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (K1
 flash attention and its backward, K2, K3 and its backward), holds each
-against its plain PyTorch version, then drives the port's two serving
-paths and its two training paths at full width with random weights from a
+against its plain PyTorch version, then drives the port's three families'
+serving and training paths at full width with random weights from a
 seed -- ``granite-3-2b`` (dense, K1; 10 of its 40 layers, see
 ``GRANITE_LAYERS``; training also at all 40), ``mamba2-370m`` (SSM, K3;
-all 48 layers, serving and training) -- and checks that each really ran
-through its kernels.  Phases:
+serving at 24 of its 48 layers, ``MAMBA_SERVE_LAYERS``, training at all
+48), ``zamba2-2.7b`` (hybrid, K3 and K1
+at G = 1, D = 80; all 54 layers, elastic training at 12) -- and checks
+that each really ran through its kernels.  Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: compile every kernel (one nvcc per source, in parallel), and
@@ -21,7 +23,11 @@ through its kernels.  Phases:
    cases of the JAX package's kernel tests; bf16 prefill on the mma path
    at head dims 16, 32, 64, 80 and 128, ragged, windowed, Sq < Sk causal,
    Hkv = H and Hkv = 1; then the slice's own bf16 shapes, and fp32 and
-   bf16 decode at a kv_len inside the last key split;
+   bf16 decode at a kv_len inside the last key split; then zamba2's shared
+   attention (bf16, B=16, H = Hkv = 32, D=80): decode over its 512-slot
+   cache at six kv_lens up to 512 (384 the serving path's last) on
+   split_decode, causal prefill at S=256 (the group kernel) and at S=1024
+   (the block kernel) on mma;
 3b. K1's backward (``flash_attention_bwd.cu``) against
    ``attention_backward_reference`` on dq, dk, dv from the forward's own
    output and row log-sum-exp: every head dim in fp32 and bf16, causal,
@@ -30,7 +36,8 @@ through its kernels.  Phases:
    training shape (B=1 to bound the plain version's memory, H=32, Hkv=8,
    S=4096, D=64, bf16), run twice and equal bit for bit, and K1's forward
    output there against ``attention_reference``; the lse against the plain
-   forward's;
+   forward's; then zamba2's training shape (B=1, H = Hkv = 32, S=4096,
+   D=80, bf16) the same way, twice, bit for bit;
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
@@ -42,7 +49,8 @@ through its kernels.  Phases:
    the cases of the JAX package's kernel tests, then the mamba2 path's
    shape (B=16, H=32, S=1024, P=64, N=128, Q=256) in bf16 (on the wgmma
    path) and in f32, the latter also at the decays of mamba2's random
-   init;
+   init; then zamba2's prefill shape (B=16, H=80, S=1024, P=64, N=64,
+   Q=256) in bf16 on wgmma against ``ssd_chunked_reference``;
 5b. K3's backward (``ssd_scan_bwd.cu``) against
    ``ssd_chunked_backward_reference`` on dx, da, dB, dC (each held to a
    bound relative to its largest entry, ``SSD_BWD_TOL``), each case on the
@@ -56,7 +64,9 @@ through its kernels.  Phases:
    training shape equal bit for bit; and K3's forward at the training
    shape (16 chunks of carried state) in bf16 on the wgmma path and in
    fp32, at mamba2's decays, against ``ssd_chunked_reference``
-   (``SSD_CHUNKED_TOL``);
+   (``SSD_CHUNKED_TOL``); then zamba2's training shape (B=8, H=80,
+   S=4096, P=64, N=64, Q=256) in bf16 on wgmma: the forward, and the
+   backward at mamba2's decays and at mild ones, two runs bit for bit;
 6. the granite serving path: ``decode_demo`` (batch 16, prompt 256, 128
    decoded tokens, cache 512, 8 workers) without and with a 4 -> 8 -> 2
    resize schedule; tokens must agree and each run must launch K1 once
@@ -70,7 +80,8 @@ through its kernels.  Phases:
    timed on the host clock, then a window of as many steps under
    ``torch.profiler`` whose device busy time, idle share and largest
    device kernels all come from that one traced window;
-9. the mamba2 serving path: ``decode_demo`` at granite's batch, prompt,
+9. the mamba2 serving path at ``MAMBA_SERVE_LAYERS`` (24 of 48; so is
+   phase 10): ``decode_demo`` at granite's batch, prompt,
    decode length, workers and resize schedule; tokens must agree, and the
    decode path (the SSM recurrence) launches neither K1 nor K3;
 10. mamba2 prefill vs decode: ``make_prefill_step`` at B=16, S=1024 (four
@@ -108,6 +119,26 @@ through its kernels.  Phases:
 13d. one traced 48-layer step of the static run: device busy time, idle
     share, K3's forward and backward device time and share, the largest
     device operators;
+13e. the zamba2 serving path at ``Z_SERVE_LAYERS`` (all 54): granite's
+    ``decode_demo`` schedule; tokens must agree, and each run launches K1
+    once per group per step (9 x 384), all on split_decode, and no K3;
+13f. zamba2 prefill vs decode: ``make_prefill_step`` at B=16, S=1024 must
+    launch K3 once per layer (54, wgmma) and K1 once per group (9, mma);
+    then, at ``Z_CHECK_LAYERS`` (the first 24 layers of the same weights),
+    fp32 full-sequence logits at every position against the fp32
+    token-by-token decode, bf16 prefill and decode against fp32 (largest
+    and rms gap, beside the fp32 model with bf16-rounded weights); one
+    traced 54-layer prefill: K3's and K1's shares, the top device kernels;
+13g. zamba2 training: the smoke step at two groups (4 layers, fp32) on
+    the card against the CPU's, for loss, gradient norm and every leaf's
+    gradient (``shared_attn`` among them); then ``Z_ELASTIC_LAYERS`` (12,
+    two groups) at granite's training settings, 6 static and 6 elastic
+    steps whose losses agree to 1e-4; per step K3 24 + 12 launches and K1
+    4 + 2, on wgmma and mma / wgmma;
+13h. zamba2 training at all 54 layers: 2 static steps, s/step, tokens/s,
+    peak GB, K3 108 + 54 and K1 18 + 9 launches a step, none on a plain
+    version; one traced step: device busy, idle share, K3's and K1's
+    forward and backward shares, the largest device operators;
 14. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
@@ -125,7 +156,12 @@ through its kernels.  Phases:
     its forward (with the lse, as training calls it) and backward at the
     training shape; K3 four, its forward at the prefill and at the
     training shape, and its backward at the training shape on both paths
-    (bf16 on wgmma, the main path's; fp32 on fma, the smoke step's).  Then
+    (bf16 on wgmma, the main path's; fp32 on fma, the smoke step's).
+    zamba2 adds seven: K1 decode, prefill (S=1024), and forward and
+    backward at the training shape (B=8), each with SDPA beside it; K3
+    forward at the prefill and the training shape and its backward; each
+    timed right after the device times, its inputs then freed so that they
+    do not count in the paths' peak memory.  Then
     the contract line ``{"ok": true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
@@ -186,6 +222,11 @@ PROFILE_TRAIN_TOP = 5
 
 MAMBA = "mamba2-370m"               # serving runs at granite's batch, prompt,
 M_PREFILL_S = 1024                  # decode length, workers and schedule
+#: mamba2 serving and its prefill-vs-decode check run 24 of its 48 layers:
+#: both are host-bound (~1.1 ms of dispatch a layer and decode step), and
+#: at 48 layers they took 160 of the script's 300 s before zamba2's paths
+#: joined them; K3's own checks and times, and mamba2 training, keep all 48
+MAMBA_SERVE_LAYERS = 24
 SSD_CASES = [  # (B, H, S, P, N, Q, dtype) -- tests/test_kernels.py
     (2, 4, 256, 32, 16, 64, "float32"), (1, 2, 128, 64, 128, 32, "float32"),
     (1, 2, 128, 32, 16, 128, "float32"), (2, 2, 64, 16, 16, 16, "bfloat16")]
@@ -243,6 +284,48 @@ SSM_LEAF_TOL = 1e-4
 #: K3's backward at the SSM training path's shape: B, H, S, P, N, Q
 SSD_BWD_TRAIN = (TRAIN_BATCH, 32, 4096, 64, 128, 256)
 
+ZAMBA = "zamba2-2.7b"               # the hybrid family, at full width
+#: its shared attention is multi-head (H = Hkv = 32, G = 1) at head dim 80
+#: (from the config); K1's forward and backward at the training shape,
+#: B cut to 1 to bound the plain version's memory, as BWD_TRAIN
+Z_BWD_TRAIN = (1, 32, 32, 4096, 80)
+#: its scan: 80 heads of P = 64 at N = 64, at the prefill's and the
+#: training path's shapes (B, H, S, P, N, Q)
+Z_SSD_PREFILL = (BATCH, 80, M_PREFILL_S, 64, 64, 256)
+Z_SSD_TRAIN = (TRAIN_BATCH, 80, 4096, 64, 64, 256)
+#: zamba2's elastic training runs two groups (12 of its 54 layers): a
+#: resize clones the whole state, 29.1 GB at 54 layers, which with the
+#: step's own peak does not fit the card; the static run takes all 54
+Z_ELASTIC_LAYERS = 12
+#: zamba2 serving and the prefill that counts its launches, in layers (all
+#: 54); the prefill-vs-decode logits checks run the first 24 (four groups)
+#: of the same weights: their two 1024-step decode loops are host-bound
+#: (75-170 ms a step at 54 layers on H100 hosts) and took 210 of the
+#: script's 590 s there
+Z_SERVE_LAYERS, Z_CHECK_LAYERS = 54, 24
+#: zamba2 fp32 full-sequence logits vs the token-by-token decode at every
+#: one of the 1024 positions, by the largest and the rms gap.  The same
+#: function in fp32 through the SSM layers and the attention blocks; the
+#: chunked scan is ~1e-4 from the exact recurrence in y at these decays
+#: (see M_FP32_LOGITS_ATOL), and this random-init model amplifies a
+#: perturbation ~4x more than mamba2's (its fp32 logits move by rms 0.37
+#: with the weights rounded to bf16, mamba2's by 0.085).  At all 54 layers
+#: an H100 (80GB HBM3, 700 W) measured 5.5e-2 at worst over all positions
+#: (8.7e-3 at the last), rms 8.8e-4; fewer layers amplify less.  A wrong cache slot,
+#: position or carry moves the logits by about their std (~1.0), an rms
+#: gap of ~1.4; so the largest gap is held to 0.25 and the rms gap, which
+#: numeric noise keeps far below the largest, to 0.05
+Z_FP32_LOGITS_ATOL, Z_FP32_LOGITS_RMS = 0.25, 0.05
+#: each zamba2 bf16 path against the fp32 logits, by the largest and the
+#: rms gap.  At all 54 layers on that card, rounding only the weights to
+#: bf16 moved the fp32 logits by up to 2.31 (rms 0.37), and computing in
+#: bf16 by up to 3.07 (rms 0.54 and 0.58, prefill and decode) against a
+#: logits std of 1.01: this model's bf16 path is far noisier than
+#: mamba2's.  The largest
+#: gap is held to 6.0 (~6 std: overflow and blow-ups), the rms gap to 0.9,
+#: between the measured 0.58 and the ~1.4 of decorrelated logits
+Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS = 6.0, 0.9
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -295,7 +378,10 @@ def device_ms(calls, what: str, iters: int = 20) -> float:
     a window counts only if every record name in it appears a whole
     multiple of ``iters`` times, and only beside the next window when that
     one shows the same names and counts; the time is the mean of the two.
-    After eight windows with no such pair the script fails."""
+    After eight windows with no such pair, the time is each record name's
+    mean over the records the windows kept, times the records a call
+    launches (its count over ``iters``, rounded), and the line says so;
+    with no record kept at all the script fails."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     calls = calls if isinstance(calls, list) else [calls]
@@ -308,14 +394,15 @@ def device_ms(calls, what: str, iters: int = 20) -> float:
             torch.cuda.synchronize()
         evs = device_events(prof)
         return ({e.key: e.count for e in evs},
-                sum(device_us(e) for e in evs))
+                {e.key: device_us(e) for e in evs})
 
     for c in calls + calls[:2]:
         c()
     torch.cuda.synchronize()
-    last = None
+    last, kept = None, []
     for _ in range(8):
         counts, us = window()
+        kept += [(k, n, us[k]) for k, n in counts.items()]
         if not counts or any(n % iters for n in counts.values()):
             print(f"chip_smoke: {what}: {iters} calls left device records "
                   f"{ {k[:60]: n for k, n in counts.items()} }: taken again",
@@ -323,11 +410,20 @@ def device_ms(calls, what: str, iters: int = 20) -> float:
             last = None
             continue
         if last is not None and last[0] == counts:
-            ms = (us + last[1]) / 2e3 / iters
+            ms = (sum(us.values()) + last[1]) / 2e3 / iters
             print(f"[device_ms] {what}: {ms:.6f}", flush=True)
             return ms
-        last = (counts, us)
-    fail(f"{what}: the profiler dropped device records in eight windows")
+        last = (counts, sum(us.values()))
+    if not kept:
+        fail(f"{what}: the profiler kept no device record in eight windows")
+    ms = 0.0
+    for name in {k for k, _, _ in kept}:
+        mine = [(n, u) for k, n, u in kept if k == name]
+        per_call = max(round(n / iters) for n, _ in mine)
+        ms += sum(u for _, u in mine) / sum(n for n, _ in mine) * per_call
+    print(f"[device_ms] {what}: {ms / 1e3:.6f} (mean of the kept records: "
+          "the profiler dropped some in every window)", flush=True)
+    return ms / 1e3
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -381,6 +477,17 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
     t_ops = flops / H100_FLOPS[dtype]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def k3_fwd_bound(B, H, S, P, N, Q):
+    """K3's bound: bf16 xdt/B/C and f32 a read, y written once; the work
+    counts G = C B^T once per (b, chunk), as the Pallas contract allows,
+    over the causal pairs of each chunk."""
+    nc = S // Q
+    return bound_ms(
+        2 * B * S * H * P * 2 + 4 * B * S * H + 2 * B * S * N * 2,
+        nc * B * Q * Q * N + nc * B * H * (Q * Q * P + 4 * Q * P * N),
+        "bfloat16")
 
 
 def main() -> None:
@@ -582,6 +689,36 @@ def main() -> None:
     err_prefill = check_close(ops.flash_attention(*pargs, causal=True),
                               attention_reference(*pargs, causal=True),
                               "bfloat16", "slice prefill")
+    # zamba2's shared attention, multi-head (G = 1) at head dim 80, bf16:
+    # decode over its 512-slot cache on split_decode, at the serving path's
+    # last kv_len (384) and around tile edges; causal prefill on mma at
+    # S = 256 (the group kernel: 2 B Hkv >= SMs, 4 tiles) and at the
+    # prefill path's S = 1024 (the block kernel)
+    zcfg = get_config(ZAMBA)
+    zH, zHkv, zD = zcfg.num_heads, zcfg.num_kv_heads, zcfg.head_dim
+    zkc, zvc = (rand((BATCH, CACHE, zHkv, zD), bf16) for _ in range(2))
+    zdargs = (rand((BATCH, 1, zH, zD), bf16).transpose(1, 2),
+              zkc.transpose(1, 2), zvc.transpose(1, 2))
+    z_err = {"decode_all": 0.0}
+    for n_ in (1, 64, 65, 200, CACHE, PROMPT + DECODE):
+        _, z_err["decode"] = k1_case(
+            *zdargs, f"zamba2 decode {BATCH}x{zH}x{zHkv} D={zD} kv_len {n_}",
+            causal=False,
+            kv_len=torch.tensor(n_, dtype=torch.int32, device=dev))
+        z_err["decode_all"] = max(z_err["decode_all"], z_err["decode"])
+    z_pre = {}
+    for S_ in (PROMPT, M_PREFILL_S):
+        z_pre[S_] = (rand((BATCH, S_, zH, zD), bf16).transpose(1, 2),
+                     rand((BATCH, S_, zHkv, zD), bf16).transpose(1, 2),
+                     rand((BATCH, S_, zHkv, zD), bf16).transpose(1, 2))
+        _, z_err[f"prefill{S_}"] = k1_case(
+            *z_pre[S_], f"zamba2 prefill {BATCH}x{zH}x{zHkv} S={S_} D={zD}",
+            causal=True)
+    zpargs = z_pre[M_PREFILL_S]            # timed in phase 14
+    del z_pre
+    z_group = [2 * BATCH * zHkv >= sms and -(-S_ // fa.TILE_K) <=
+               (128 * 1024) // (2 * 2 * fa.TILE_K * zD)
+               for S_ in (PROMPT, M_PREFILL_S)]
     torch.cuda.synchronize()
     phase("K1", cases=sum(case_paths.values()) + 3,
           paths=json.dumps(case_paths, separators=(",", ":")),
@@ -590,6 +727,11 @@ def main() -> None:
           max_err_bf16=f"{errs['bfloat16']:.3e}",
           slice_decode_err=f"{err_decode:.3e}",
           slice_prefill_err=f"{err_prefill:.3e}",
+          zamba2_decode_err=f"{z_err['decode_all']:.3e}",
+          zamba2_prefill_err=f"{z_err[f'prefill{PROMPT}']:.3e},"
+                             f"{z_err[f'prefill{M_PREFILL_S}']:.3e}",
+          zamba2_prefill_kernel=",".join("group" if g else "block"
+                                         for g in z_group),
           tol=json.dumps(TOL, separators=(",", ":")))
     mark("K1")
 
@@ -647,13 +789,31 @@ def main() -> None:
     err_fwd_train = check_close(
         targs_1[3], attention_reference(*targs_1[:3], causal=True),
         "bfloat16", f"K1 forward at the train shape {BWD_TRAIN}")
-    phase("K1:bwd", cases=len(bwd_cases) + 1,
+    # zamba2's shared attention at its training shape: G = 1, D = 80
+    zaB, zaH, zaHkv, zaS, zaD = Z_BWD_TRAIN
+    bwd_err["bfloat16"] = 0.0
+    zargs_1, zgot = k1_bwd_case(zaB, zaH, zaHkv, zaS, zaS, zaD, True, 0,
+                                bf16,
+                                f"zamba2 bwd train shape {Z_BWD_TRAIN}")
+    z_err["bwd_train"] = bwd_err["bfloat16"]
+    again = ops.flash_attention_bwd(*zargs_1, causal=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(zgot, again)):
+        fail("K1 backward at zamba2's shape: two runs differ")
+    z_err["fwd_train"] = check_close(
+        zargs_1[3], attention_reference(*zargs_1[:3], causal=True),
+        "bfloat16", f"K1 forward at zamba2's train shape {Z_BWD_TRAIN}")
+    del zargs_1, zgot
+    phase("K1:bwd", cases=len(bwd_cases) + 2,
           paths=json.dumps(bwd_paths, separators=(",", ":")),
           max_err_f32=f"{small_err['float32']:.3e}",
           max_err_bf16=f"{max(small_err['bfloat16'], err_bwd_train):.3e}",
           train_shape=str(BWD_TRAIN).replace(" ", ""),
           train_shape_err=f"{err_bwd_train:.3e}", bitwise_repeatable=True,
           fwd_train_shape_err=f"{err_fwd_train:.3e}",
+          zamba2_train_shape=str(Z_BWD_TRAIN).replace(" ", ""),
+          zamba2_train_shape_err=f"{z_err['bwd_train']:.3e}",
+          zamba2_fwd_train_shape_err=f"{z_err['fwd_train']:.3e}",
           lse_max_err=f"{lse_err:.3e}",
           tol=json.dumps(BWD_TOL, separators=(",", ":")))
     del targs_1, tgot, again
@@ -765,9 +925,20 @@ def main() -> None:
             check_close(out, ssd_chunked_reference(*ssd_args, sQ), name,
                         f"ssd slice {name} decay {decay} (chunked)",
                         SSD_CHUNKED_TOL[name]))
+    # zamba2's scan at its prefill path's shape (80 heads, N = 64), bf16 on
+    # wgmma, at mamba2's decays (zamba2's A and dt draw the same way)
+    zsQ = Z_SSD_PREFILL[5]
+    zs_args = ssd_inputs(*Z_SSD_PREFILL[:5], "model", bf16)
+    what = f"zamba2 ssd prefill {Z_SSD_PREFILL} bf16 decay model"
+    out, path = k3_call(*zs_args, zsQ, what)
+    if path != "wgmma":
+        fail(f"{what}: took K3's {path} path, not wgmma")
+    z_err["ssd_prefill"] = check_close(
+        out, ssd_chunked_reference(*zs_args, zsQ), "bfloat16", what,
+        SSD_CHUNKED_TOL["bfloat16"])
     torch.cuda.synchronize()
     del out
-    phase("K3", cases=len(SSD_CASES) + 3,
+    phase("K3", cases=len(SSD_CASES) + 4,
           paths=json.dumps(ssd_paths, separators=(",", ":")),
           max_err_f32=f"{ssd_err['float32'][0]:.3e}",
           max_err_bf16=f"{ssd_err['bfloat16'][0]:.3e}",
@@ -780,6 +951,8 @@ def main() -> None:
                                f"{slice_err['bfloat16'][1]:.3e}",
           model_decay_err_f32=f"{slice_err['model_f32'][0]:.3e}",
           model_decay_err_vs_chunked=f"{slice_err['model_f32'][1]:.3e}",
+          zamba2_prefill=str(Z_SSD_PREFILL).replace(" ", ""),
+          zamba2_prefill_err_vs_chunked=f"{z_err['ssd_prefill']:.3e}",
           tol=json.dumps(SSD_TOL, separators=(",", ":")),
           tol_vs_chunked=json.dumps(SSD_CHUNKED_TOL, separators=(",", ":")))
     mark("K3")
@@ -876,6 +1049,33 @@ def main() -> None:
                 fail("K3 backward: two runs on the same inputs differ")
             del again
         del tgot, targs
+    # zamba2's scan at its training shape (80 heads, N = 64; dB and dC sum
+    # 2.5x mamba2's heads): the forward and the backward in bf16 on wgmma,
+    # at mamba2's decays and at mild ones; two backward runs bit for bit
+    zbB, zbH, zbS, zbP, zbN, zbQ = Z_SSD_TRAIN
+    z_bwd_err = {}
+    if ss.select_bwd_path(bf16, zbP, zbN, zbQ) != "wgmma":
+        fail("K3 backward at zamba2's training shape does not take wgmma")
+    for decay in ("model", 0.02):
+        targs = ssd_bwd_inputs(zbB, zbH, zbS, zbP, zbN, decay, bf16)
+        what = f"zamba2 ssd train shape {Z_SSD_TRAIN} bf16 decay {decay}"
+        if decay == "model":
+            out, path = k3_call(*targs[:4], zbQ, what)
+            if path != "wgmma":
+                fail(f"{what}: took K3's {path} path, not wgmma")
+            z_err["ssd_train_fwd"] = check_close(
+                out, ssd_chunked_reference(*targs[:4], zbQ), "bfloat16",
+                what, SSD_CHUNKED_TOL["bfloat16"])
+            del out
+        tgot, z_bwd_err[decay] = k3_bwd_case(targs, zbQ, what + " bwd")
+        if decay == "model":
+            zssd_bwd_args = targs                 # timed in phase 14
+            again = ops.ssd_scan_bwd(*targs, chunk=zbQ)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a_, b_) for a_, b_ in zip(tgot, again)):
+                fail("K3 backward at zamba2's shape: two runs differ")
+            del again
+        del tgot, targs
     # strided: (B, H, S, P) views of xdt, a and dy, B and C cut from a
     # wider projection: the contiguous inputs' gradients bit for bit
     sargs = ssd_bwd_inputs(2, 4, 512, 64, 128, 0.02, bf16)
@@ -892,7 +1092,7 @@ def main() -> None:
     del sargs, views, wide
     torch.cuda.synchronize()
     fmt = lambda v: ",".join(f"{x:.3e}" for x in v)
-    phase("K3:bwd", cases=len(bwd_table) + 3,
+    phase("K3:bwd", cases=len(bwd_table) + 5,
           case_paths=json.dumps(bwd_case_paths, separators=(",", ":")),
           path_launches=json.dumps(ss.ssd_scan_bwd.path_launches,
                                    separators=(",", ":")),
@@ -905,6 +1105,11 @@ def main() -> None:
           train_shape_fwd_err=f"{train_fwd_err['float32']:.3e},"
                               f"{train_fwd_err['bfloat16']:.3e}",
           fwd_tol=json.dumps(SSD_CHUNKED_TOL, separators=(",", ":")),
+          zamba2_train_shape=str(Z_SSD_TRAIN).replace(" ", ""),
+          zamba2_train_shape_err=json.dumps(
+              {f"bfloat16,{k}": fmt(v) for k, v in z_bwd_err.items()},
+              separators=(",", ":")),
+          zamba2_train_shape_fwd_err=f"{z_err['ssd_train_fwd']:.3e}",
           strided_bitwise_equal=True, bitwise_repeatable=True,
           err_order="dx,da,dB,dC",
           tol=json.dumps(SSD_BWD_TOL, separators=(",", ":")))
@@ -1021,56 +1226,225 @@ def main() -> None:
               "SDPA train fwd": device_ms(sdpa_tfwd,
                                           "SDPA forward, train shape",
                                           iters=8)}
+    # zamba2's rows: K1 (G = 1, D = 80) decode at the serving path's last
+    # kv_len and prefill at S = 1024, K1's forward with its lse and its
+    # backward at the training shape (B = 8), SDPA beside each; K3 at the
+    # prefill and training shapes, and its backward
+    z_n = PROMPT + DECODE
+    z_kv = torch.tensor(z_n, dtype=torch.int32, device=dev)
+    zk1_dec = lambda: ops.flash_attention(*zdargs, causal=False, kv_len=z_kv)
+    zsdpa_dec = lambda: F.scaled_dot_product_attention(
+        zdargs[0], zdargs[1][:, :, :z_n], zdargs[2][:, :, :z_n])
+    zk1_pre = lambda: ops.flash_attention(*zpargs, causal=True)
+    zsdpa_pre = lambda: F.scaled_dot_product_attention(*zpargs,
+                                                       is_causal=True)
+    zq_, zdo_ = (rand((TRAIN_BATCH, zaS, zaH, zaD), bf16).transpose(1, 2)
+                 for _ in range(2))
+    zk_, zv_ = (rand((TRAIN_BATCH, zaS, zaHkv, zaD), bf16).transpose(1, 2)
+                for _ in range(2))
+    zbwd_set = (zq_, zk_, zv_, *fa.flash_attention_lse(zq_, zk_, zv_,
+                                                        causal=True))
+    zbwd_set = zbwd_set[:4] + (zdo_, zbwd_set[4])     # q, k, v, o, dO, lse
+    del zq_, zk_, zv_, zdo_
+    zk1_bwd = lambda: ops.flash_attention_bwd(*zbwd_set, causal=True)
+    zk1_tfwd = lambda: fa.flash_attention_lse(*zbwd_set[:3], causal=True)
+    zsdpa_tfwd = lambda: F.scaled_dot_product_attention(*zbwd_set[:3],
+                                                        is_causal=True)
+    zsq, zsk, zsv = (t.detach().requires_grad_() for t in zbwd_set[:3])
+    zs_out = F.scaled_dot_product_attention(zsq, zsk, zsv, is_causal=True)
+    zsdpa_bwd = lambda: torch.autograd.grad(zs_out, (zsq, zsk, zsv),
+                                            zbwd_set[4], retain_graph=True)
+    zk3_pre = lambda: ops.ssd_scan(*zs_args, chunk=zsQ)
+    zk3_tfwd = lambda: ops.ssd_scan(*zssd_bwd_args[:4], chunk=zbQ)
+    zk3_bwd = lambda: ops.ssd_scan_bwd(*zssd_bwd_args, chunk=zbQ)
+    dev_ms.update({
+        "Z K1 decode": device_ms(zk1_dec, "zamba2 K1 decode"),
+        "Z SDPA decode": device_ms(zsdpa_dec, "zamba2 SDPA decode"),
+        "Z K1 prefill": device_ms(zk1_pre, "zamba2 K1 prefill", iters=8),
+        "Z SDPA prefill": device_ms(zsdpa_pre, "zamba2 SDPA prefill",
+                                    iters=8),
+        "Z K1 train fwd": device_ms(zk1_tfwd, "zamba2 K1 forward, train "
+                                    "shape", iters=8),
+        "Z SDPA train fwd": device_ms(zsdpa_tfwd, "zamba2 SDPA forward, "
+                                      "train shape", iters=8),
+        "Z K1 bwd": device_ms(zk1_bwd, "zamba2 K1 backward", iters=4),
+        "Z SDPA bwd": device_ms(zsdpa_bwd, "zamba2 SDPA backward", iters=4),
+        "Z K3 prefill": device_ms(zk3_pre, "zamba2 K3 prefill", iters=5),
+        "Z K3 train fwd": device_ms(zk3_tfwd, "zamba2 K3 forward, train "
+                                    "shape", iters=8),
+        "Z K3 bwd": device_ms(zk3_bwd, "zamba2 K3 backward", iters=4)})
     del cold_dec, cold_pre, k3_bwd_sets, ssd_bwd_f32_args
     mark("device_ms")
 
+    # zamba2's kernel rows for phase 14, timed here and their inputs freed
+    # (they would count in the training phases' peak memory): K1 at G = 1,
+    # D = 80 (decode at the serving path's last step, prefill at the
+    # prefill path's S = 1024, training forward and backward at B = 8,
+    # S = 4096), K3 at 80 heads, N = 64 (prefill, training forward and
+    # backward); work and bytes counted as phase 14's rows count them.
+    # Their launches come from the zamba2 paths (phases 13e-13h)
+    attn_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    zb_dec = bound_ms(2 * (2 * BATCH * zH * zD + 2 * BATCH * zHkv * z_n * zD),
+                      4 * BATCH * zH * z_n * zD, "bfloat16")
+    zS_ = M_PREFILL_S
+    zb_pre = bound_ms(2 * 4 * BATCH * zS_ * zH * zD,
+                      4 * BATCH * zH * zD * (zS_ * (zS_ + 1) // 2), "bfloat16")
+    zpairs = zaS * (zaS + 1) // 2
+    zb_tfwd = bound_ms(2 * 2 * TRAIN_BATCH * zaS * (zaH + zaHkv) * zaD
+                       + 4 * TRAIN_BATCH * zaH * zaS,
+                       2 * 2 * TRAIN_BATCH * zaH * zaD * zpairs, "bfloat16")
+    zb_bwd = bound_ms(2 * (4 * TRAIN_BATCH * zaS * zaH * zaD +
+                            4 * TRAIN_BATCH * zaS * zaHkv * zaD)
+                      + 4 * TRAIN_BATCH * zaH * zaS,
+                      5 * 2 * TRAIN_BATCH * zaH * zaD * zpairs, "bfloat16")
+
+    def per_row(fn, args):
+        """A plain version one batch row at a time (its fp32 scores at the
+        full batch would not fit)."""
+        return lambda: [fn(*(t[b_:b_ + 1] for t in args), causal=True)
+                        for b_ in range(args[0].shape[0])]
+
+    z_rows = []
+    z_note = f"zamba2-2.7b's {DEPTH_STEPS}-step 54-layer training run"
+    for name, path, note, err, fn, dms, plain, b_, lib, ldms, shape in (
+        ("flash_attention_fwd (zamba2 decode, G=1, D=80)", "split_decode",
+         "one decode_demo run at 54 layers (9 groups)",
+         z_err["decode"], zk1_dec, "Z K1 decode",
+         (lambda: attention_reference(*zdargs, causal=False, kv_len=z_kv),
+          20), zb_dec, zsdpa_dec, "Z SDPA decode",
+         f"B={BATCH} H={zH} Hkv={zHkv} D={zD} kv_len={z_n} of {CACHE} bf16"),
+        ("flash_attention_fwd (zamba2 prefill, causal)", "mma",
+         "one make_prefill_step at B=16, S=1024",
+         z_err[f"prefill{M_PREFILL_S}"], zk1_pre, "Z K1 prefill",
+         (lambda: attention_reference(*zpargs, causal=True), 3), zb_pre,
+         zsdpa_pre, "Z SDPA prefill",
+         f"B={BATCH} H={zH} Hkv={zHkv} D={zD} Sq=Sk={M_PREFILL_S} bf16, "
+         "the block kernel"),
+        ("flash_attention_fwd (zamba2 train, causal, with lse)", "mma",
+         z_note, z_err["fwd_train"], zk1_tfwd,
+         "Z K1 train fwd", (per_row(attention_reference, zbwd_set[:3]), 2),
+         zb_tfwd, zsdpa_tfwd, "Z SDPA train fwd",
+         f"B={TRAIN_BATCH} H={zaH} Hkv={zaHkv} D={zaD} S={zaS} causal bf16"),
+        ("flash_attention_bwd (zamba2 train, causal)", "wgmma",
+         z_note, z_err["bwd_train"], zk1_bwd, "Z K1 bwd",
+         (per_row(attention_backward_reference, zbwd_set), 2), zb_bwd,
+         zsdpa_bwd, "Z SDPA bwd",
+         f"B={TRAIN_BATCH} H={zaH} Hkv={zaHkv} D={zaD} S={zaS} causal bf16")):
+        z_rows.append({
+            "name": name, "route": "cuda",
+            "source": attn_src if "fwd" in name else
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "path": path, "launches_note": note,
+            "max_abs_err": err,
+            "ms": time_ms(fn, iters=10, warmup=2), "device_ms": dev_ms[dms],
+            "plain_ms": time_ms(plain[0], iters=plain[1], warmup=1),
+            "bound_ms": b_[0], "bound_by": b_[1],
+            "library_ms": time_ms(lib, iters=10, warmup=2),
+            "library_device_ms": dev_ms[ldms], "shape": shape})
+    ssd_src = "src/repro_torch/kernels/csrc/ssd_scan.cu"
+    zbB_, zbH_, zbS_, zbP_, zbN_, zbQ_ = Z_SSD_TRAIN
+    znc, zpb = zbS_ // zbQ_, zbQ_ * (zbQ_ + 1) // 2
+    zb_k3b = bound_ms(
+        2 * 3 * zbB_ * zbS_ * zbH_ * zbP_ + 4 * 2 * zbB_ * zbS_ * zbH_ +
+        2 * 4 * zbB_ * zbS_ * zbN_,
+        2 * (zbB_ * zbH_ * znc * (5 * zbQ_ * zbP_ * zbN_ +
+                                  zpb * (2 * zbP_ + 2 * zbN_))
+             + zbB_ * znc * zpb * zbN_), "bfloat16")
+    got = ops.ssd_scan_bwd(*zssd_bwd_args, chunk=zbQ)
+    exp = ssd_chunked_backward_reference(*zssd_bwd_args, zbQ)
+    z_err["ssd_bwd"] = max((g_.float() - e_.float()).abs().max().item()
+                           for g_, e_ in zip(got, exp))
+    del got, exp
+    no_lib = "no single PyTorch call computes an SSD chunked scan"
+    for name, src_, note, err, fn, dms, plain, b_, shape in (
+        ("ssd_scan_fwd (zamba2 prefill)", ssd_src,
+         "one make_prefill_step at B=16, S=1024", z_err["ssd_prefill"],
+         zk3_pre, "Z K3 prefill",
+         lambda: ssd_chunked_reference(*zs_args, zsQ),
+         k3_fwd_bound(*Z_SSD_PREFILL), Z_SSD_PREFILL),
+        ("ssd_scan_fwd (zamba2 train)", ssd_src, z_note,
+         z_err["ssd_train_fwd"], zk3_tfwd, "Z K3 train fwd",
+         lambda: ssd_chunked_reference(*zssd_bwd_args[:4], zbQ),
+         k3_fwd_bound(*Z_SSD_TRAIN), Z_SSD_TRAIN),
+        ("ssd_scan_bwd (zamba2 train)",
+         "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu", z_note,
+         z_err["ssd_bwd"], zk3_bwd, "Z K3 bwd",
+         lambda: ssd_chunked_backward_reference(*zssd_bwd_args, zbQ),
+         zb_k3b, Z_SSD_TRAIN)):
+        z_rows.append({
+            "name": name, "route": "cuda", "source": src_,
+            "replaces": "src/repro/kernels/ssd_scan.py:59", "path": "wgmma",
+            "launches_note": note, "max_abs_err": err,
+            "ms": time_ms(fn, iters=10, warmup=2), "device_ms": dev_ms[dms],
+            "plain_ms": time_ms(plain, iters=2, warmup=1),
+            "bound_ms": b_[0], "bound_by": b_[1], "library_ms": None,
+            "library_device_ms": None,
+            "library_note": no_lib if "fwd" in name else
+            "no PyTorch call computes an SSD scan's gradient",
+            "shape": "B={} H={} S={} P={} N={} Q={} bf16 xdt/B/C{}, f32 a, "
+                     "mamba2's decays".format(*shape, "/dy" if "bwd" in name
+                                              else "")})
+    del zbwd_set, zs_out, zssd_bwd_args, zs_args, zpargs, zdargs, zkc, zvc
+    torch.cuda.empty_cache()
+
+    def serve_runs(c, tag, k1_per_step):
+        """The serving path of ``c``: ``decode_demo`` at the serving
+        schedule without and with resizes, kernel counts zeroed just before
+        each run and read just after.  Each run must launch K1
+        ``k1_per_step`` times a decode step, all on split_decode, and K3
+        never (an SSM decode step is the recurrence); both must give the
+        same tokens.  Returns the runs and one run's K1 launches."""
+        runs = {}
+        want = k1_per_step * (PROMPT + DECODE)
+        for label, schedule in (("static", None), ("elastic", SCHEDULE)):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            out = decode_demo(c, batch=BATCH, prompt_len=PROMPT,
+                              decode_steps=DECODE, cache_len=CACHE,
+                              workers=WORKERS, device=dev,
+                              schedule=schedule, seed=0)
+            torch.cuda.synchronize()
+            counts = ops.launch_counts()
+            paths = dict(fa.flash_attention.path_launches)
+            if counts["flash_attention"] != want or counts["ssd_scan"] or \
+                    paths != {"fma": 0, "mma": 0, "split_decode": want}:
+                fail(f"{tag} {label} run launched {counts} (K1 paths "
+                     f"{paths}), not K1 {want} times on split_decode and "
+                     "no K3")
+            toks = out["tokens"]
+            if toks.shape != (BATCH, DECODE) or toks.min() < 0 or \
+                    toks.max() >= c.vocab_size:
+                fail(f"{tag} {label} run: tokens of shape {toks.shape} in "
+                     f"[{toks.min()}, {toks.max()}]")
+            runs[label] = out
+            phase(f"{tag}:{label}", layers=c.num_layers,
+                  prefill_s=f"{out['prefill_s']:.3f}",
+                  decode_ms_per_token=f"{out['decode_s'] / DECODE * 1e3:.3f}",
+                  k1_launches=counts["flash_attention"],
+                  path_launches=json.dumps(paths, separators=(",", ":")),
+                  peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                  sizes=json.dumps(out["sizes"], separators=(",", ":")))
+            for ev in out["events"]:
+                phase(f"{tag}:{label}:resize", step=ev.step,
+                      action=ev.action,
+                      sizes=f"{ev.from_procs}->{ev.to_procs}",
+                      bytes_moved=ev.transfer.bytes_moved,
+                      seconds=f"{ev.transfer.seconds:.4f}")
+        if not np.array_equal(runs["static"]["tokens"],
+                              runs["elastic"]["tokens"]):
+            fail(f"{tag}: tokens differ between the static and the elastic "
+                 "run")
+        actions = [e.action for e in runs["elastic"]["events"]]
+        if actions != ["expand", "shrink"]:
+            fail(f"{tag} resize actions {actions}")
+        phase(tag, tokens_equal=True, actions=",".join(actions))
+        return runs, want
+
     # -- 6. the granite serving path ----------------------------------------
-    runs = {}
-    flash_path = []
-    for label, schedule in (("static", None), ("elastic", SCHEDULE)):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        ops.reset_counts()
-        out = decode_demo(cfg, batch=BATCH, prompt_len=PROMPT,
-                          decode_steps=DECODE, cache_len=CACHE,
-                          workers=WORKERS, device=dev, schedule=schedule,
-                          seed=0)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        paths = dict(fa.flash_attention.path_launches)
-        flash_path.append(counts["flash_attention"])
-        want = cfg.num_layers * (PROMPT + DECODE)
-        if counts["flash_attention"] != want:
-            fail(f"{label} run launched K1 {counts['flash_attention']} "
-                 f"times, not {want}")
-        if paths != {"fma": 0, "mma": 0, "split_decode": want}:
-            fail(f"{label} run's K1 paths {paths}: every decode step should "
-                 "take split_decode")
-        toks = out["tokens"]
-        if toks.shape != (BATCH, DECODE) or toks.min() < 0 or \
-                toks.max() >= cfg.vocab_size:
-            fail(f"{label} run: tokens of shape {toks.shape} in "
-                 f"[{toks.min()}, {toks.max()}]")
-        runs[label] = out
-        phase(f"path:{label}", prefill_s=f"{out['prefill_s']:.3f}",
-              decode_ms_per_token=f"{out['decode_s'] / DECODE * 1e3:.3f}",
-              flash_launches=counts["flash_attention"],
-              path_launches=json.dumps(paths, separators=(",", ":")),
-              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-              sizes=json.dumps(out["sizes"], separators=(",", ":")))
-        for ev in out["events"]:
-            phase(f"path:{label}:resize", step=ev.step, action=ev.action,
-                  sizes=f"{ev.from_procs}->{ev.to_procs}",
-                  bytes_moved=ev.transfer.bytes_moved,
-                  seconds=f"{ev.transfer.seconds:.4f}")
-        del out
-    ela = runs["elastic"]
-    if not np.array_equal(runs["static"]["tokens"], ela["tokens"]):
-        fail("tokens differ between the static and the elastic run")
-    if [e.action for e in ela["events"]] != ["expand", "shrink"]:
-        fail(f"resize actions {[e.action for e in ela['events']]}")
-    phase("path", tokens_equal=True, actions="expand,shrink")
+    runs, granite_decode_launches = serve_runs(cfg, "path", cfg.num_layers)
     mark("granite_path")
 
     # -- 7. granite prefill vs decode ---------------------------------------
@@ -1171,156 +1545,162 @@ def main() -> None:
     mark("granite_profile")
 
     # -- 9. the mamba2 serving path -----------------------------------------
-    mcfg = get_config(MAMBA)
-    mruns = {}
-    for label, schedule in (("static", None), ("elastic", SCHEDULE)):
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        ops.reset_counts()
-        out = decode_demo(MAMBA, batch=BATCH, prompt_len=PROMPT,
-                          decode_steps=DECODE, cache_len=CACHE,
-                          workers=WORKERS, device=dev, schedule=schedule,
-                          seed=0)
-        torch.cuda.synchronize()
-        counts = ops.launch_counts()
-        if counts["flash_attention"] or counts["ssd_scan"]:
-            fail(f"mamba2 {label} decode launched {counts}: the SSM decode "
-                 "step is the recurrence, with neither K1 nor K3")
-        toks = out["tokens"]
-        if toks.shape != (BATCH, DECODE) or toks.min() < 0 or \
-                toks.max() >= mcfg.vocab_size:
-            fail(f"mamba2 {label} run: tokens of shape {toks.shape} in "
-                 f"[{toks.min()}, {toks.max()}]")
-        mruns[label] = out
-        phase(f"mamba2:{label}", prefill_s=f"{out['prefill_s']:.3f}",
-              decode_ms_per_token=f"{out['decode_s'] / DECODE * 1e3:.3f}",
-              launches=json.dumps(counts, separators=(",", ":")),
-              peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-              sizes=json.dumps(out["sizes"], separators=(",", ":")))
-        for ev in out["events"]:
-            phase(f"mamba2:{label}:resize", step=ev.step, action=ev.action,
-                  sizes=f"{ev.from_procs}->{ev.to_procs}",
-                  bytes_moved=ev.transfer.bytes_moved,
-                  seconds=f"{ev.transfer.seconds:.4f}")
-        del out
-    if not np.array_equal(mruns["static"]["tokens"],
-                          mruns["elastic"]["tokens"]):
-        fail("mamba2: tokens differ between the static and the elastic run")
-    m_actions = [e.action for e in mruns["elastic"]["events"]]
-    if m_actions != ["expand", "shrink"]:
-        fail(f"mamba2 resize actions {m_actions}")
-    phase("mamba2", tokens_equal=True, actions=",".join(m_actions))
+    # at MAMBA_SERVE_LAYERS of its 48 layers (training runs all 48)
+    mvcfg = dataclasses.replace(get_config(MAMBA),
+                                num_layers=MAMBA_SERVE_LAYERS)
+    serve_runs(mvcfg, "mamba2", 0)
     mark("mamba2_path")
 
-    # -- 10. mamba2 prefill vs decode, and where the prefill's time goes ----
-    torch.cuda.empty_cache()
-    mparams = M.init_params(mcfg, torch.Generator(dev).manual_seed(0), dev)
-    mprompts = torch.from_numpy(np.random.default_rng(1).integers(
-        0, mcfg.vocab_size, (BATCH, M_PREFILL_S), dtype=np.int32)).to(dev)
-    mbatch = {"tokens": mprompts}
-    mcfg32 = dataclasses.replace(mcfg, dtype="float32")
-    MV = mcfg.vocab_size
+    def prefill_launches(c, params, batch, tag, want):
+        """One ``make_prefill_step``, the kernel counts zeroed just before
+        and read just after; ``want`` maps K1 and K3 to their launches by
+        path.  Returns K1's and K3's launches."""
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            first = make_prefill_step(c)(params, batch)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        paths = {k_: dict(ops.KERNELS[k_].path_launches) for k_ in want}
+        if paths != want or any(counts[k_] != sum(v.values())
+                                for k_, v in want.items()):
+            fail(f"{tag} prefill launched {counts} on paths {paths}, not "
+                 f"{want}")
+        phase(f"{tag}:prefill", layers=c.num_layers, batch=BATCH,
+              seq=batch["tokens"].shape[1], prefill_s=f"{secs:.3f}",
+              launches=json.dumps({k_: counts[k_] for k_ in want},
+                                  separators=(",", ":")),
+              path_launches=json.dumps(paths, separators=(",", ":")),
+              first_tokens=",".join(map(str, first[:4].tolist())))
+        return {k_: counts[k_] for k_ in want}
 
-    def m_decode_logits(c, full=None):
-        """Last logits of the token-by-token decode over the prompt, and
-        the largest gap to ``full`` (B, S, V) logits over every position."""
-        cache = M.init_cache(c, BATCH, M_PREFILL_S, device=dev)
-        gap = torch.zeros((), device=dev)
-        for i in range(M_PREFILL_S):
-            logits, cache = M.decode_step(
-                mparams, c, mprompts[:, i:i + 1], cache,
-                torch.tensor(i, dtype=torch.int32, device=dev))
-            if full is not None:
-                gap = torch.maximum(gap, (logits[:, -1, :MV].float() -
-                                          full[:, i]).abs().max())
-        return logits[:, -1, :MV].float(), gap.item()
-
-    with torch.no_grad():
-        torch.cuda.synchronize()
-        ops.reset_counts()
-        t0 = time.perf_counter()
-        m_first = make_prefill_step(mcfg)(mparams, mbatch)
-        torch.cuda.synchronize()
-        m_prefill_s = time.perf_counter() - t0
-        m_counts = ops.launch_counts()
-        k3_prefill = m_counts["ssd_scan"]
-        k3_prefill_paths = dict(ss.ssd_scan.path_launches)
-        if k3_prefill != mcfg.num_layers or m_counts["flash_attention"] or \
-                k3_prefill_paths != {"fma": 0, "wgmma": mcfg.num_layers}:
-            fail(f"mamba2 prefill launched {m_counts} (K3 paths "
-                 f"{k3_prefill_paths}), not K3 {mcfg.num_layers} times on "
-                 "wgmma")
-        mlp = prefill_logits(mparams, mcfg, mbatch)[:, :MV].float()
-        full32 = M.forward(mparams, mcfg32, mbatch)[0][..., :MV]
-        mlp32 = prefill_logits(mparams, mcfg32, mbatch)[:, :MV].float()
-        rounded = T.tree_map(lambda t: t.bfloat16().float(), mparams)
-        mlp32w = prefill_logits(rounded, mcfg32, mbatch)[:, :MV].float()
-        del rounded
-        mld32, m_gap_all = m_decode_logits(mcfg32, full32)
-        del full32
-        mld, _ = m_decode_logits(mcfg)
-    if not all(bool(torch.isfinite(t).all()) for t in (mlp, mld, mlp32,
-                                                        mld32)):
-        fail("mamba2 logits are not finite")
-    m_gap32 = (mlp32 - mld32).abs().max().item()
-
-    def gap(a, b):
+    def max_rms(a, b):
         d = (a - b).abs()
         return d.max().item(), d.square().mean().sqrt().item()
 
-    m_err_p, m_rms_p = gap(mlp, mlp32)
-    m_err_d, m_rms_d = gap(mld, mld32)
-    m_err_w, m_rms_w = gap(mlp32w, mlp32)
-    m_agree = (m_first == mld.argmax(-1)).float().mean().item()
-    phase("mamba2:prefill", batch=BATCH, seq=M_PREFILL_S,
-          chunks=M_PREFILL_S // mcfg.ssm.chunk_size, k3_launches=k3_prefill,
-          k3_path_launches=json.dumps(k3_prefill_paths, separators=(",", ":")),
-          prefill_s=f"{m_prefill_s:.3f}",
-          fp32_prefill_vs_decode=f"{m_gap32:.4e}",
-          fp32_all_positions=f"{m_gap_all:.4e}", fp32_tol=M_FP32_LOGITS_ATOL,
-          bf16_prefill_vs_fp32=f"{m_err_p:.4e}",
-          bf16_decode_vs_fp32=f"{m_err_d:.4e}",
-          bf16_rms=f"{m_rms_p:.4e},{m_rms_d:.4e}",
-          fp32_bf16_weights=f"{m_err_w:.4e}",
-          fp32_bf16_weights_rms=f"{m_rms_w:.4e}",
-          bf16_tol=f"{M_BF16_LOGITS_MAX},{M_BF16_LOGITS_RMS}",
-          logits_std=f"{mlp32.std().item():.3f}",
-          bf16_prefill_vs_decode_argmax_agreement=f"{m_agree:.3f}")
-    if max(m_gap32, m_gap_all) > M_FP32_LOGITS_ATOL:
-        fail(f"mamba2 fp32 prefill vs decode logits differ by "
-             f"{max(m_gap32, m_gap_all):.3e} > {M_FP32_LOGITS_ATOL}")
-    if max(m_err_p, m_err_d) > M_BF16_LOGITS_MAX or \
-            max(m_rms_p, m_rms_d) > M_BF16_LOGITS_RMS:
-        fail(f"mamba2 bf16 logits off the fp32 ones by "
-             f"{max(m_err_p, m_err_d):.3e} (rms {max(m_rms_p, m_rms_d):.3e})"
-             f" > {M_BF16_LOGITS_MAX} ({M_BF16_LOGITS_RMS})")
-    with torch.no_grad():
-        t0 = time.perf_counter()
-        make_prefill_step(mcfg)(mparams, mbatch)
-        torch.cuda.synchronize()
-        m_wall_s = time.perf_counter() - t0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+    def logits_check(c, params, prompts, tag, fp32_tol, bf16_tol):
+        """Prefill against token-by-token decode after the same prompts:
+        fp32 full-sequence logits at every position against the fp32
+        decode's (``fp32_tol``: bounds of the largest and the rms gap, the
+        rms unchecked when None), and the bf16 prefill's and decode's last
+        logits against fp32 (``bf16_tol``: the largest and the rms gap),
+        beside the fp32 model with its weights rounded to bf16, the
+        yardstick of how far bf16 rounding alone moves them."""
+        V, S = c.vocab_size, prompts.shape[1]
+        batch = {"tokens": prompts}
+        c32 = dataclasses.replace(c, dtype="float32")
+
+        def decode_logits(cc, full=None):
+            cache = M.init_cache(cc, BATCH, S, device=dev)
+            mx = sq = torch.zeros((), device=dev)
+            for i in range(S):
+                logits, cache = M.decode_step(
+                    params, cc, prompts[:, i:i + 1], cache,
+                    torch.tensor(i, dtype=torch.int32, device=dev))
+                if full is not None:
+                    d_ = (logits[:, -1, :V].float() - full[:, i]).abs()
+                    mx = torch.maximum(mx, d_.max())
+                    sq = sq + d_.square().mean() / S
+            return logits[:, -1, :V].float(), mx.item(), sq.sqrt().item()
+
+        with torch.no_grad():
+            lp = prefill_logits(params, c, batch)[:, :V].float()
+            full32 = M.forward(params, c32, batch)[0][..., :V]
+            lp32 = prefill_logits(params, c32, batch)[:, :V].float()
+            rounded = T.tree_map(lambda t: t.bfloat16().float(), params)
+            lp32w = prefill_logits(rounded, c32, batch)[:, :V].float()
+            del rounded
+            ld32, gap_all, rms_all = decode_logits(c32, full32)
+            del full32
+            ld, _, _ = decode_logits(c)
+        if not all(bool(torch.isfinite(t).all()) for t in (lp, ld, lp32,
+                                                            ld32)):
+            fail(f"{tag} logits are not finite")
+        gap32 = (lp32 - ld32).abs().max().item()
+        err_p, rms_p = max_rms(lp, lp32)
+        err_d, rms_d = max_rms(ld, ld32)
+        err_w, rms_w = max_rms(lp32w, lp32)
+        agree = (lp.argmax(-1) == ld.argmax(-1)).float().mean().item()
+        phase(f"{tag}:logits", layers=c.num_layers, batch=BATCH, seq=S,
+              fp32_prefill_vs_decode=f"{gap32:.4e}",
+              fp32_all_positions=f"{gap_all:.4e}",
+              fp32_all_positions_rms=f"{rms_all:.4e}",
+              fp32_tol=",".join(map(str, fp32_tol)),
+              bf16_prefill_vs_fp32=f"{err_p:.4e}",
+              bf16_decode_vs_fp32=f"{err_d:.4e}",
+              bf16_rms=f"{rms_p:.4e},{rms_d:.4e}",
+              fp32_bf16_weights=f"{err_w:.4e}",
+              fp32_bf16_weights_rms=f"{rms_w:.4e}",
+              bf16_tol=",".join(map(str, bf16_tol)),
+              logits_std=f"{lp32.std().item():.3f}",
+              bf16_prefill_vs_decode_argmax_agreement=f"{agree:.3f}")
+        if max(gap32, gap_all) > fp32_tol[0] or \
+                (fp32_tol[1] is not None and rms_all > fp32_tol[1]):
+            fail(f"{tag} fp32 prefill vs decode logits differ by "
+                 f"{max(gap32, gap_all):.3e} (rms {rms_all:.3e}) > "
+                 f"{fp32_tol}")
+        if max(err_p, err_d) > bf16_tol[0] or max(rms_p, rms_d) > bf16_tol[1]:
+            fail(f"{tag} bf16 logits off the fp32 ones by "
+                 f"{max(err_p, err_d):.3e} (rms {max(rms_p, rms_d):.3e}) > "
+                 f"{bf16_tol}")
+
+    def traced_prefill(c, params, batch, tag, names):
+        """One untraced, then one traced ``make_prefill_step``: device busy
+        time, idle share, each of ``names``' kernels' device ms and share
+        (each must show), the largest device kernels."""
+        with torch.no_grad():
             t0 = time.perf_counter()
-            make_prefill_step(mcfg)(mparams, mbatch)
+            make_prefill_step(c)(params, batch)
             torch.cuda.synchronize()
-            m_traced_s = time.perf_counter() - t0
-    dev_events = device_events(prof)
-    m_busy_ms = sum(device_us(e) for e in dev_events) / 1e3
-    k3_ms = sum(device_us(e) for e in dev_events if "ssd_scan" in e.key) / 1e3
-    if m_busy_ms <= 0 or k3_ms <= 0:
-        fail("the profiler saw no device time (or no K3) in the traced "
-             "mamba2 prefill")
-    top = [{"kernel": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
-           for e in dev_events[:PROFILE_TOP]]
-    phase("mamba2:profile", untraced_prefill_s=f"{m_wall_s:.3f}",
-          traced_prefill_s=f"{m_traced_s:.3f}",
-          traced_device_busy_ms=f"{m_busy_ms:.3f}",
-          traced_idle_share=f"{1 - m_busy_ms / (m_traced_s * 1e3):.4f}",
-          k3_ms=f"{k3_ms:.3f}", k3_share_of_device=f"{k3_ms / m_busy_ms:.4f}",
-          top=json.dumps(top, separators=(",", ":")))
-    del mparams, prof, mlp, mld, mlp32, mld32
+            wall_s = time.perf_counter() - t0
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                make_prefill_step(c)(params, batch)
+                torch.cuda.synchronize()
+                traced_s = time.perf_counter() - t0
+        evs = device_events(prof)
+        busy = sum(device_us(e) for e in evs) / 1e3
+        fields = {}
+        for k_, test in names.items():
+            ms_ = sum(device_us(e) for e in evs if test(e.key)) / 1e3
+            if busy <= 0 or ms_ <= 0:
+                fail(f"the profiler saw no device time (or no {k_}) in the "
+                     f"traced {tag} prefill")
+            fields[f"{k_}_ms"] = f"{ms_:.3f}"
+            fields[f"{k_}_share_of_device"] = f"{ms_ / busy:.4f}"
+        top = [{"kernel": e.key[:80], "ms": device_us(e) / 1e3,
+                "calls": e.count} for e in evs[:PROFILE_TOP]]
+        phase(f"{tag}:profile", untraced_prefill_s=f"{wall_s:.3f}",
+              traced_prefill_s=f"{traced_s:.3f}",
+              traced_device_busy_ms=f"{busy:.3f}",
+              traced_idle_share=f"{1 - busy / (traced_s * 1e3):.4f}",
+              **fields, top=json.dumps(top, separators=(",", ":")))
+
+    # device records of K1's and K3's forward and backward kernels
+    is_k1_fwd = lambda k_: "attn_" in k_ and "attn_bwd" not in k_
+    is_k1_bwd = lambda k_: "attn_bwd" in k_
+    is_k3_fwd = lambda k_: "ssd_scan" in k_
+    is_k3_bwd = lambda k_: "ssd_bwd" in k_
+    no_k1 = {"fma": 0, "mma": 0, "split_decode": 0}
+
+    # -- 10. mamba2 prefill vs decode, and where the prefill's time goes ----
+    torch.cuda.empty_cache()
+    mparams = M.init_params(mvcfg, torch.Generator(dev).manual_seed(0), dev)
+    mprompts = torch.from_numpy(np.random.default_rng(1).integers(
+        0, mvcfg.vocab_size, (BATCH, M_PREFILL_S), dtype=np.int32)).to(dev)
+    k3_prefill = prefill_launches(
+        mvcfg, mparams, {"tokens": mprompts}, "mamba2",
+        {"ssd_scan": {"fma": 0, "wgmma": mvcfg.num_layers},
+         "flash_attention": no_k1})["ssd_scan"]
+    logits_check(mvcfg, mparams, mprompts, "mamba2",
+                 (M_FP32_LOGITS_ATOL, None),
+                 (M_BF16_LOGITS_MAX, M_BF16_LOGITS_RMS))
+    traced_prefill(mvcfg, mparams, {"tokens": mprompts}, "mamba2",
+                   {"k3": is_k3_fwd})
+    del mparams
     mark("mamba2_prefill")
 
     # -- 11. the granite training path (Listing 2) ---------------------------
@@ -1368,11 +1748,19 @@ def main() -> None:
             secs.append(time.perf_counter() - t0)
         L = c.num_layers
         fwd, bwd = 2 * L * steps, L * steps           # remat: twice
-        if c.is_ssm:     # K3 forward on wgmma, its backward; no K1
-            want = {"flash_attention": 0, "flash_attention_bwd": 0,
+        if c.is_ssm or c.is_hybrid:
+            # K3 forward on wgmma, its backward; the hybrid's shared block
+            # runs K1 once per group (twice under remat) and its backward
+            g = L // c.shared_attention_every if c.is_hybrid else 0
+            want = {"flash_attention": 2 * g * steps,
+                    "flash_attention_bwd": g * steps,
                     "ssd_scan": fwd, "ssd_scan_bwd": bwd}
             want_paths = {"ssd_scan": {"fma": 0, "wgmma": fwd},
-                          "ssd_scan_bwd": {"fma": 0, "wgmma": bwd}}
+                          "ssd_scan_bwd": {"fma": 0, "wgmma": bwd},
+                          "flash_attention": {"fma": 0, "mma": 2 * g * steps,
+                                              "split_decode": 0},
+                          "flash_attention_bwd": {"fma": 0,
+                                                  "wgmma": g * steps}}
         else:            # K1 forward on mma, its backward on wgmma; no K3
             want = {"flash_attention": fwd, "flash_attention_bwd": bwd,
                     "ssd_scan": 0, "ssd_scan_bwd": 0}
@@ -1393,79 +1781,99 @@ def main() -> None:
         """Median seconds per step, the first (warm-up) step left out."""
         return float(np.median(secs[1:]))
 
-    truns = {}
-    for label, schedule in (("static", {}), ("elastic", TRAIN_SCHEDULE)):
-        runner, state, losses, secs, counts = train_run(cfg, schedule,
-                                                        TRAIN_STEPS)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        truns[label] = (runner, state, losses)
-        phase(f"train:{label}", layers=cfg.num_layers,
-              batch=TRAIN_BATCH, seq=tshape.seq_len,
-              losses=",".join(f"{x:.6f}" for x in losses),
-              step_s=",".join(f"{x:.3f}" for x in secs),
-              s_per_step=f"{step_s(secs):.4f}",
-              tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
-              k1_fwd_per_step=counts["flash_attention"] / TRAIN_STEPS,
-              k1_bwd_per_step=counts["flash_attention_bwd"] / TRAIN_STEPS,
-              peak_gb=f"{peak:.2f}",
-              sizes=",".join(str(e.to_procs) for e in runner.events))
-        for ev in runner.events:
-            phase(f"train:{label}:resize", step=ev.step, action=ev.action,
-                  sizes=f"{ev.from_procs}->{ev.to_procs}",
-                  bytes_moved=ev.transfer.bytes_moved,
-                  seconds=f"{ev.transfer.seconds:.4f}")
-        if label == "elastic":
+    def elastic_pair(c, tag):
+        """``TRAIN_STEPS`` static and elastic (``TRAIN_SCHEDULE``) steps of
+        ``c``, whose losses must agree to ``TRAIN_LOSS_TOL``.  Returns the
+        static run's runner, state and kernel counts."""
+        out = {}
+        for label, schedule in (("static", {}), ("elastic", TRAIN_SCHEDULE)):
+            runner, state, losses, secs, counts = train_run(c, schedule,
+                                                            TRAIN_STEPS)
+            phase(f"{tag}:{label}", layers=c.num_layers,
+                  batch=TRAIN_BATCH, seq=tshape.seq_len,
+                  losses=",".join(f"{x:.6f}" for x in losses),
+                  step_s=",".join(f"{x:.3f}" for x in secs),
+                  s_per_step=f"{step_s(secs):.4f}",
+                  tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
+                  per_step=json.dumps({k_: counts[k_] / TRAIN_STEPS for k_ in
+                                       counts["paths"]},
+                                      separators=(",", ":")),
+                  paths=json.dumps(counts["paths"], separators=(",", ":")),
+                  peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                  sizes=",".join(str(e.to_procs) for e in runner.events))
+            for ev in runner.events:
+                phase(f"{tag}:{label}:resize", step=ev.step,
+                      action=ev.action,
+                      sizes=f"{ev.from_procs}->{ev.to_procs}",
+                      bytes_moved=ev.transfer.bytes_moved,
+                      seconds=f"{ev.transfer.seconds:.4f}")
+            out[label] = (runner, state if label == "static" else None,
+                          losses, counts)
             del state
-            truns[label] = (runner, None, losses)
+        static_l, elastic_l = out["static"][2], out["elastic"][2]
+        gap_ = max(abs(a - b) for a, b in zip(static_l, elastic_l))
+        actions = [e.action for e in out["elastic"][0].events]
+        if gap_ > TRAIN_LOSS_TOL or actions != ["expand", "shrink"]:
+            fail(f"{tag} elastic training: losses {elastic_l} vs static "
+                 f"{static_l} (gap {gap_:.3e} > {TRAIN_LOSS_TOL}?), actions "
+                 f"{actions}")
+        runner, state, _, counts = out["static"]
+        phase(tag, elastic_vs_static_max_gap=f"{gap_:.3e}",
+              tol=TRAIN_LOSS_TOL, actions=",".join(actions),
+              state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}")
+        return runner, state, counts
+
+    def traced_step(runner, state, step, want):
+        """One traced ``runner.step``, taken again (four times at most)
+        while the profiler dropped a record: ``want`` maps a name to a test
+        on a device record's key and the records a step launches.  Returns
+        the state, the phase fields (device busy, idle share, each name's
+        device ms and share, the largest operators) and each name's
+        records."""
+        for attempt in range(4):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, m = runner.step(state, step + attempt)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                traced_s = time.perf_counter() - t0
+            evs = device_events(prof)
+            recs = {k_: [e for e in evs if test(e.key)]
+                    for k_, (test, _) in want.items()}
+            got = {k_: sum(e.count for e in r) for k_, r in recs.items()}
+            if got == {k_: n_ for k_, (_, n_) in want.items()}:
+                break
+            print(f"chip_smoke: traced train step: the profiler kept {got} "
+                  "records: taken again", file=sys.stderr, flush=True)
+        else:
+            fail(f"the profiler dropped records of {list(want)} in four "
+                 "traced train steps")
+        busy = sum(device_us(e) for e in evs) / 1e3
+        fields = dict(traced_step_s=f"{traced_s:.4f}",
+                      device_busy_ms=f"{busy:.3f}",
+                      idle_share=f"{1 - busy / (traced_s * 1e3):.4f}")
+        for k_, r in recs.items():
+            ms_ = sum(device_us(e) for e in r) / 1e3
+            fields[f"{k_}_ms"] = f"{ms_:.3f}"
+            fields[f"{k_}_share"] = f"{ms_ / busy:.4f}"
+        fields["top"] = json.dumps(
+            [{"kernel": e.key[:80], "ms": device_us(e) / 1e3,
+              "calls": e.count} for e in evs[:PROFILE_TRAIN_TOP]],
+            separators=(",", ":"))
+        return state, fields, recs
+
+    runner, state, counts = elastic_pair(cfg, "train")
     train_launches = counts["flash_attention_bwd"]
     train_fwd_launches = counts["flash_attention"]
-    static_l, elastic_l = truns["static"][2], truns["elastic"][2]
-    gap = max(abs(a - b) for a, b in zip(static_l, elastic_l))
-    actions = [e.action for e in truns["elastic"][0].events]
-    if gap > TRAIN_LOSS_TOL or actions != ["expand", "shrink"]:
-        fail(f"elastic training: losses {elastic_l} vs static {static_l} "
-             f"(gap {gap:.3e} > {TRAIN_LOSS_TOL}?), actions {actions}")
-    phase("train", elastic_vs_static_max_gap=f"{gap:.3e}",
-          tol=TRAIN_LOSS_TOL, actions=",".join(actions),
-          state_gb=f"{sum(t.nbytes for t in T.leaves(truns['static'][1])) / 1e9:.2f}")
     mark("train")
 
     # -- 12. one traced training step of the static run ----------------------
-    runner, state, _ = truns["static"]
     L = cfg.num_layers
-    for attempt in range(4):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, m = runner.step(state, TRAIN_STEPS + attempt)
-            float(m["loss"])
-            torch.cuda.synchronize()
-            traced_s = time.perf_counter() - t0
-        dev_events = device_events(prof)
-        bwd_evs = [e for e in dev_events if "attn_bwd" in e.key]
-        fwd_evs = [e for e in dev_events if "attn_" in e.key and
-                   "attn_bwd" not in e.key]
-        if sum(e.count for e in bwd_evs) == 3 * L and \
-                sum(e.count for e in fwd_evs) == 2 * L:
-            break
-        print(f"chip_smoke: traced train step: the profiler kept "
-              f"{sum(e.count for e in fwd_evs)} K1 forward and "
-              f"{sum(e.count for e in bwd_evs)} backward records: taken "
-              "again", file=sys.stderr, flush=True)
-    else:
-        fail("the profiler dropped K1's records in four traced train steps")
-    t_busy = sum(device_us(e) for e in dev_events) / 1e3
-    t_fwd = sum(device_us(e) for e in fwd_evs) / 1e3
-    t_bwd = sum(device_us(e) for e in bwd_evs) / 1e3
-    top = [{"kernel": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
-           for e in dev_events[:PROFILE_TRAIN_TOP]]
-    phase("train:profile", layers=L, traced_step_s=f"{traced_s:.4f}",
-          device_busy_ms=f"{t_busy:.3f}",
-          idle_share=f"{1 - t_busy / (traced_s * 1e3):.4f}",
-          k1_fwd_ms=f"{t_fwd:.3f}", k1_fwd_share=f"{t_fwd / t_busy:.4f}",
-          k1_bwd_ms=f"{t_bwd:.3f}", k1_bwd_share=f"{t_bwd / t_busy:.4f}",
-          top=json.dumps(top, separators=(",", ":")))
-    del runner, state, truns, prof, dev_events, bwd_evs, fwd_evs
+    state, fields, _ = traced_step(runner, state, TRAIN_STEPS, {
+        "k1_fwd": (is_k1_fwd, 2 * L), "k1_bwd": (is_k1_bwd, 3 * L)})
+    phase("train:profile", layers=L, **fields)
+    del runner, state
     mark("train_profile")
 
     # -- 13. the training path at full depth ---------------------------------
@@ -1543,88 +1951,131 @@ def main() -> None:
           scan_leaf_tol=SSM_LEAF_TOL)
 
     # -- 13c. mamba2 training at full width and depth ------------------------
-    mtruns = {}
-    for label, schedule in (("static", {}), ("elastic", TRAIN_SCHEDULE)):
-        runner, state, losses, secs, counts = train_run(mcfg, schedule,
-                                                        TRAIN_STEPS)
-        peak = torch.cuda.max_memory_allocated() / 1e9
-        mtruns[label] = (runner, state, losses)
-        phase(f"mamba2:train:{label}", layers=mcfg.num_layers,
-              batch=TRAIN_BATCH, seq=tshape.seq_len,
-              losses=",".join(f"{x:.6f}" for x in losses),
-              step_s=",".join(f"{x:.3f}" for x in secs),
-              s_per_step=f"{step_s(secs):.4f}",
-              tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
-              k3_fwd_per_step=counts["ssd_scan"] / TRAIN_STEPS,
-              k3_bwd_per_step=counts["ssd_scan_bwd"] / TRAIN_STEPS,
-              paths=json.dumps(counts["paths"], separators=(",", ":")),
-              peak_gb=f"{peak:.2f}",
-              sizes=",".join(str(e.to_procs) for e in runner.events))
-        for ev in runner.events:
-            phase(f"mamba2:train:{label}:resize", step=ev.step,
-                  action=ev.action, sizes=f"{ev.from_procs}->{ev.to_procs}",
-                  bytes_moved=ev.transfer.bytes_moved,
-                  seconds=f"{ev.transfer.seconds:.4f}")
-        if label == "elastic":
-            del state
-            mtruns[label] = (runner, None, losses)
-        else:
-            m_train_fwd_launches = counts["ssd_scan"]
-            m_train_bwd_launches = counts["ssd_scan_bwd"]
-    static_l, elastic_l = mtruns["static"][2], mtruns["elastic"][2]
-    gap = max(abs(a - b) for a, b in zip(static_l, elastic_l))
-    actions = [e.action for e in mtruns["elastic"][0].events]
-    if gap > TRAIN_LOSS_TOL or actions != ["expand", "shrink"]:
-        fail(f"mamba2 elastic training: losses {elastic_l} vs static "
-             f"{static_l} (gap {gap:.3e} > {TRAIN_LOSS_TOL}?), actions "
-             f"{actions}")
-    phase("mamba2:train", elastic_vs_static_max_gap=f"{gap:.3e}",
-          tol=TRAIN_LOSS_TOL, actions=",".join(actions),
-          state_gb=f"{sum(t.nbytes for t in T.leaves(mtruns['static'][1])) / 1e9:.2f}")
+    mcfg = get_config(MAMBA)
+    runner, state, counts = elastic_pair(mcfg, "mamba2:train")
+    m_train_fwd_launches = counts["ssd_scan"]
+    m_train_bwd_launches = counts["ssd_scan_bwd"]
     mark("mamba2_train")
 
     # -- 13d. one traced 48-layer mamba2 training step -----------------------
-    runner, state, _ = mtruns["static"]
     L = mcfg.num_layers
-    for attempt in range(4):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            state, m = runner.step(state, TRAIN_STEPS + attempt)
-            float(m["loss"])
-            torch.cuda.synchronize()
-            traced_s = time.perf_counter() - t0
-        dev_events = device_events(prof)
-        bwd_evs = [e for e in dev_events if "ssd_bwd" in e.key]
-        fwd_evs = [e for e in dev_events if "ssd_scan" in e.key]
-        if sum(e.count for e in bwd_evs) == ss.BWD_KERNELS["wgmma"] * L and \
-                sum(e.count for e in fwd_evs) == 2 * L:
-            break
-        print(f"chip_smoke: traced mamba2 train step: the profiler kept "
-              f"{sum(e.count for e in fwd_evs)} K3 forward and "
-              f"{sum(e.count for e in bwd_evs)} backward records: taken "
-              "again", file=sys.stderr, flush=True)
-    else:
-        fail("the profiler dropped K3's records in four traced mamba2 "
-             "train steps")
-    t_busy = sum(device_us(e) for e in dev_events) / 1e3
-    t_fwd = sum(device_us(e) for e in fwd_evs) / 1e3
-    t_bwd = sum(device_us(e) for e in bwd_evs) / 1e3
-    top = [{"kernel": e.key[:80], "ms": device_us(e) / 1e3, "calls": e.count}
-           for e in dev_events[:PROFILE_TRAIN_TOP]]
-    phase("mamba2:train:profile", layers=L, traced_step_s=f"{traced_s:.4f}",
-          device_busy_ms=f"{t_busy:.3f}",
-          idle_share=f"{1 - t_busy / (traced_s * 1e3):.4f}",
-          k3_fwd_ms=f"{t_fwd:.3f}", k3_fwd_share=f"{t_fwd / t_busy:.4f}",
-          k3_bwd_ms=f"{t_bwd:.3f}", k3_bwd_share=f"{t_bwd / t_busy:.4f}",
+    state, fields, recs = traced_step(runner, state, TRAIN_STEPS, {
+        "k3_fwd": (is_k3_fwd, 2 * L),
+        "k3_bwd": (is_k3_bwd, ss.BWD_KERNELS["wgmma"] * L)})
+    phase("mamba2:train:profile", layers=L, **fields,
           k3_bwd_ms_by_kernel=json.dumps(
               {re.search(r"ssd_bwd_(\w+?)_kernel", e.key)[1]: round(
-                  device_us(e) / 1e3, 3) for e in bwd_evs},
-              separators=(",", ":")),
-          top=json.dumps(top, separators=(",", ":")))
-    del runner, state, mtruns, prof, dev_events, bwd_evs, fwd_evs
+                  device_us(e) / 1e3, 3) for e in recs["k3_bwd"]},
+              separators=(",", ":")))
+    del runner, state
     torch.cuda.empty_cache()
     mark("mamba2_train_profile")
+
+    # -- 13e. the zamba2 serving path ----------------------------------------
+    zscfg = dataclasses.replace(zcfg, num_layers=Z_SERVE_LAYERS)
+    zgroups = zscfg.num_layers // zscfg.shared_attention_every
+    _, z_dec_launches = serve_runs(zscfg, "zamba2", zgroups)
+    mark("zamba2_path")
+
+    # -- 13f. zamba2 prefill vs decode, and where the prefill's time goes ----
+    torch.cuda.empty_cache()
+    zparams = M.init_params(zscfg, torch.Generator(dev).manual_seed(0), dev)
+    zprompts = torch.from_numpy(np.random.default_rng(2).integers(
+        0, zscfg.vocab_size, (BATCH, M_PREFILL_S), dtype=np.int32)).to(dev)
+    z_prefill = prefill_launches(
+        zscfg, zparams, {"tokens": zprompts}, "zamba2",
+        {"ssd_scan": {"fma": 0, "wgmma": zscfg.num_layers},
+         "flash_attention": dict(no_k1, mma=zgroups)})
+    # the logits checks run the first Z_CHECK_LAYERS layers of these weights
+    logits_check(dataclasses.replace(zscfg, num_layers=Z_CHECK_LAYERS),
+                 dict(zparams, layers=T.tree_map(
+                     lambda t: t[:Z_CHECK_LAYERS], zparams["layers"])),
+                 zprompts, "zamba2", (Z_FP32_LOGITS_ATOL, Z_FP32_LOGITS_RMS),
+                 (Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS))
+    traced_prefill(zscfg, zparams, {"tokens": zprompts}, "zamba2",
+                   {"k3": is_k3_fwd, "k1": is_k1_fwd})
+    del zparams
+    torch.cuda.empty_cache()
+    mark("zamba2_prefill")
+
+    # -- 13g. zamba2 training: the smoke step (two groups), card vs CPU, and
+    # the elastic run at Z_ELASTIC_LAYERS --------------------------------------
+    zsm = dataclasses.replace(get_config(f"{ZAMBA}-smoke"), num_layers=4)
+    zsm_groups = zsm.num_layers // zsm.shared_attention_every
+    zsbatch = lm_train_app(zsm, dataclasses.replace(
+        get_shape("smoke"), global_batch=8)).dataset.batch_at(0)
+    zsmoke = {}
+    for d in ("cpu", dev):
+        tb = {k_: torch.from_numpy(v_).to(d) for k_, v_ in zsbatch.items()}
+        st = T.tree_map(lambda t: t.to(d), init_state(zsm, sopt, 0))
+        ops.reset_counts()
+        _, m = make_train_step(zsm, sopt)(st, tb)
+        n_ = ops.launch_counts()
+        st = T.tree_map(lambda t: t.to(d), init_state(zsm, sopt, 0))
+        flat = T.flatten(st.params)
+        leaves = [p_.detach().requires_grad_() for _, p_ in flat]
+        loss, _ = loss_fn(T.unflatten(st.params, leaves), zsm, tb)
+        grads = torch.autograd.grad(loss, leaves)
+        zsmoke[str(d)] = (float(m["loss"]), float(m["grad_norm"]), n_,
+                          {k_: g_.cpu() for (k_, _), g_ in zip(flat, grads)})
+    (l_c, g_c, n_c, gr_c), (l_g, g_g, n_g, gr_g) = \
+        zsmoke["cpu"], zsmoke[str(dev)]
+    z_leaf_err = {k_: ((gr_g[k_] - e_).abs().max() / e_.abs().max()).item()
+                  for k_, e_ in gr_c.items()}
+    worst = max(z_leaf_err, key=z_leaf_err.get)
+    shared_err = max(v_ for k_, v_ in z_leaf_err.items()
+                     if k_.startswith("shared_attn/"))
+    if not z_leaf_err[worst] <= SSM_LEAF_TOL or \
+            sum(k_.startswith("shared_attn/") for k_ in z_leaf_err) != 9:
+        fail(f"zamba2 smoke step: the card's gradient of {worst} is "
+             f"{z_leaf_err[worst]:.3e} of its largest entry off the CPU's "
+             f"(> {SSM_LEAF_TOL})")
+    want_n = {"ssd_scan": zsm.num_layers, "ssd_scan_bwd": zsm.num_layers,
+              "flash_attention": zsm_groups, "flash_attention_bwd": zsm_groups}
+    if any(n_c.values()) or {k_: n_g[k_] for k_ in want_n} != want_n:
+        fail(f"zamba2 smoke train step launched {n_g} on the card, {n_c} "
+             f"on the CPU, not {want_n}")
+    if abs(l_g - l_c) > 1e-5 * abs(l_c) or abs(g_g - g_c) > 1e-4 * abs(g_c):
+        fail(f"zamba2 smoke train step: card loss {l_g} / grad norm {g_g} "
+             f"vs CPU {l_c} / {g_c}")
+    phase("zamba2:train:smoke", layers=zsm.num_layers, groups=zsm_groups,
+          loss_card=f"{l_g:.7f}", loss_cpu=f"{l_c:.7f}",
+          grad_norm_card=f"{g_g:.6f}", grad_norm_cpu=f"{g_c:.6f}",
+          launches=json.dumps({k_: n_g[k_] for k_ in want_n},
+                              separators=(",", ":")),
+          leaves=len(z_leaf_err), worst_leaf=worst,
+          worst_leaf_err=f"{z_leaf_err[worst]:.3e}",
+          shared_attn_worst_err=f"{shared_err:.3e}",
+          leaf_tol=SSM_LEAF_TOL)
+
+    zecfg = dataclasses.replace(zcfg, num_layers=Z_ELASTIC_LAYERS)
+    runner, state, _ = elastic_pair(zecfg, "zamba2:train")
+    del runner, state
+    mark("zamba2_train")
+
+    # -- 13h. zamba2 training at all 54 layers, and one traced step ----------
+    runner, state, losses, secs, counts = train_run(zcfg, {}, DEPTH_STEPS)
+    z_train_k1 = (counts["flash_attention"], counts["flash_attention_bwd"])
+    z_train_k3 = (counts["ssd_scan"], counts["ssd_scan_bwd"])
+    phase("zamba2:train:depth", layers=zcfg.num_layers,
+          losses=",".join(f"{x:.6f}" for x in losses),
+          step_s=",".join(f"{x:.3f}" for x in secs),
+          s_per_step=f"{step_s(secs):.4f}",
+          tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
+          per_step=json.dumps({k_: counts[k_] / DEPTH_STEPS for k_ in
+                               counts["paths"]}, separators=(",", ":")),
+          paths=json.dumps(counts["paths"], separators=(",", ":")),
+          state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    L, G_ = zcfg.num_layers, zcfg.num_layers // zcfg.shared_attention_every
+    state, fields, _ = traced_step(runner, state, DEPTH_STEPS, {
+        "k3_fwd": (is_k3_fwd, 2 * L),
+        "k3_bwd": (is_k3_bwd, ss.BWD_KERNELS["wgmma"] * L),
+        "k1_fwd": (is_k1_fwd, 2 * G_), "k1_bwd": (is_k1_bwd, 3 * G_)})
+    phase("zamba2:train:profile", layers=L, **fields)
+    del runner, state
+    torch.cuda.empty_cache()
+    mark("zamba2_train_depth")
 
     # -- 14. kernels line: times at the path's shapes -----------------------
     kernels = []
@@ -1638,7 +2089,7 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:73",
         "path": "split_decode",
-        "launches": flash_path[0], "max_abs_err": err_decode,
+        "launches": granite_decode_launches, "max_abs_err": err_decode,
         "ms": time_ms(k1_dec), "device_ms": dev_ms["K1 decode"],
         "device_ms_cold": dev_ms["K1 decode cold"],
         "host_us": host_us(k1_dec),
@@ -1752,16 +2203,7 @@ def main() -> None:
                               iters=20),
         "library_device_ms": dev_ms["index_select"],
         "shape": f"src=({nblk},{blk},{vp_rows[1]}) fp32 idx={idx.size}"})
-    # K3: one layer of the mamba2 prefill, bf16 xdt/B/C and f32 a; the work
-    # counts G = C B^T once per (b, chunk), as the Pallas contract allows,
-    # over the causal pairs of each chunk
-    def k3_fwd_bound(B, H, S, P, N, Q):
-        nc = S // Q
-        return bound_ms(
-            2 * B * S * H * P * 2 + 4 * B * S * H + 2 * B * S * N * 2,
-            nc * B * Q * Q * N + nc * B * H * (Q * Q * P + 4 * Q * P * N),
-            "bfloat16")
-
+    # K3: one layer of the mamba2 prefill (k3_fwd_bound)
     b_ssd, by_ssd = k3_fwd_bound(*SSD_SLICE)
     kernels.append({
         "name": "ssd_scan_fwd", "route": "cuda",
@@ -1870,6 +2312,12 @@ def main() -> None:
         "shape": f"B={bB} H={bH} S={bS} P={bP} N={bN} Q={bQ} fp32 "
                  "xdt/B/C/dy, f32 a, mamba2's decays"})
     del ssd_bwd_f32_args
+    # zamba2's rows, timed after phase 5b; their launches are the
+    # zamba2 paths' (phases 13e-13h)
+    for row, launches in zip(z_rows, (
+            z_dec_launches, z_prefill["flash_attention"], *z_train_k1,
+            z_prefill["ssd_scan"], *z_train_k3)):
+        kernels.append(dict(row, launches=launches))
     mark("kernels")
     phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))

@@ -1,5 +1,5 @@
 """Config registry of the port: the architectures it runs so far (the
-dense and SSM families), plus their reduced ``-smoke`` variants."""
+dense, SSM and hybrid families), plus their reduced ``-smoke`` variants."""
 from __future__ import annotations
 
 import importlib
@@ -12,6 +12,7 @@ from repro_torch.configs.base import (SHAPES_BY_NAME, SMOKE_DECODE,
 _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
     "mamba2-370m": "mamba2_370m",
+    "zamba2-2.7b": "zamba2_2_7b",
 }
 
 

@@ -1,7 +1,7 @@
 """K1's or K3's backward at its training shape, on a card: check, time, split.
 
-    PYTHONPATH=src python -m repro_torch.kernels.bwd_bench [D] [B]   # K1
-    PYTHONPATH=src python -m repro_torch.kernels.bwd_bench ssd [B]   # K3
+    PYTHONPATH=src python -m repro_torch.kernels.bwd_bench [D] [B] [Hkv]    # K1
+    PYTHONPATH=src python -m repro_torch.kernels.bwd_bench ssd [B] [H] [N]  # K3
 
 Builds the kernels of the tree on ``PYTHONPATH`` (so two source trees
 compare by running each under its own ``PYTHONPATH``, in turns, in one
@@ -11,11 +11,13 @@ runs agree bit for bit, its time per call from CUDA events around 10
 back-to-back calls, and each of its kernels' device time per call from
 ``torch.profiler`` over 5 calls.  Exits 1 without a card.
 
-* K1: bf16 q, k, v, dO at B (default 8) x S=4096 x H=32 / Hkv=8 x D
-  (default 64), K1's forward with its lse first; dq, dk, dv as the largest
-  error and the count over the bf16 bound 2e-2 + 2e-2 |ref|.
+* K1: bf16 q, k, v, dO at B (default 8) x S=4096 x H=32 / Hkv (default
+  8, granite's; 32 is zamba2's multi-head attention) x D (default 64;
+  zamba2's is 80), K1's forward with its lse first; dq, dk, dv as the
+  largest error and the count over the bf16 bound 2e-2 + 2e-2 |ref|.
 * K3: bf16 xdt, B, C, dy and fp32 a = dt * A at mamba2-370m's decays, at
-  B (default 8) x S=4096 x H=32 x P=64, N=128, chunk 256, on the path
+  B (default 8) x S=4096 x H (default 32, mamba2's; zamba2's is 80) x
+  P=64, N (default 128; zamba2's is 64), chunk 256, on the path
   ``select_bwd_path`` names (``wgmma``, four kernels); dx, da, dB, dC as
   the largest error over the largest entry (``chip_smoke.py``'s
   ``SSD_BWD_TOL``: 1e-2 for the bf16 outputs, 1e-4 for da).
@@ -59,12 +61,12 @@ def _draw(g, dev, *shape, scale=1.0):
         torch.bfloat16)
 
 
-def attention(D: int = 64, B: int = 8) -> None:
+def attention(D: int = 64, B: int = 8, Hkv: int = 8) -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels.ref import attention_backward_reference
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
-    S, H, Hkv = 4096, 32, 8
+    S, H = 4096, 32
     q, do = (_draw(g, dev, B, S, H, D).transpose(1, 2) for _ in range(2))
     k, v = (_draw(g, dev, B, S, Hkv, D).transpose(1, 2) for _ in range(2))
     o, lse = fa.flash_attention_lse(q, k, v, causal=True)
@@ -82,17 +84,17 @@ def attention(D: int = 64, B: int = 8) -> None:
         over = int((err > 2e-2 + 2e-2 * b.float().abs()).sum())
         errs.append(f"{err.max().item():.3e}/{over}")
     ms, split = _time_and_split(call, r"attn_bwd_([A-Za-z0-9_]+)")
-    print(f"B={B} D={D} ms={ms:.3f} device_ms={split} "
+    print(f"B={B} Hkv={Hkv} D={D} ms={ms:.3f} device_ms={split} "
           f"err/over(dq,dk,dv)={errs} bitwise={same} "
           f"paths={fa.flash_attention_bwd.path_launches}", flush=True)
 
 
-def ssd(B: int = 8) -> None:
+def ssd(B: int = 8, H: int = 32, N: int = 128) -> None:
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.kernels.ref import ssd_chunked_backward_reference
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
-    S, H, P, N, Q = 4096, 32, 64, 128, 256
+    S, P, Q = 4096, 64, 256
     xdt = _draw(g, dev, B, S, H, P, scale=0.3)
     bm, cm = (_draw(g, dev, B, S, N, scale=0.3) for _ in range(2))
     dy = _draw(g, dev, B, S, H, P)
@@ -110,7 +112,7 @@ def ssd(B: int = 8) -> None:
                         y.float().abs().max()).item()
     errs = [f"{rel(x[:1], y):.3e}" for x, y in zip(got, exp)]
     ms, split = _time_and_split(call, r"ssd_bwd_(\w+?)_kernel")
-    print(f"B={B} ms={ms:.3f} device_ms={split} "
+    print(f"B={B} H={H} N={N} ms={ms:.3f} device_ms={split} "
           f"device_total={sum(split.values()):.3f} "
           f"rel_err(dx,da,dB,dC)={errs} bitwise={same} "
           f"launches={ss.ssd_scan_bwd.launches} "
@@ -123,9 +125,9 @@ def main(argv) -> None:
     from repro_torch.kernels import ops
     ops.build()
     if argv[:1] == ["ssd"]:
-        ssd(*map(int, argv[1:2]))
+        ssd(*map(int, argv[1:4]))
     else:
-        attention(*map(int, argv[:2]))
+        attention(*map(int, argv[:3]))
 
 
 if __name__ == "__main__":

@@ -22,10 +22,12 @@ way by :func:`model_grads`: the carried states (``states``) and the
 decayed rows of their chunk sums (``rows``) split or rounded once, the
 decayed, masked G of dx (``gl``) and the head sum M = sum_h D o L of dB
 and dC (``m``) likewise; every other operand is an input.  ``python -m
-repro_torch.kernels.ssd_rounding bwd`` prints, at the training path's
+repro_torch.kernels.ssd_rounding bwd`` prints, at mamba2-370m's training
 shape (B=8, H=32, S=4096, P=64, N=128, Q=256), each output's worst
 error over ``SSD_BWD_TOL`` of its largest entry for a set of choices
-(~1-2 min).
+(~1-2 min); ``bwd H N [B]`` takes another head count, state size and
+batch, e.g. ``bwd 80 64 2`` for zamba2-2.7b's scan (H=80, N=64) with
+the batch cut to 2.
 """
 from __future__ import annotations
 
@@ -244,4 +246,7 @@ def main(B: int = 2, H: int = 32, S: int = 1024, P: int = 64, N: int = 128,
 
 if __name__ == "__main__":
     import sys
-    main_bwd() if sys.argv[1:] == ["bwd"] else main()
+    if sys.argv[1:2] == ["bwd"]:
+        main_bwd(**dict(zip(("H", "N", "B"), map(int, sys.argv[2:5]))))
+    else:
+        main()

@@ -1,9 +1,13 @@
-"""Model assembly of the port: the dense decoder-only and the SSM (Mamba2)
-families (port of those branches of ``repro/models/model.py``).
+"""Model assembly of the port: the dense decoder-only, the SSM (Mamba2) and
+the hybrid (zamba2) families (port of those branches of
+``repro/models/model.py``).
 
 Layer stacks are ``(L, ...)`` tensors indexed per layer in a Python loop,
-where the JAX package scans.  Hybrid, MoE, encoder-decoder and vision
-families come in later slices and raise ``NotImplementedError`` here.
+where the JAX package scans.  The hybrid family runs its SSM layers in
+groups of ``shared_attention_every``, each group followed by ONE shared
+attention block (``params["shared_attn"]``, a single set of leaves
+applied once per group).  MoE, encoder-decoder and vision families come
+in later slices and raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -21,14 +25,22 @@ from repro_torch.models.layers import (embed, embed_schema, rmsnorm,
 
 
 def _require_supported(cfg: ArchConfig):
-    """Admit the dense decoder-only and the SSM families; raise for the
-    others (hybrid, MoE, encoder-decoder, vision)."""
+    """Admit the dense decoder-only, the SSM and the hybrid families; raise
+    for the others (MoE, encoder-decoder, vision)."""
     dense = cfg.ssm is None and cfg.attention != "none"
-    if not (dense or cfg.is_ssm) or cfg.is_moe or cfg.is_encdec or \
-            cfg.frontend is not None:
+    if not (dense or cfg.is_ssm or cfg.is_hybrid) or cfg.is_moe or \
+            cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the PyTorch port runs the dense "
-            "decoder-only and the SSM families so far")
+            "decoder-only, the SSM and the hybrid families so far")
+    if cfg.is_hybrid and cfg.num_layers % cfg.shared_attention_every:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                         f"groups of {cfg.shared_attention_every}")
+
+
+def _shared_after(cfg: ArchConfig, i: int) -> bool:
+    """Whether the hybrid's shared attention block follows SSM layer i."""
+    return cfg.is_hybrid and (i + 1) % cfg.shared_attention_every == 0
 
 
 # ----------------------------------------------------------------------
@@ -37,11 +49,16 @@ def _require_supported(cfg: ArchConfig):
 
 def model_schema(cfg: ArchConfig):
     _require_supported(cfg)
-    block = blocks.ssm_block_schema(cfg) if cfg.is_ssm else \
+    ssm_layers = cfg.is_ssm or cfg.is_hybrid
+    block = blocks.ssm_block_schema(cfg) if ssm_layers else \
         blocks.decoder_block_schema(cfg)
-    return {"embed": embed_schema(cfg),
-            "ln_f": rmsnorm_schema(cfg.d_model, cfg),
-            "layers": P.stack(block, cfg.num_layers)}
+    s = {"embed": embed_schema(cfg),
+         "ln_f": rmsnorm_schema(cfg.d_model, cfg),
+         "layers": P.stack(block, cfg.num_layers)}
+    if cfg.is_hybrid:
+        # ONE weight set {ln1, attn, ln2, mlp}, applied after every group
+        s["shared_attn"] = blocks.decoder_block_schema(cfg)
+    return s
 
 
 def init_params(cfg: ArchConfig, gen: torch.Generator, device="cpu"):
@@ -67,7 +84,16 @@ def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
     or K3) forward twice and its backward once.  The stacked parameters
     are unbound once, so their
     gradients are stacked once (indexing each layer would build a
-    full-size zero gradient per layer)."""
+    full-size zero gradient per layer).
+
+    The hybrid trunk runs groups of ``shared_attention_every`` SSM blocks,
+    each group followed by the shared attention block (the reference's
+    ``_trunk``).  Under remat each SSM block and each application of the
+    shared block is its own checkpoint unit; the reference nests
+    ``jax.checkpoint`` (the group around its inner per-layer scan), which
+    recomputes in another pattern but computes the same numbers.  The
+    shared leaves are one set used once per group, so autograd sums their
+    gradient over the groups."""
     _require_supported(cfg)
     tokens = batch["tokens"]
     x = embed(params["embed"], tokens, cfg)
@@ -75,17 +101,24 @@ def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
     stacks = T.tree_map(lambda t: t.unbind(0), params["layers"])
 
     def body(h, lp):
-        if cfg.is_ssm:
+        if cfg.is_ssm or cfg.is_hybrid:
             return blocks.ssm_block_apply(lp, h, cfg)
         return blocks.decoder_block_apply(lp, h, cfg, positions=positions,
                                           causal=True)
 
-    for i in range(cfg.num_layers):
-        lp = T.tree_map(lambda views: views[i], stacks)
+    def shared(h, sp):
+        return blocks.decoder_block_apply(sp, h, cfg, positions=positions,
+                                          causal=True)
+
+    def run(fn, h, p):
         if cfg.remat and torch.is_grad_enabled():
-            x = checkpoint(body, x, lp, use_reentrant=False)
-        else:
-            x = body(x, lp)
+            return checkpoint(fn, h, p, use_reentrant=False)
+        return fn(h, p)
+
+    for i in range(cfg.num_layers):
+        x = run(body, x, T.tree_map(lambda views: views[i], stacks))
+        if _shared_after(cfg, i):
+            x = run(shared, x, params["shared_attn"])
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -104,13 +137,26 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int, device="cpu"):
     """Decode-state tree for one new token against a seq_len-deep context:
     ``{"layers": {"k", "v"}}`` of shape (L, B, S, Hkv, hd) for the dense
     family; for the SSM family ``{"layers": {"state" (L, B, H, P, N) fp32,
-    "conv_x", "conv_B", "conv_C" (L, B, W-1, C)}}``, whatever seq_len."""
+    "conv_x", "conv_B", "conv_C" (L, B, W-1, C)}}``, whatever seq_len; for
+    the hybrid family that SSM cache plus ``{"shared_kv": {"k", "v"}}`` of
+    shape (groups, B, S, Hkv, hd), one KV cache per application of the
+    shared block."""
     _require_supported(cfg)
-    one = ssm_mod.init_ssm_cache(cfg, batch, device) if cfg.is_ssm else \
-        attn_mod.init_kv_cache(cfg, batch, seq_len, device)
-    return {"layers": {n: t.unsqueeze(0).repeat(cfg.num_layers,
-                                                *([1] * t.dim()))
-                       for n, t in one.items()}}
+
+    def stacked(one, n):
+        return {k: t.unsqueeze(0).repeat(n, *([1] * t.dim()))
+                for k, t in one.items()}
+
+    if cfg.is_ssm or cfg.is_hybrid:
+        cache = {"layers": stacked(ssm_mod.init_ssm_cache(cfg, batch, device),
+                                   cfg.num_layers)}
+        if cfg.is_hybrid:
+            cache["shared_kv"] = stacked(
+                attn_mod.init_kv_cache(cfg, batch, seq_len, device),
+                cfg.num_layers // cfg.shared_attention_every)
+        return cache
+    return {"layers": stacked(
+        attn_mod.init_kv_cache(cfg, batch, seq_len, device), cfg.num_layers)}
 
 
 def decode_step(params, cfg: ArchConfig, tokens, cache, cache_index):
@@ -119,16 +165,19 @@ def decode_step(params, cfg: ArchConfig, tokens, cache, cache_index):
     (see ``attention.decode_attn_apply`` and ``ssm.ssm_decode_step``)."""
     _require_supported(cfg)
     x = embed(params["embed"], tokens, cfg)
-    if cfg.is_ssm:
-        for i in range(cfg.num_layers):
-            x, _ = blocks.ssm_block_decode(layer(params["layers"], i), x, cfg,
-                                           layer(cache["layers"], i))
-    else:
-        kv_len = (cache_index + 1).to(torch.int32)  # once per step, on device
-        for i in range(cfg.num_layers):
+    kv_len = (cache_index + 1).to(torch.int32)  # once per step, on device
+    for i in range(cfg.num_layers):
+        lp, lc = layer(params["layers"], i), layer(cache["layers"], i)
+        if cfg.is_ssm or cfg.is_hybrid:
+            x, _ = blocks.ssm_block_decode(lp, x, cfg, lc)
+        else:
+            x, _ = blocks.decoder_block_decode(lp, x, cfg, lc,
+                                               cache_index=cache_index,
+                                               kv_len=kv_len)
+        if _shared_after(cfg, i):        # group i // every's own KV cache
             x, _ = blocks.decoder_block_decode(
-                layer(params["layers"], i), x, cfg,
-                layer(cache["layers"], i), cache_index=cache_index,
-                kv_len=kv_len)
+                params["shared_attn"], x, cfg,
+                layer(cache["shared_kv"], i // cfg.shared_attention_every),
+                cache_index=cache_index, kv_len=kv_len)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return unembed(params["embed"], x, cfg), cache

@@ -267,6 +267,36 @@ def test_flash_bwd_is_bitwise_repeatable_on_card(cuda, dtype):
 
 
 @pytest.mark.gpu
+def test_flash_at_zamba2s_training_shape_on_card(cuda):
+    """zamba2-2.7b's shared attention as training calls it: multi-head
+    (H = Hkv = 32, G = 1) at head dim 80, S = 4096, causal, bf16 (B cut to
+    1 to bound the plain version's memory).  The forward with its lse on
+    the mma path, the backward on wgmma, each against its plain version;
+    two backward runs equal bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, 1, 32, 32, 4096, 4096, 80, "bfloat16")
+    ops.reset_counts()
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), attention_reference(
+        q, k, v, causal=True).float(), atol=TOL["bfloat16"],
+        rtol=TOL["bfloat16"])
+    torch.testing.assert_close(lse, attention_lse_reference(q, k, causal=True),
+                               atol=BWD_TOL["float32"],
+                               rtol=BWD_TOL["float32"])
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.path_launches == {"fma": 0, "mma": 1,
+                                                "split_decode": 0}
+    assert fa.flash_attention_bwd.path_launches == {"fma": 0, "wgmma": 2}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    exp = attention_backward_reference(q, k, v, out, do, lse, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   atol=BWD_TOL["bfloat16"],
+                                   rtol=BWD_TOL["bfloat16"], msg=name)
+
+
+@pytest.mark.gpu
 def test_flash_bwd_entry_point_refuses_a_path_that_cannot_take_the_call(
         cuda):
     """The wrapper chooses the backward's path; the C entry point returns
@@ -741,6 +771,95 @@ def test_mamba2_train_step_on_card_matches_cpu(cuda):
             assert _rel_err(leaf["cuda", remat][k], exp) <= SSM_LEAF_TOL, k
 
 
+@pytest.mark.gpu
+def test_zamba2_smoke_on_card_matches_cpu(cuda):
+    """The hybrid family on the card: the smoke model's prefill runs K3 once
+    per layer and K1 once per group; its elastic decode (K1 on
+    split_decode once per group and step, no K3) gives the CPU plain
+    path's tokens and bytes from the same float32 weights."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.models.train import make_prefill_step
+    from repro_torch.serve import decode_demo
+    arch = "zamba2-2.7b-smoke"
+    cfg = get_config(arch)
+    groups = cfg.num_layers // cfg.shared_attention_every
+    params = M.init_params(cfg, torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (4, 64), dtype=np.int32))
+    prefill = make_prefill_step(cfg)
+    with torch.no_grad():
+        ref_first = prefill(params, {"tokens": toks})
+        ops.reset_counts()
+        first = prefill(T.tree_map(lambda t: t.to(cuda), params),
+                        {"tokens": toks.to(cuda)})
+    counts = ops.launch_counts()
+    assert (counts["ssd_scan"], counts["flash_attention"]) == \
+        (cfg.num_layers, groups)
+    np.testing.assert_array_equal(first.cpu().numpy(), ref_first.numpy())
+    run = dict(batch=8, prompt_len=8, decode_steps=8, cache_len=64,
+               workers=8, schedule={10: 8, 13: 2}, params=params)
+    ref = decode_demo(arch, device="cpu", **run)
+    ops.reset_counts()
+    out = decode_demo(arch, device=cuda, **run)
+    assert ops.launch_counts()["ssd_scan"] == 0
+    assert fa.flash_attention.path_launches == {
+        "fma": 0, "mma": 0, "split_decode": groups * 16}
+    np.testing.assert_array_equal(out["tokens"], ref["tokens"])
+    assert [e.transfer.bytes_moved for e in out["events"]] == \
+        [e.transfer.bytes_moved for e in ref["events"]]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [False, True])
+def test_zamba2_train_step_on_card_matches_cpu(cuda, remat):
+    """One zamba2-2.7b-smoke training step at two groups (4 layers) in fp32
+    on the card: K3's and K1's forward and backward kernels under autograd
+    give the CPU plain path's loss and gradient norm (the dense family's
+    bounds) and every leaf's gradient, ``shared_attn`` (summed over the
+    groups) among them, within ``SSM_LEAF_TOL`` of its largest entry.
+    With remat every SSM layer and every shared-block application launches
+    its forward twice."""
+    import dataclasses
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import train as TT
+    from repro_torch.optim import AdamW
+    opt = AdamW(learning_rate=1e-3)
+    cfg = dataclasses.replace(get_config("zamba2-2.7b-smoke"), num_layers=4,
+                              remat=remat)
+    L, groups = cfg.num_layers, cfg.num_layers // cfg.shared_attention_every
+    batch = SyntheticDataset(cfg, ShapeConfig("t", "train", 64, 8)
+                             ).batch_at(0)
+    out, grads = {}, {}
+    for dev in ("cpu", cuda):
+        tbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        ops.reset_counts()
+        _, m = TT.make_train_step(cfg, opt)(state, tbatch)
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]),
+                         ops.launch_counts())
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        grads[str(dev)] = {k: g.cpu() for (k, _), g in zip(
+            T.flatten(state.params),
+            TT._value_and_grad(state.params, cfg, tbatch)[2])}
+    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = out["cpu"], out["cuda"]
+    assert sum(n_cpu.values()) == 0
+    twice = 2 if remat else 1
+    assert {k: n_gpu[k] for k in ("ssd_scan", "ssd_scan_bwd",
+                                  "flash_attention", "flash_attention_bwd")} \
+        == {"ssd_scan": twice * L, "ssd_scan_bwd": L,
+            "flash_attention": twice * groups, "flash_attention_bwd": groups}
+    assert abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert abs(g_gpu - g_cpu) <= 1e-4 * abs(g_cpu)
+    assert sum(k.startswith("shared_attn/") for k in grads["cpu"]) == 9
+    for k, exp in grads["cpu"].items():
+        assert _rel_err(grads["cuda"][k], exp) <= SSM_LEAF_TOL, k
+
+
 # -- K3's backward -----------------------------------------------------------
 
 SSD_BWD_CASES = [
@@ -767,6 +886,11 @@ SSD_BWD_CASES = [
     (2, 3, 256, 32, 64, 64, 0.02, "bfloat16"),
     (2, 2, 384, 16, 16, 128, 0.4, "bfloat16"),
     (1, 5, 576, 48, 96, 192, "model", "bfloat16"),
+    # zamba2-2.7b's scan: 80 heads of P = 64 at N = 64, both dtypes, and
+    # its training length (16 chunks of carried state)
+    (1, 80, 1024, 64, 64, 256, "model", "float32"),
+    (1, 80, 1024, 64, 64, 256, 0.02, "bfloat16"),
+    (1, 80, 4096, 64, 64, 256, "model", "bfloat16"),
 ]
 #: each case with the path its dtype and shapes select
 SSD_BWD_PATH_CASES = [(*c, ss.select_bwd_path(getattr(torch, c[7]), c[3],

@@ -191,8 +191,32 @@ def test_flash_path_choice(dtype, rows, path):
     assert fa.select_path(dtype, rows) == path
 
 
+@pytest.mark.parametrize("arch,decode,prefill", [
+    ("granite-3-2b", "split_decode", "mma"),
+    ("zamba2-2.7b", "split_decode", "mma"),      # G = 1, D = 80
+])
+def test_the_models_attention_calls_take_their_paths(arch, decode, prefill):
+    """Each model's bf16 attention calls: decode (one query row per query
+    head, G rows per KV head) splits the keys; prefill and training
+    (S = 256 to 4096) take the tensor cores.  zamba2's MHA (G = 1) at head
+    dim 80 is a shape the kernel was built for."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    G = cfg.num_heads // cfg.num_kv_heads
+    assert cfg.head_dim in fa.HEAD_DIMS
+    assert fa.select_path(torch.bfloat16, G * 1) == decode
+    for S in (256, 1024, 4096):
+        assert fa.select_path(torch.bfloat16, G * S) == prefill
+    assert fa.select_bwd_path(torch.bfloat16) == "wgmma"
+    q = torch.zeros(2, cfg.num_heads, 4, cfg.head_dim, dtype=torch.bfloat16)
+    k = torch.zeros(2, cfg.num_kv_heads, 8, cfg.head_dim,
+                    dtype=torch.bfloat16)
+    fa._check(q, k, k)
+
+
 @pytest.mark.parametrize("bh,sk,sms,want", [
     (128, 512, 132, 1),      # granite decode (B=16, Hkv=8): a CTA a head
+    (512, 512, 132, 1),      # zamba2 decode (B=16, Hkv=32, G=1)
     (128, 384, 132, 1),
     (16, 512, 132, 8),       # few CTAs: split, one tile each
     (8, 64, 132, 1),         # one tile: one split

@@ -152,16 +152,15 @@ def test_prefill_step(setup):
     _close(prefill_logits(tp, tcfg, batch_t), jl[:, -1])
 
 
-@pytest.mark.parametrize("family", ["moe", "hybrid"])
+@pytest.mark.parametrize("family", ["moe", "encdec"])
 def test_other_families_raise(family):
     from dataclasses import replace
-    from repro_torch.configs.base import MoEConfig, SSMConfig
+    from repro_torch.configs.base import MoEConfig
     if family == "moe":
         cfg = replace(get_config(ARCH), moe=MoEConfig(4, 2, 64))
-    else:   # zamba2's shape: SSM layers plus a shared attention block
-        cfg = replace(get_config(ARCH), ssm=SSMConfig(16, 16),
-                      shared_attention_every=2)
-        assert cfg.is_hybrid
+    else:   # seamless's shape: an encoder stack and cross-attention
+        cfg = replace(get_config(ARCH), encoder_layers=2)
+        assert cfg.is_encdec
     with pytest.raises(NotImplementedError):
         TM.model_schema(cfg)
     with pytest.raises(NotImplementedError):

@@ -154,6 +154,7 @@ def test_ssd_scan_rejects_what_the_reference_rejects():
 
 @pytest.mark.parametrize("dtype,P,N,Q,path", [
     (torch.bfloat16, 64, 128, 256, "wgmma"),     # mamba2-370m's call
+    (torch.bfloat16, 64, 64, 256, "wgmma"),      # zamba2-2.7b's call
     (torch.bfloat16, 16, 16, 64, "wgmma"),
     (torch.bfloat16, 32, 64, 128, "wgmma"),
     (torch.bfloat16, 48, 80, 192, "wgmma"),      # padded to 64 and 128
@@ -171,14 +172,16 @@ def test_ssd_path_choice(dtype, P, N, Q, path):
     assert ss.select_path(dtype, P, N, Q) == path
 
 
-def test_the_models_ssd_call_takes_the_tensor_cores():
-    """mamba2-370m's bf16 prefill (every layer's ssd_chunked) selects the
-    wgmma path; its fp32 smoke config stays on fp32 FMAs."""
-    cfg = get_config("mamba2-370m")
+@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b"])
+def test_the_models_ssd_call_takes_the_tensor_cores(arch):
+    """The SSM and hybrid families' bf16 prefill (every layer's
+    ssd_chunked) selects the wgmma path; their fp32 smoke configs stay on
+    fp32 FMAs."""
+    cfg = get_config(arch)
     shape = (cfg.ssm.head_dim, cfg.ssm.state_size, cfg.ssm.chunk_size)
     assert cfg.dtype == "bfloat16"
     assert ss.select_path(torch.bfloat16, *shape) == "wgmma"
-    smoke = get_config(ARCH)
+    smoke = get_config(f"{arch}-smoke")
     assert ss.select_path(tparams.torch_dtype(smoke.dtype), smoke.ssm.head_dim,
                           smoke.ssm.state_size, smoke.ssm.chunk_size) == "fma"
 

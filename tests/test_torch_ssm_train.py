@@ -248,6 +248,7 @@ def test_ssd_scan_bwd_reads_strided_inputs_on_the_cpu():
 
 @pytest.mark.parametrize("dtype,P,N,Q,path", [
     (torch.bfloat16, 64, 128, 256, "wgmma"),     # mamba2-370m's training
+    (torch.bfloat16, 64, 64, 256, "wgmma"),      # zamba2-2.7b's training
     (torch.bfloat16, 16, 16, 64, "wgmma"),
     (torch.bfloat16, 48, 96, 192, "wgmma"),
     (torch.bfloat16, 64, 128, 320, "fma"),       # five 64-row tiles a chunk
@@ -269,11 +270,16 @@ def test_ssd_bwd_path_choice(dtype, P, N, Q, path):
 
 
 def test_ssd_bwd_path_of_the_training_configs():
-    """mamba2-370m's bf16 training scan takes the backward's wgmma path,
-    the fp32 smoke config's the fma path."""
+    """mamba2-370m's and zamba2-2.7b's bf16 training scans take the
+    backward's wgmma path (and the forward's), the fp32 smoke configs' the
+    fma path."""
     from repro_torch.models import params as tparams
-    for arch, path in (("mamba2-370m", "wgmma"), (ARCH, "fma")):
+    for arch, path in (("mamba2-370m", "wgmma"), (ARCH, "fma"),
+                       ("zamba2-2.7b", "wgmma"), ("zamba2-2.7b-smoke", "fma")):
         cfg = get_config(arch)
+        assert ss.select_path(tparams.torch_dtype(cfg.dtype),
+                              cfg.ssm.head_dim, cfg.ssm.state_size,
+                              cfg.ssm.chunk_size) == path, arch
         assert ss.select_bwd_path(tparams.torch_dtype(cfg.dtype),
                                   cfg.ssm.head_dim, cfg.ssm.state_size,
                                   cfg.ssm.chunk_size) == path, arch
@@ -308,6 +314,20 @@ def test_bwd_wgmma_rounding_model_holds_the_tolerance():
     for a_, r_ in zip(got, ref):
         assert a_.shape == r_.shape and a_.dtype == r_.dtype
     ratios = ssd_rounding.bwd_ratios(got, ref)
+    assert max(ratios) < 0.7, ratios
+
+
+def test_bwd_wgmma_rounding_model_at_zamba2s_shape():
+    """zamba2-2.7b's scan: 80 heads (dB and dC sum 2.5x mamba2's 32) of
+    P = 64 at N = 64, over 16 chunks of 256, at mamba2's decays, B cut to
+    1.  The same roundings keep every output within SSD_BWD_TOL, with
+    room: 0.45 of the bound at worst (dx) at the full training shape,
+    B = 8 (``python -m repro_torch.kernels.ssd_rounding bwd 80 64 8``), so
+    no operand needs another split."""
+    args = ssd_rounding.grad_inputs(0, 1, 80, 4096, 64, 64)
+    ref = ssd_chunked_backward_reference(*args, 256)
+    ratios = ssd_rounding.bwd_ratios(ssd_rounding.model_grads(*args, 256),
+                                     ref)
     assert max(ratios) < 0.7, ratios
 
 
