@@ -12,7 +12,10 @@ seed -- ``granite-3-2b`` (dense, K1; 10 of its 40 layers, see
 serving at 24 of its 48 layers, ``MAMBA_SERVE_LAYERS``, training at all
 48), ``zamba2-2.7b`` (hybrid, K3 and K1
 at G = 1, D = 80; all 54 layers, elastic training at 12) -- and checks
-that each really ran through its kernels.  Phases:
+that each really ran through its kernels; then the paper's live
+multi-tenant cluster (``dmr.Cluster``) on eight workers of the card, with
+toy tenants and with six full-width ``mamba2-370m`` training tenants.
+Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
 2. build: compile every kernel (one nvcc per source, in parallel), and
@@ -139,7 +142,37 @@ that each really ran through its kernels.  Phases:
     peak GB, K3 108 + 54 and K1 18 + 9 launches a step, none on a plain
     version; one traced step: device busy, idle share, K3's and K1's
     forward and backward shares, the largest device operators;
-14. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
+14. the paper's live grid on toy tenants (``benchmarks/live_cluster.py``'s:
+    ``materialize_live("steady", n_jobs=6, max_steps=10)``, limits scaled
+    to half of the eight-worker pool, arrivals over 10 ticks;
+    static/rigid, ``algorithm2`` and ``throughput-greedy`` each rigid and
+    moldable, and a ``decisions="cosim"`` replay with ``crosscheck``),
+    each tenant an 840-float vector and a counter on its workers, under
+    both engines (``Cluster``, ``ReferenceCluster``) with the live trail
+    sanitizer on: the engines must agree, the card's runs must equal the
+    same grid on CPU workers (records, resize events, trail, and every
+    tenant's final vector and counter, bit for bit, after all its
+    steps), and every malleable configuration must beat static on
+    jobs/s; per configuration ``makespan_ticks``, ``jobs_per_s``,
+    ``alloc_rate_pct``, ``energy_kwh`` (the wattage model's nominal
+    100 W idle and 340 W loaded per worker on the tick clock, not a
+    reading of the card), ``n_resizes``, ``wall_s`` and
+    ``throughput_vs_static``;
+14b. real tenants: the ``steady`` workload of six jobs of six steps on the
+    eight workers of the card (``device_count=8``), ``algorithm2``,
+    moldable, each tenant ``lm_train_app`` of ``mamba2-370m`` at full
+    width and all 48 layers (global batch 8 of 1024 tokens, ``train_4k``'s
+    4096 cut for the script's time; bf16 over fp32 master weights; AdamW
+    1e-3; seeded by its jid), its TrainState on the card and moved by
+    ``default`` on every resize; both engines, sanitized: every job
+    finishes, the engines agree on ``summary()``, records and trail, the
+    most resized tenant's losses are within 1e-4 of the same job run
+    alone, and K3 launches exactly 96 forward and 48 backward kernels per
+    tenant step (steps counted from the trail), all on ``wgmma``; wall
+    seconds, the median seconds per tenant step, each resize's bytes and
+    seconds, the peak of co-resident tenants and of
+    ``torch.cuda.max_memory_allocated``;
+15. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
     profiler's device time per call, device records only, taken right
@@ -283,6 +316,30 @@ SSM_SCAN_LEAVES = ("A_log", "dt_bias", "w_dt", "w_B", "w_C", "conv_B",
 SSM_LEAF_TOL = 1e-4
 #: K3's backward at the SSM training path's shape: B, H, S, P, N, Q
 SSD_BWD_TRAIN = (TRAIN_BATCH, 32, 4096, 64, 128, 256)
+
+#: phase 14, the live benchmark's grid (``benchmarks/live_cluster.py``):
+#: (label, policy, submission mode, malleable, decisions)
+LIVE_GRID = [("static/rigid", "algorithm2", "rigid", False, "policy"),
+             ("algorithm2/rigid", "algorithm2", "rigid", True, "policy"),
+             ("algorithm2/moldable", "algorithm2", "moldable", True,
+              "policy"),
+             ("throughput-greedy/rigid", "throughput-greedy", "rigid", True,
+              "policy"),
+             ("throughput-greedy/moldable", "throughput-greedy", "moldable",
+              True, "policy"),
+             ("cosim/algorithm2", "algorithm2", "moldable", True, "cosim")]
+#: six steady jobs of ten steps on the eight-worker pool.  Job limits scale
+#: to half the pool and arrivals to n_jobs * max_steps // 6 ticks, as in
+#: the benchmark: a rigid job asking for the whole pool can be unblocked
+#: by no shrink, so at device_count=8 the rigid malleable runs equal static
+#: (0.1 jobs/s each on the tick clock), and the benchmark's assertion that
+#: malleability wins could not hold
+LIVE_JOBS, LIVE_STEPS, LIVE_DEVICE_COUNT, LIVE_SPAN = 6, 10, 4, 10
+#: phase 14b: six steady jobs of six steps, limits scaled to the whole
+#: pool, each a full-width 48-layer mamba2-370m training job at
+#: TRAIN_BATCH x CLUSTER_SEQ tokens a step (train_4k's 4096 cut to 1024
+#: for the script's time)
+CLUSTER_JOBS, CLUSTER_STEPS, CLUSTER_SEQ = 6, 6, 1024
 
 ZAMBA = "zamba2-2.7b"               # the hybrid family, at full width
 #: its shared attention is multi-head (H = Hkv = 32, G = 1) at head dim 80
@@ -714,7 +771,7 @@ def main() -> None:
         _, z_err[f"prefill{S_}"] = k1_case(
             *z_pre[S_], f"zamba2 prefill {BATCH}x{zH}x{zHkv} S={S_} D={zD}",
             causal=True)
-    zpargs = z_pre[M_PREFILL_S]            # timed in phase 14
+    zpargs = z_pre[M_PREFILL_S]            # timed in phase 15
     del z_pre
     z_group = [2 * BATCH * zHkv >= sms and -(-S_ // fa.TILE_K) <=
                (128 * 1024) // (2 * 2 * fa.TILE_K * zD)
@@ -1042,7 +1099,7 @@ def main() -> None:
             fail(f"K3 backward at the training shape in {name} does not "
                  f"take its {want} path")
         if (name, decay) == ("bfloat16", "model"):
-            ssd_bwd_args = targs                  # timed in phase 14
+            ssd_bwd_args = targs                  # timed in phase 15
             again = ops.ssd_scan_bwd(*targs, chunk=bQ)
             torch.cuda.synchronize()
             if not all(torch.equal(a_, b_) for a_, b_ in zip(tgot, again)):
@@ -1069,7 +1126,7 @@ def main() -> None:
             del out
         tgot, z_bwd_err[decay] = k3_bwd_case(targs, zbQ, what + " bwd")
         if decay == "model":
-            zssd_bwd_args = targs                 # timed in phase 14
+            zssd_bwd_args = targs                 # timed in phase 15
             again = ops.ssd_scan_bwd(*targs, chunk=zbQ)
             torch.cuda.synchronize()
             if not all(torch.equal(a_, b_) for a_, b_ in zip(tgot, again)):
@@ -1116,7 +1173,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("K3_bwd")
 
-    # -- device times for the kernels line (phase 14), taken here: late in
+    # -- device times for the kernels line (phase 15), taken here: late in
     # the process, after the long traced windows of phases 8 and 10, the
     # profiler drops device records --------------------------------------
     n = PROMPT + DECODE                       # K1 decode: the path's last step
@@ -1276,12 +1333,12 @@ def main() -> None:
     del cold_dec, cold_pre, k3_bwd_sets, ssd_bwd_f32_args
     mark("device_ms")
 
-    # zamba2's kernel rows for phase 14, timed here and their inputs freed
+    # zamba2's kernel rows for phase 15, timed here and their inputs freed
     # (they would count in the training phases' peak memory): K1 at G = 1,
     # D = 80 (decode at the serving path's last step, prefill at the
     # prefill path's S = 1024, training forward and backward at B = 8,
     # S = 4096), K3 at 80 heads, N = 64 (prefill, training forward and
-    # backward); work and bytes counted as phase 14's rows count them.
+    # backward); work and bytes counted as phase 15's rows count them.
     # Their launches come from the zamba2 paths (phases 13e-13h)
     attn_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
     zb_dec = bound_ms(2 * (2 * BATCH * zH * zD + 2 * BATCH * zHkv * z_n * zD),
@@ -2077,7 +2134,287 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("zamba2_train_depth")
 
-    # -- 14. kernels line: times at the path's shapes -----------------------
+    # -- 14. the paper's live grid on toy tenants ---------------------------
+    from repro_torch.rms import materialize_live
+
+    def live_grid(device):
+        """Phase 14's grid on WORKERS workers of ``device``, each
+        configuration under both engines with the sanitizer on; the engines
+        must agree.  Returns, by label, what both packages' tests compare
+        (summary but ``wall_s``, records, resize events, trail), the event
+        engine's wall seconds and every tenant's final state (``x`` on the
+        CPU, ``i``), which must have taken each of the job's steps."""
+        homes = set()
+
+        def factory_into(finals):
+            def factory(spec):
+                app = dmr.default_app_factory(spec)
+
+                def init(mesh):
+                    state = app.init_state(mesh)
+                    homes.update(str(t.device) for t in T.leaves(state))
+                    return state
+
+                def step(mesh):
+                    f = app.make_step(mesh)
+
+                    def g(state, i, *a):
+                        state, metrics = f(state, i, *a)
+                        finals[spec.jid] = state
+                        return state, metrics
+                    return g
+                return dmr.App(init=init, shardings=app.state_shardings,
+                               step=step, name=app.name)
+            return factory
+
+        out = {}
+        for label, policy, mode, malleable, decisions in LIVE_GRID:
+            specs = materialize_live(
+                "steady", n_jobs=LIVE_JOBS, max_steps=LIVE_STEPS,
+                device_count=LIVE_DEVICE_COUNT, mode=mode,
+                malleable=malleable, seed=0, arrival_span=LIVE_SPAN)
+            seen = []
+            for engine in (dmr.Cluster, dmr.ReferenceCluster):
+                finals = {}
+                cl = engine(specs, logical_workers(WORKERS, device),
+                            policy=policy, decisions=decisions,
+                            app_factory=factory_into(finals), sanitize=True)
+                res = cl.run()
+                if decisions == "cosim":
+                    cl.crosscheck(res)              # raises on divergence
+                s = res.summary()
+                wall = s.pop("wall_s")
+                states = {j: (st["x"].cpu(), int(st["i"]))
+                          for j, st in sorted(finals.items())}
+                short = {sp.jid: (states.get(sp.jid, (None, -1))[1],
+                                  sp.steps) for sp in specs
+                         if states.get(sp.jid, (None, -1))[1] != sp.steps}
+                if short:
+                    fail(f"live grid {label} on {device}: tenants whose "
+                         f"state did not take every step (i, steps): "
+                         f"{short}")
+                seen.append(((s, [(r.jid, r.start_tick, r.end_tick,
+                                   r.start_procs, r.final_procs,
+                                   tuple(r.resizes)) for r in res.records],
+                              {j: [(e.step, e.action, e.from_procs,
+                                    e.to_procs, e.transfer.bytes_moved)
+                                   for e in ev]
+                               for j, ev in res.events_by_jid.items()},
+                              cl.trail), wall, states))
+            if seen[0][0] != seen[1][0]:
+                fail(f"live grid {label} on {device}: Cluster and "
+                     f"ReferenceCluster disagree: {seen[0][0][0]} vs "
+                     f"{seen[1][0][0]}")
+            if not same_states(seen[0][2], seen[1][2]):
+                fail(f"live grid {label} on {device}: Cluster and "
+                     f"ReferenceCluster leave different tenant states")
+            out[label] = seen[0]
+        if homes != {str(torch.device(device))}:
+            fail(f"live grid on {device}: tenant state on {sorted(homes)}")
+        return out
+
+    def same_states(a, b):
+        """Equal final tenant states: the same jobs, bit-equal ``x``,
+        equal ``i``."""
+        return a.keys() == b.keys() and all(
+            torch.equal(a[j][0], b[j][0]) and a[j][1] == b[j][1] for j in a)
+
+    ops.reset_counts()
+    grid_card = live_grid(dev)
+    grid_cpu = live_grid("cpu")
+    for label, (obs, _, states) in grid_card.items():
+        if obs != grid_cpu[label][0]:
+            fail(f"live grid {label}: the card's run differs from the CPU "
+                 f"workers' ({obs[0]} vs {grid_cpu[label][0][0]})")
+        if not same_states(states, grid_cpu[label][2]):
+            fail(f"live grid {label}: the tenants' final x or i on the "
+                 f"card differ from the CPU workers'")
+    base = grid_card["static/rigid"][0][0]
+    for label, ((s, _, _, trail), wall, _) in grid_card.items():
+        if label != "static/rigid" and \
+                not s["throughput_jps"] > base["throughput_jps"]:
+            fail(f"live grid {label}: {s['throughput_jps']} jobs/s does "
+                 f"not beat static's {base['throughput_jps']}")
+        phase(f"cluster:grid:{label}", makespan_ticks=int(s["makespan_s"]),
+              jobs_per_s=f"{s['throughput_jps']:.5f}",
+              alloc_rate_pct=f"{100 * s['alloc_rate']:.2f}",
+              energy_kwh=f"{s['energy_kwh']:.6f}",
+              energy_note="nominal idle_w=100 loaded_w=340 per worker on "
+                          "the tick clock, not read from the card",
+              n_resizes=s["n_resizes"], wall_s=f"{wall:.3f}",
+              throughput_vs_static=f"{s['throughput_jps'] /
+                                      base['throughput_jps']:.2f}",
+              trail_events=len(trail))
+    phase("cluster:grid", configs=len(grid_card), engines_agree=True,
+          card_equals_cpu=True, states_equal=True, workers=WORKERS,
+          device_count=LIVE_DEVICE_COUNT, jobs=LIVE_JOBS, steps=LIVE_STEPS,
+          kernel_launches=sum(ops.launch_counts().values()))
+    mark("cluster_grid")
+
+    # -- 14b. real tenants: full-width mamba2-370m training in the cluster --
+    ccfg = get_config(MAMBA)
+    cshape = dataclasses.replace(get_shape(TRAIN_SHAPE),
+                                 global_batch=TRAIN_BATCH,
+                                 seq_len=CLUSTER_SEQ)
+    cspecs = materialize_live("steady", n_jobs=CLUSTER_JOBS,
+                              device_count=WORKERS, max_steps=CLUSTER_STEPS,
+                              seed=0)
+    spec_steps = {sp.jid: sp.steps for sp in cspecs}
+
+    def lm_factory(losses, secs, homes):
+        """Each tenant an lm_train_app seeded by its jid, its losses and
+        step seconds recorded, its state's devices noted."""
+        def factory(spec):
+            app = lm_train_app(ccfg, cshape, AdamW(learning_rate=1e-3),
+                               seed=spec.jid)
+
+            def init(mesh):
+                state = app.init_state(mesh)
+                homes.update(str(t.device) for t in T.leaves(state))
+                return state
+
+            def step(mesh):
+                fn = app.make_step(mesh)
+
+                def run(state, i, *a):
+                    t0 = time.perf_counter()
+                    state, m = fn(state, i, *a)
+                    losses.setdefault(spec.jid, []).append(float(m["loss"]))
+                    secs.setdefault(spec.jid, []).append(
+                        time.perf_counter() - t0)
+                    return state, m
+                return run
+            return dmr.App(init=init, shardings=app.state_shardings,
+                           step=step, name=app.name)
+        return factory
+
+    runs = {}
+    for engine in (dmr.Cluster, dmr.ReferenceCluster):
+        losses, secs, homes = {}, {}, set()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cl = engine(cspecs, logical_workers(WORKERS, dev),
+                    policy="algorithm2",
+                    app_factory=lm_factory(losses, secs, homes),
+                    sanitize=True)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()   # earlier phases' tensors
+        ops.reset_counts()
+        res = cl.run()
+        torch.cuda.synchronize()
+        counts = dict(ops.launch_counts(), paths={
+            k_: dict(ops.KERNELS[k_].path_launches)
+            for k_ in ("ssd_scan", "ssd_scan_bwd")})
+        peak = torch.cuda.max_memory_allocated()
+        s = res.summary()
+        wall = s.pop("wall_s")
+        finished = [e[1] for e in cl.trail if e[0] == "finish"]
+        n_steps = sum(spec_steps[j] for j in finished)
+        L = ccfg.num_layers
+        want = {"ssd_scan": 2 * L * n_steps, "ssd_scan_bwd": L * n_steps,
+                "flash_attention": 0, "flash_attention_bwd": 0}
+        want_paths = {"ssd_scan": {"fma": 0, "wgmma": 2 * L * n_steps},
+                      "ssd_scan_bwd": {"fma": 0, "wgmma": L * n_steps}}
+        if sorted(finished) != sorted(spec_steps) or \
+                len(res.records) != CLUSTER_JOBS:
+            fail(f"{engine.__name__}: jobs {sorted(finished)} finished of "
+                 f"{sorted(spec_steps)}")
+        if sum(len(v) for v in losses.values()) != n_steps or \
+                any(len(losses[j]) != spec_steps[j] for j in spec_steps):
+            fail(f"{engine.__name__}: tenant steps "
+                 f"{ {j: len(v) for j, v in losses.items()} } vs the "
+                 f"trail's {spec_steps}")
+        if {k_: counts[k_] for k_ in want} != want or \
+                counts["paths"] != want_paths:
+            fail(f"{engine.__name__}: {n_steps} tenant steps launched "
+                 f"{counts}, not {want} on {want_paths}")
+        if homes != {str(dev)}:
+            fail(f"{engine.__name__}: tenant state on {sorted(homes)}")
+        if cl._sanitizer.violations:
+            fail(f"{engine.__name__}: sanitizer {cl._sanitizer.violations}")
+        if not all(np.isfinite(x) for v in losses.values() for x in v):
+            fail(f"{engine.__name__}: losses {losses}")
+        patterns = {k_ for ev in res.events_by_jid.values() for e in ev
+                    for k_ in e.per_pattern}
+        if res.n_resizes and patterns != {"default"}:
+            fail(f"{engine.__name__}: resizes moved state by {patterns}")
+        runs[engine.__name__] = dict(
+            summary=s, wall=wall, trail=cl.trail, peak=peak, base=base,
+            counts=counts,
+            n_steps=n_steps, losses=losses, secs=secs,
+            co_resident=max(res.timeline["running"]),
+            records=[(r.jid, r.start_tick, r.end_tick, r.start_procs,
+                      r.final_procs, tuple(r.resizes)) for r in res.records],
+            events=res.events_by_jid)
+        del cl, res
+    ev_run, ref_run = runs["Cluster"], runs["ReferenceCluster"]
+    for key in ("summary", "records", "trail"):
+        if ev_run[key] != ref_run[key]:
+            fail(f"mamba2 tenants: the engines' {key} differ: {ev_run[key]} "
+                 f"vs {ref_run[key]}")
+    if not ev_run["summary"]["n_resizes"]:
+        fail("mamba2 tenants: the cluster made no resize")
+    for jid, ev in sorted(ev_run["events"].items()):
+        for e in ev:
+            phase("cluster:mamba2:resize", jid=jid, step=e.step,
+                  action=e.action, sizes=f"{e.from_procs}->{e.to_procs}",
+                  bytes_moved=e.transfer.bytes_moved,
+                  seconds=f"{e.transfer.seconds:.4f}")
+    # the tenant with the most resizes against the same job run alone
+    jid = max(sorted(ev_run["events"]),
+              key=lambda j: len(ev_run["events"][j]))
+    spec = next(sp for sp in cspecs if sp.jid == jid)
+    torch.cuda.empty_cache()
+    runner = dmr.MalleableRunner(
+        lm_train_app(ccfg, cshape, AdamW(learning_rate=1e-3), seed=jid),
+        spec.params, dmr.ScriptedRMS({}),
+        devices=logical_workers(WORKERS, dev))
+    state, static = runner.init(), []
+    for i in range(spec.steps):
+        state, m = runner.step(state, i)
+        static.append(float(m["loss"]))
+    # where a tenant step's time goes at S=1024: one traced step more
+    L = ccfg.num_layers
+    state, tfields, _ = traced_step(runner, state, spec.steps, {
+        "k3_fwd": (is_k3_fwd, 2 * L),
+        "k3_bwd": (is_k3_bwd, ss.BWD_KERNELS["wgmma"] * L)})
+    phase("cluster:mamba2:profile", layers=L, seq=CLUSTER_SEQ, **tfields)
+    del runner, state
+    gap_ = max(abs(a - b) for a, b in zip(ev_run["losses"][jid], static))
+    if len(static) != len(ev_run["losses"][jid]) or gap_ > TRAIN_LOSS_TOL:
+        fail(f"mamba2 tenant {jid}: cluster losses {ev_run['losses'][jid]} "
+             f"vs alone {static} (gap {gap_:.3e} > {TRAIN_LOSS_TOL})")
+    med_s = float(np.median([x for v in ev_run["secs"].values()
+                             for x in v]))
+    cluster_k3 = (ev_run["counts"]["ssd_scan"],
+                  ev_run["counts"]["ssd_scan_bwd"])
+    phase("cluster:mamba2", layers=ccfg.num_layers, jobs=CLUSTER_JOBS,
+          batch=TRAIN_BATCH, seq=CLUSTER_SEQ, workers=WORKERS,
+          tenant_steps=ev_run["n_steps"],
+          makespan_ticks=int(ev_run["summary"]["makespan_s"]),
+          n_resizes=ev_run["summary"]["n_resizes"],
+          wall_s=f"{ev_run['wall']:.2f}",
+          reference_wall_s=f"{ref_run['wall']:.2f}",
+          s_per_tenant_step=f"{med_s:.4f}",
+          tenant_tokens_per_s=f"{TRAIN_BATCH * CLUSTER_SEQ / med_s:.0f}",
+          peak_co_resident=ev_run["co_resident"],
+          peak_gb=f"{ev_run['peak'] / 1e9:.2f}",
+          held_before_gb=f"{ev_run['base'] / 1e9:.2f}",
+          cluster_peak_gb=f"{(ev_run['peak'] - ev_run['base']) / 1e9:.2f}",
+          reference_cluster_peak_gb=f"{(ref_run['peak'] - ref_run['base'])
+                                       / 1e9:.2f}",
+          k3_per_step=f"{cluster_k3[0] / ev_run['n_steps']:.0f},"
+                      f"{cluster_k3[1] / ev_run['n_steps']:.0f}",
+          k3_paths=json.dumps(ev_run["counts"]["paths"],
+                              separators=(",", ":")),
+          resized_jid=jid, resizes_of_jid=len(ev_run["events"][jid]),
+          vs_alone_max_gap=f"{gap_:.3e}", tol=TRAIN_LOSS_TOL,
+          engines_agree=True, sanitizer_violations=0)
+    del runs, ev_run, ref_run
+    torch.cuda.empty_cache()
+    mark("cluster_mamba2")
+
+    # -- 15. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
     el = 2                                   # bf16 bytes
@@ -2228,6 +2565,9 @@ def main() -> None:
         "replaces": "src/repro/kernels/ssd_scan.py:59",
         "path": "wgmma",
         "launches": m_train_fwd_launches,
+        "launches_cluster": cluster_k3[0],
+        "launches_cluster_note": "phase 14b: six 48-layer mamba2-370m "
+                                 "tenants under dmr.Cluster, S=1024",
         "max_abs_err": train_fwd_err["bfloat16"],
         "ms": time_ms(k3_tfwd, iters=10, warmup=2),
         "device_ms": dev_ms["K3 train fwd"],
@@ -2263,6 +2603,8 @@ def main() -> None:
                          "(src/repro/models/ssm.py:57) through XLA",
         "path": "wgmma",
         "launches": m_train_bwd_launches, "max_abs_err": err_k3b,
+        "launches_cluster": cluster_k3[1],
+        "launches_cluster_note": "phase 14b, as the forward's row",
         "max_abs_err_note": "largest over dx, da, dB, dC; each is held to "
                             "SSD_BWD_TOL of its largest entry (phase 5b)",
         "ms": time_ms(k3_bwd, iters=5, warmup=1),

@@ -1,4 +1,5 @@
-"""Malleability policies — Algorithm 2 (paper §5.1) plus a pluggable framework.
+"""Malleability policies — Algorithm 2 (paper §5.1) plus a pluggable framework
+(port of ``repro/core/policy.py``).
 
 The module has two layers:
 
@@ -19,21 +20,22 @@ The module has two layers:
     9:     else
    10:         if avail_resources then return expand
 
-* ``Policy`` — the protocol the runner-side ``PolicyRMS`` programs
-  against: when a running malleable job should *grow or shrink*
-  (``decide``).  Three built-ins (see ``POLICIES``): the paper's
+* ``Policy`` — the protocol the discrete-event scheduler
+  (``rms/scheduler.py``) and the runner-side ``PolicyRMS`` program against.  A policy owns three
+  decisions: how to *order the pending queue* (``priority_key``), whether to
+  *backfill* past a blocked queue head (``backfill``), and when a running
+  malleable job should *grow or shrink* (``decide``).  Three built-ins ship
+  with the repo (see ``POLICIES``): the paper's age-based multifactor
   Algorithm 2, an energy-aware shrink-first policy built on the Appendix-B
-  idle/loaded wattage model, and a throughput-greedy policy.  The JAX
-  package's policies also order a scheduler's queue; the port has no
-  scheduler yet, so its policies only decide resizes.
+  idle/loaded wattage model, and a throughput-greedy SJF/backfill-aggressive
+  policy.  The JAX package's ``docs/policies.md`` documents the framework.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Protocol, Sequence, Union
+from typing import Callable, Optional, Protocol, Sequence, Tuple, Union
 
-from repro_torch.core.params import (MalleabilityParams, expansion_target,
-                               shrink_target)
+from repro_torch.core.params import MalleabilityParams, expansion_target
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +58,36 @@ class ClusterView:
     # POOLED prospective releases unblock a pending job (otherwise no job
     # ever moves first on a saturated cluster — see DESIGN.md §9).
     reclaimable_others: int = 0
+
+
+def reclaimable_workers(tenants, exclude=None) -> int:
+    """Workers the *other* running malleable jobs could release by
+    shrinking to their preferred sizes — ``ClusterView.reclaimable_others``
+    as both the simulator engines and the live ``dmr.Cluster`` define it.
+
+    ``tenants`` yields duck-typed running jobs exposing ``nprocs``,
+    ``malleable`` and malleability params at ``.app.params``.  Tenants
+    flagged ``reclaim_opaque`` (composite serving fleets, whose internal
+    occupancy the cluster cannot see and whose shrinks may land partial)
+    are excluded — their excess must never enter another job's line-6
+    shrink arithmetic."""
+    return sum(max(0, t.nprocs - t.app.params.preferred)
+               for t in tenants
+               if t is not exclude and getattr(t, "malleable", False)
+               and not getattr(t, "reclaim_opaque", False))
+
+
+def live_view(*, available: int, pending_min_sizes: Sequence[int],
+              tenants, exclude=None) -> ClusterView:
+    """The ClusterView one running job sees, built from live co-tenants:
+    idle workers, the pending queue's minimum requests, and the pooled
+    reclaimable workers of every *other* running malleable job.  One
+    definition serves the reference simulator engine and ``dmr.Cluster``
+    (the fast engine maintains the same quantities incrementally)."""
+    return ClusterView(available=available,
+                       pending_min_sizes=list(pending_min_sizes),
+                       reclaimable_others=reclaimable_workers(tenants,
+                                                              exclude))
 
 
 def decide(current: int, params: MalleabilityParams,
@@ -110,35 +142,89 @@ def decide(current: int, params: MalleabilityParams,
 # ======================================================================
 
 class Policy(Protocol):
-    """What ``PolicyRMS`` needs from a malleability policy."""
+    """What the scheduler / PolicyRMS need from a malleability policy.
+
+    ``job`` arguments are duck-typed: any object exposing the simulator's
+    ``Job`` surface (``submit_time``, ``boosted``, ``remaining_work`` and an
+    ``app`` with ``exec_time(p)`` / ``params``).  Runner-side callers that
+    have no Job pass ``job=None`` and policies must degrade gracefully.
+    """
 
     name: str
+    backfill: bool                    # scan past a blocked queue head?
+    #: True -> ``priority_key`` depends on ``now`` (queue priorities age);
+    #: the fast engine then re-keys its queue index at every scheduling
+    #: pass instead of indexing keys once at enqueue time.
+    dynamic_priority: bool
+    #: True -> ``decide`` is a pure function of (current, params, cluster
+    #: view) plus *static* job attributes (``app``, ``params``); it must not
+    #: read mutable job state (``remaining_work``, ``boosted``) or retain
+    #: state across calls.  It additionally licenses the fast engine to
+    #: (1) memoize no-op decisions until the cluster state changes and
+    #: (2) present ``cluster.pending_min_sizes`` as a duplicate-collapsed
+    #: multiset summary (``len``/``bool`` are the true queue size;
+    #: iteration yields distinct sizes ascending).  A policy whose decision
+    #: depends on duplicate multiplicities or per-job queue entries must
+    #: set this False — it then always sees the literal per-job list.
+    decide_stateless: bool
+
+    def configure(self, cfg) -> None:
+        """Bind cluster constants (node count, wattage) from a SimConfig-like
+        object before a run.  Must be idempotent."""
+        ...
+
+    def priority_key(self, job, now: float) -> Tuple:
+        """Sort key for the pending queue (smaller = scheduled first)."""
+        ...
 
     def decide(self, current: int, params: MalleabilityParams,
-               cluster: ClusterView) -> Action:
+               cluster: ClusterView, job=None) -> Action:
         """Grow/shrink decision for one running malleable job."""
         ...
 
 
 class BasePolicy:
+    """Default behaviors shared by the built-ins: age-based multifactor
+    priority (post-shrink beneficiaries first, then FCFS age) and backfill
+    enabled, matching the paper's sched/backfill Slurm setup."""
+
     name = "base"
+    backfill = True
+    dynamic_priority = False          # keys below don't age with `now`
+    decide_stateless = True           # decide() is pure in its arguments
+
+    def configure(self, cfg) -> None:        # pragma: no cover - trivial
+        pass
+
+    def priority_key(self, job, now: float) -> Tuple:
+        return (not getattr(job, "boosted", False), job.submit_time)
 
     def decide(self, current: int, params: MalleabilityParams,
-               cluster: ClusterView) -> Action:
+               cluster: ClusterView, job=None) -> Action:
         raise NotImplementedError
+
+    def choose_scale_path(self, job) -> str:
+        """How a serving fleet should realize an expand this policy just
+        decided: ``"in-place"`` grows a live replica's mesh through
+        ``dmr.reconfig`` (warm — ready after ``grow_ticks``),
+        ``"replica"`` cold-starts a new replica (``cold_start_ticks`` of
+        no service).  Batch policies default to whole replicas; the
+        latency policies of the serving fleet (``repro/serve/slo.py``, not
+        yet ported) override this."""
+        return "replica"
 
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name!r})"
 
 
 class Algorithm2Policy(BasePolicy):
-    """The paper's §5.1 policy: the Algorithm-2 expand/shrink rules (never
-    shrinks below preferred)."""
+    """The paper's §5.1 policy: age-based multifactor priority + the
+    Algorithm-2 expand/shrink rules (never shrinks below preferred)."""
 
     name = "algorithm2"
 
     def decide(self, current: int, params: MalleabilityParams,
-               cluster: ClusterView) -> Action:
+               cluster: ClusterView, job=None) -> Action:
         return decide(current, params, cluster)
 
 
@@ -146,8 +232,7 @@ class EnergyAwarePolicy(BasePolicy):
     """Energy-aware shrink-first policy (Appendix-B wattage model).
 
     Each legal size ``p`` is scored by the job's incremental energy to
-    completion, with ``t(p) = p ** -0.5`` (a generic sublinear-scaling
-    proxy: the runner knows no per-job cost model)::
+    completion::
 
         E(p) = t(p) * [ p * (loaded_w - idle_w)  (+ nodes * idle_w if the
                         queue is empty, i.e. the job drives the makespan) ]
@@ -163,22 +248,36 @@ class EnergyAwarePolicy(BasePolicy):
     name = "energy"
 
     def __init__(self, idle_w: float = 100.0, loaded_w: float = 340.0,
-                 nodes: int = 128):
+                 nodes: int = 128,
+                 cost_fn: Optional[Callable[[int], float]] = None):
         self.idle_w = idle_w
         self.loaded_w = loaded_w
         self.nodes = nodes
+        self.cost_fn = cost_fn           # runner-side fallback, see _exec_time
 
-    def job_energy(self, p: int, queue_empty: bool) -> float:
+    def configure(self, cfg) -> None:
+        self.idle_w = getattr(cfg, "idle_w", self.idle_w)
+        self.loaded_w = getattr(cfg, "loaded_w", self.loaded_w)
+        self.nodes = getattr(cfg, "nodes", self.nodes)
+
+    def _exec_time(self, p: int, job) -> float:
+        if job is not None:
+            return job.app.exec_time(p)
+        if self.cost_fn is not None:
+            return self.cost_fn(p)
+        return 1.0 / p ** 0.5            # generic sublinear-scaling proxy
+
+    def job_energy(self, p: int, job, queue_empty: bool) -> float:
         watts = p * (self.loaded_w - self.idle_w)
         if queue_empty:
             watts += self.nodes * self.idle_w
-        return 1.0 / p ** 0.5 * watts
+        return self._exec_time(p, job) * watts
 
     def decide(self, current: int, params: MalleabilityParams,
-               cluster: ClusterView) -> Action:
+               cluster: ClusterView, job=None) -> Action:
         queue_empty = not cluster.pending_min_sizes
         best = min(params.legal_sizes(),
-                   key=lambda p: self.job_energy(p, queue_empty))
+                   key=lambda p: self.job_energy(p, job, queue_empty))
         if best > current:
             tgt = min(best, expansion_target(current, params,
                                              cluster.available))
@@ -190,17 +289,24 @@ class EnergyAwarePolicy(BasePolicy):
 
 
 class ThroughputGreedyPolicy(BasePolicy):
-    """Throughput-greedy: backfill-aggressive resizes.
+    """Throughput-greedy: SJF queue ordering + backfill-aggressive resizes.
 
-    Running jobs shrink as deep as ``min_procs`` — not just to preferred —
-    whenever the release would let the cheapest pending job start; with an
-    empty queue they grab every idle worker up to ``max_procs``.
+    Pending queue is ordered by estimated remaining service time at the
+    preferred size (shortest-job-first maximizes completed jobs/s).  Running
+    jobs shrink as deep as ``min_procs`` — not just to preferred — whenever
+    the release would let the cheapest pending job start; with an empty
+    queue they grab every idle worker up to ``max_procs``.
     """
 
     name = "throughput"
 
+    def priority_key(self, job, now: float) -> Tuple:
+        service = job.app.exec_time(job.app.params.preferred) \
+            * getattr(job, "remaining_work", 1.0)
+        return (not getattr(job, "boosted", False), service, job.submit_time)
+
     def decide(self, current: int, params: MalleabilityParams,
-               cluster: ClusterView) -> Action:
+               cluster: ClusterView, job=None) -> Action:
         if cluster.pending_min_sizes:
             need = min(cluster.pending_min_sizes)
             # largest shrink target whose release unblocks the cheapest
@@ -220,19 +326,25 @@ POLICIES = {
     Algorithm2Policy.name: Algorithm2Policy,
     EnergyAwarePolicy.name: EnergyAwarePolicy,
     ThroughputGreedyPolicy.name: ThroughputGreedyPolicy,
-    # the aliases the JAX package's benchmarks and CLI flags use
+    # common aliases used by benchmarks / CLI flags
     "energy-aware": EnergyAwarePolicy,
     "throughput-greedy": ThroughputGreedyPolicy,
 }
 
 
 def validate_policy(policy: Policy) -> Policy:
-    """Check a policy instance has a callable ``decide`` before the runner
-    consults it, so a missing method fails here and not at a resize."""
-    if not callable(getattr(policy, "decide", None)):
-        raise TypeError(
-            f"policy {policy!r} has no callable decide(); see "
-            f"repro_torch.core.policy.Policy (or subclass BasePolicy)")
+    """Check a policy instance implements the callable core of the
+    :class:`Policy` protocol (``decide`` + ``priority_key``) before the
+    engines start consulting it — a missing method would otherwise
+    surface as an ``AttributeError`` deep inside a scheduling loop.
+    The deeper contract (``decide_stateless`` honesty, no hidden state)
+    is checked statically by the JAX package's ``repro.analysis`` lint
+    (rule DMR102), which the port does not have yet."""
+    for attr in ("decide", "priority_key"):
+        if not callable(getattr(policy, attr, None)):
+            raise TypeError(
+                f"policy {policy!r} has no callable {attr}(); see "
+                f"repro_torch.core.policy.Policy (or subclass BasePolicy)")
     return policy
 
 

@@ -10,6 +10,8 @@ runner can receive resize decisions implements :class:`RMSConnector` —
     evaluated against a live cluster view (the standalone/Algorithm-2 case);
   * :class:`FileRMS`      — operator-issued resize commands via a watched
     JSON file (the single-host stand-in for the Slurm RPC socket);
+  * ``repro_torch.dmr.cosim.SimRMS`` — co-simulation: decisions come from
+    a job embedded in the discrete-event cluster simulator.
 
 ``connect`` is the convenience factory the examples use: a dict becomes a
 ``ScriptedRMS``, ``"file:<path>"`` a ``FileRMS``, and any RMSConnector

@@ -1090,3 +1090,85 @@ def test_ssd_bwd_entry_point_refuses_what_it_cannot_take(cuda):
     assert call(path=wgmma, dtype=1, shift=4) == 1       # 8-byte aligned rows
     assert call(path=len(ss.BWD_PATHS), dtype=1) == 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("engine", ["Cluster", "ReferenceCluster"])
+def test_live_cluster_grid_on_card_equals_cpu(cuda, engine):
+    """The paper's live grid (``chip_smoke.py`` phase 14: the ``steady``
+    workload of six ten-step jobs on eight workers, static/rigid, then
+    ``algorithm2`` and ``throughput-greedy`` rigid and moldable, then a
+    cosim replay), sanitized, on workers on the card and on the CPU: equal
+    summaries (but ``wall_s``), records, resize events and trails, and
+    bit-equal final tenant states (``x``, ``i``) that took every step;
+    every tenant's state lived on its workers' device."""
+    from repro_torch import dmr
+    from repro_torch.parallel.mesh import logical_workers
+    from repro_torch.rms import materialize_live
+
+    grid = [("algorithm2", "rigid", False, "policy"),
+            ("algorithm2", "rigid", True, "policy"),
+            ("algorithm2", "moldable", True, "policy"),
+            ("throughput-greedy", "rigid", True, "policy"),
+            ("throughput-greedy", "moldable", True, "policy"),
+            ("algorithm2", "moldable", True, "cosim")]
+    devices_seen = set()
+
+    def factory_into(finals):
+        def factory(spec):
+            app = dmr.default_app_factory(spec)
+
+            def init(mesh):
+                state = app.init_state(mesh)
+                devices_seen.add(state["x"].device.type)
+                return state
+
+            def step(mesh):
+                f = app.make_step(mesh)
+
+                def g(state, i, *a):
+                    state, metrics = f(state, i, *a)
+                    finals[spec.jid] = state
+                    return state, metrics
+                return g
+            return dmr.App(init=init, shardings=app.state_shardings,
+                           step=step, name=app.name)
+        return factory
+
+    def run(device, policy, mode, malleable, decisions):
+        specs = materialize_live("steady", n_jobs=6, max_steps=10,
+                                 device_count=4, mode=mode,
+                                 malleable=malleable, seed=0,
+                                 arrival_span=10)
+        finals = {}
+        cl = getattr(dmr, engine)(specs, logical_workers(8, device),
+                                  policy=policy, decisions=decisions,
+                                  app_factory=factory_into(finals),
+                                  sanitize=True)
+        res = cl.run()
+        s = res.summary()
+        s.pop("wall_s")
+        if decisions == "cosim":
+            cl.crosscheck(res)
+        assert {j: int(st["i"]) for j, st in finals.items()} == \
+            {sp.jid: sp.steps for sp in specs}
+        states = {j: st["x"].cpu() for j, st in finals.items()}
+        return (s, [(r.jid, r.start_tick, r.end_tick, r.start_procs,
+                     r.final_procs, tuple(r.resizes)) for r in res.records],
+                {j: [(e.step, e.action, e.from_procs, e.to_procs,
+                      e.transfer.bytes_moved) for e in ev]
+                 for j, ev in res.events_by_jid.items()},
+                cl.trail), states
+
+    base = None
+    for cfg in grid:
+        (card, card_x), (cpu, cpu_x) = run("cuda", *cfg), run("cpu", *cfg)
+        assert card == cpu, cfg
+        assert card_x.keys() == cpu_x.keys(), cfg
+        for j in card_x:
+            assert torch.equal(card_x[j], cpu_x[j]), (cfg, j)
+        if base is None:
+            base = card[0]["throughput_jps"]
+        else:
+            assert card[0]["throughput_jps"] > base, cfg
+    assert devices_seen == {"cuda", "cpu"}
