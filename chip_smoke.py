@@ -14,7 +14,10 @@ serving at 24 of its 48 layers, ``MAMBA_SERVE_LAYERS``, training at all
 at G = 1, D = 80; all 54 layers, elastic training at 12) -- and checks
 that each really ran through its kernels; then the paper's live
 multi-tenant cluster (``dmr.Cluster``) on eight workers of the card, with
-toy tenants and with six full-width ``mamba2-370m`` training tenants.
+toy tenants and with six full-width ``mamba2-370m`` training tenants; then
+the elastic serving fleet (``repro_torch.serve.ReplicaSet``) with live
+``phi4-mini-3.8b`` decode replicas at full width and all 32 layers (K1 at
+G = 3, D = 128), and phi4's prefill against its decode.
 Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -30,7 +33,8 @@ Phases:
    attention (bf16, B=16, H = Hkv = 32, D=80): decode over its 512-slot
    cache at six kv_lens up to 512 (384 the serving path's last) on
    split_decode, causal prefill at S=256 (the group kernel) and at S=1024
-   (the block kernel) on mma;
+   (the block kernel) on mma, each kernel as the C entry point counts its
+   launches (``flash_attention.mma_kernel_launches``);
 3b. K1's backward (``flash_attention_bwd.cu``) against
    ``attention_backward_reference`` on dq, dk, dv from the forward's own
    output and row log-sum-exp: every head dim in fp32 and bf16, causal,
@@ -41,6 +45,13 @@ Phases:
    output there against ``attention_reference``; the lse against the plain
    forward's; then zamba2's training shape (B=1, H = Hkv = 32, S=4096,
    D=80, bf16) the same way, twice, bit for bit;
+3c. phi4:K1: K1 at phi4-mini's shapes, before any phi4 model phase (bf16,
+   B=16, H=24, Hkv=8: G = 3, D=128): decode over its 512-slot cache at
+   seven kv_lens (384 the serving path's last) on split_decode (3 of its
+   16 rows), causal prefill at S=256 on mma's group kernel (4 key tiles,
+   the most it holds at D = 128; counted by the C entry point); device
+   times warm and L2-cold, SDPA
+   beside each, the bounds (phase 15's two phi4 rows);
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
@@ -172,6 +183,36 @@ Phases:
     seconds, the median seconds per tenant step, each resize's bytes and
     seconds, the peak of co-resident tenants and of
     ``torch.cuda.max_memory_allocated``;
+14c. fleet:inplace: ``tests/test_serving.py``'s in-place script at full
+    width: one live phi4-mini replica (batch 16, cache 512, 2 of 4
+    workers) grown in place to 4 workers at tick 3 and shrunk to 2 at
+    tick 6 through the fleet's scale path, sanitized; its tokens and final
+    KV cache bit-identical to the same run without resizes, scale events
+    ``grow-in-place``, ``shrink-in-place``, runner events ``expand`` then
+    ``shrink``, each one's bytes by pattern the closed form of the
+    state's sizes (``replicate``: the parameters once per worker of the
+    new mesh; ``default``: cache, token and position once), K1 32
+    launches a tick, all on split_decode;
+14d. fleet:live: ``slo-aware`` over phi4-mini replicas (``FLEET_CONFIG``:
+    2 workers a replica, in-place grows to 4, 1-3 replicas on 8 workers)
+    serving ``FLEET_STREAM``: ``summary()``, the latency CDF, timeline,
+    scale events and trail equal the host model's run of the same stream
+    (a synthetic pool, no device); every replica lives within its cache
+    and decodes every other replica's tokens; K1 launches exactly
+    replica-steps x 32, all on split_decode, and nothing else launches;
+    ms per replica-step, each replica-add's seconds (app and runner init,
+    first step) and each in-place grow's (``apply_resize``, next step),
+    peak GB and wall seconds; replica 0's step ``FLEET_TRACE_STEP`` traced:
+    its device busy time, idle share and largest device kernels;
+14e. phi4-mini prefill vs decode: ``make_prefill_step`` at all 32 layers
+    (B=16, S=256: K1 32 launches on mma's group kernel, no K3), its
+    seconds (the time to the first token), then ``logits_check`` (fp32
+    full-sequence logits at
+    every position against fp32 token-by-token decode, bf16 prefill and
+    decode against fp32, ``P_*_LOGITS_*``), and two faults planted in the
+    bf16 decode's last step (its position one back; two KV heads' cached
+    rows swapped) read by the same bf16 measure, each of which the bf16
+    bound must reject; peak GB;
 15. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
@@ -194,13 +235,16 @@ Phases:
     backward at the training shape (B=8), each with SDPA beside it; K3
     forward at the prefill and the training shape and its backward; each
     timed right after the device times, its inputs then freed so that they
-    do not count in the paths' peak memory.  Then
+    do not count in the paths' peak memory.  phi4-mini adds two (phase
+    3c): K1 decode (its launches the fleet's, phase 14d) and prefill (14e).
+    Then
     the contract line ``{"ok": true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
 exits 1 and prints no result.
 """
+import contextlib
 import dataclasses
 import json
 import os
@@ -384,6 +428,49 @@ Z_FP32_LOGITS_ATOL, Z_FP32_LOGITS_RMS = 0.25, 0.05
 Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS = 6.0, 0.9
 
 
+#: phi4-mini (3.836 B parameters, 32 layers, 24 query heads of 128 over 8
+#: KV heads: G = 3) at full width and depth: K1 at its shapes (phase 3c),
+#: the serving fleet's replicas (14c, 14d), and prefill vs decode (14e)
+PHI4 = "phi4-mini-3.8b"
+#: fleet:live (14d): the policy-driven live fleet.  Replicas of 2 workers
+#: that may grow in place to 4, between 1 and 3 of them (3 x 15.3 GB of
+#: fp32 weights) on 8 workers, slo-aware at a 0.5 s SLO consulted every 5
+#: ticks, a cold start of 4 ticks and an in-place grow of 1.  The stream
+#: was picked on the CPU (the host model) for the smallest run that takes
+#: every scale path: a 240-request diurnal swell over 3 s grows a replica
+#: in place, cold-starts two and shrinks one in place in 158 ticks, 289
+#: replica-steps, at most 154 for one replica (its cache holds 512): at
+#: ~50 ms a host-bound 32-layer decode step, ~15 s
+FLEET_CONFIG = dict(devices_per_replica=2, max_devices_per_replica=4,
+                    min_replicas=1, max_replicas=3, initial_replicas=2,
+                    cold_start_ticks=4, grow_ticks=1, slo_p99_s=0.5,
+                    resize_every=5)
+FLEET_STREAM = dict(scenario="diurnal", n_requests=240, horizon_s=3.0,
+                    mean_decode=4, seed=0)
+FLEET_REPLICA_STEPS = 289
+#: replica 0's step (of its 154) that runs under the profiler
+FLEET_TRACE_STEP = 100
+#: ticks at which a replica decodes prompt tokens fed to it (each row its
+#: own) before it decodes greedily
+FLEET_PROMPT = 4
+#: fleet:inplace (14c): tests/test_serving.py's in-place script
+INPLACE_TICKS, INPLACE_GROW_AT, INPLACE_SHRINK_AT = 10, 3, 6
+#: phi4 prefill vs decode (14e), through ``logits_check``.  fp32: granite's
+#: bound (phase 7), here over every position (1.4e-4 at worst on an H100
+#: 80GB HBM3, 700 W).  bf16 against fp32, by the largest and the rms gap:
+#: phi4's 200064 logits spread wider than granite's (std 1.11 against
+#: 0.90) through 32 wider layers, and on that card the bf16 paths were up
+#: to 0.351 off (rms 0.066), past granite's 0.3; rounding only the
+#: weights to bf16 moved them by up to 0.184 (rms 0.036).  Faults planted
+#: in the bf16 decode's last step (``planted_faults``) read, on that card:
+#: its position one back 5.53 (rms 1.10), two KV heads' cached rows
+#: swapped 7.45 (rms 1.46), about one std of the logits as a wrong path
+#: should.  So the largest gap is held to 0.6 and the rms gap to 0.15:
+#: 1.7x and 2.3x above the sound readings, 9x and 7x below the faults'
+P_FP32_LOGITS_ATOL = FP32_LOGITS_ATOL
+P_BF16_LOGITS_MAX, P_BF16_LOGITS_RMS = 0.6, 0.15
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
@@ -547,6 +634,254 @@ def k3_fwd_bound(B, H, S, P, N, Q):
         "bfloat16")
 
 
+def fleet_app(cfg, prompts, cache_len: int):
+    """A replica's app: ``make_decode_app`` (its own parameters from seed
+    0, as the JAX package's replicas build theirs) fed ``prompts[:, i]`` at
+    its first ticks, so every row of the batch decodes its own sequence and
+    a resize that mixed up rows would show."""
+    from repro_torch import dmr
+    from repro_torch.serve import make_decode_app
+    app = make_decode_app(cfg, batch=prompts.shape[0], cache_len=cache_len)
+    n_prompt = prompts.shape[1]
+
+    def step(mesh):
+        fn = app.make_step(mesh)
+        return lambda state, i: fn(state, i, prompts[:, i]
+                                   if i < n_prompt else None)
+    return dmr.App(init=app.init_state, shardings=app.state_shardings,
+                   step=step, patterns=app.patterns, name=app.name)
+
+
+def kernel_launches() -> dict:
+    """Every wrapper's launches since the last ``ops.reset_counts``, and
+    K1's by path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    return dict(ops.launch_counts(),
+                paths=dict(fa.flash_attention.path_launches))
+
+
+def fleet_inplace(cfg, device, batch: int, cache_len: int):
+    """``tests/test_serving.py``'s in-place script on ``device``: one live
+    replica (2 of 4 workers, static) grown in place to 4 at tick
+    ``INPLACE_GROW_AT`` and shrunk to 2 at ``INPLACE_SHRINK_AT`` through
+    the fleet's scale path, under the live trail sanitizer, against the
+    same run without resizes.  Tokens and the final KV cache must be
+    bit-identical, the scale events and runner events those of the script,
+    each resize's bytes the closed form of the state's sizes (every
+    parameter once per worker of the new mesh, the cache, token and
+    position once).  The kernel counts are zeroed before and read after
+    each run.  Returns the resized run's kernel launches and the runner's
+    events."""
+    import numpy as np
+    import torch
+
+    from repro_torch import tree as T
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.mesh import logical_workers
+    from repro_torch.serve import ReplicaSet, ServeConfig, make_request_stream
+    sc = ServeConfig(devices_per_replica=2, max_devices_per_replica=4,
+                     min_replicas=1, max_replicas=1, initial_replicas=1,
+                     slots_per_device=4)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, FLEET_PROMPT), dtype=np.int32)
+
+    def drive(resize):
+        reqs = make_request_stream("steady", 8, horizon_s=1.0, mean_decode=6,
+                                   max_decode_factor=1.0, seed=1)
+        rs = ReplicaSet(reqs, devices=logical_workers(4, device), config=sc,
+                        static_replicas=1,
+                        app_factory=lambda: fleet_app(cfg, prompts,
+                                                      cache_len),
+                        sanitize=True)
+        ops.reset_counts()
+        rs.start_fleet()
+        rep = rs._replicas[0]
+        for i in range(INPLACE_TICKS):
+            if resize and i == INPLACE_GROW_AT:
+                rs._grow_in_place(rep, 4)
+                if rep.current_size != 4 or rs._idle:
+                    fail(f"fleet:inplace: grow left {rep.current_size} "
+                         f"workers, {len(rs._idle)} idle")
+            if resize and i == INPLACE_SHRINK_AT:
+                rs._shrink_in_place(rep, 2)
+                if rep.current_size != 2 or len(rs._idle) != 2:
+                    fail(f"fleet:inplace: shrink left {rep.current_size} "
+                         f"workers, {len(rs._idle)} idle")
+            rs.tick_once()
+            rs._tick += 1
+        torch.cuda.synchronize(device)
+        return rs, rep, kernel_launches()
+
+    _, rep_s, n_s = drive(False)
+    tok_s, cache_s = rep_s.token_history(), rep_s.state["cache"]
+    rep_s.state = None                      # its parameters: free them
+    rs_e, rep_e, n_e = drive(True)
+    tok_e = rep_e.token_history()
+    if tok_s.shape != (INPLACE_TICKS, batch, 1) or \
+            not np.array_equal(tok_s, tok_e):
+        fail(f"fleet:inplace: tokens differ across the in-place resizes:\n"
+             f"{tok_s[:, :, 0].T}\nvs\n{tok_e[:, :, 0].T}")
+    same_cache = all(torch.equal(a, b) for a, b in zip(
+        T.leaves(cache_s), T.leaves(rep_e.state["cache"])))
+    if not same_cache:
+        fail("fleet:inplace: the KV caches differ across the in-place "
+             "resizes")
+    kinds = [e["kind"] for e in rs_e.scale_events]
+    evs = rep_e.runner.events
+    moves = [(e.action, e.from_procs, e.to_procs) for e in evs]
+    if kinds != ["grow-in-place", "shrink-in-place"] or \
+            (rs_e.n_scale_ups, rs_e.n_scale_downs) != (1, 1) or \
+            moves != [("expand", 2, 4), ("shrink", 4, 2)]:
+        fail(f"fleet:inplace: scale events {kinds}, runner events {moves}")
+    pbytes = sum(t.nbytes for t in T.leaves(rep_e.state["params"]))
+    cbytes = sum(t.nbytes for t in T.leaves(rep_e.state["cache"])) + \
+        batch * 4 + 4                                   # + tok and pos
+    for e in evs:
+        want = {"replicate": pbytes * e.to_procs, "default": cbytes}
+        got = {k: st.bytes_moved for k, st in e.per_pattern.items()}
+        if got != want or e.transfer.bytes_moved != sum(want.values()):
+            fail(f"fleet:inplace: {e.action} moved {got} bytes "
+                 f"({e.transfer.bytes_moved} in all), the state's sizes "
+                 f"say {want}")
+    if n_s != n_e:
+        fail(f"fleet:inplace: kernel launches {n_s} without resizes, "
+             f"{n_e} with")
+    rep_e.state = None
+    return n_e, evs
+
+
+def fleet_live(cfg, device, batch: int, cache_len: int):
+    """The policy-driven live fleet: ``slo-aware`` over ``FLEET_CONFIG``
+    replicas of ``cfg`` on 8 workers of ``device``, serving
+    ``FLEET_STREAM``, sanitized, against the host model of the same stream
+    and config (a synthetic pool, no device).  Summary, CDF, timeline,
+    scale events and trail must be equal; every replica lives within its
+    cache and decodes the tokens of every other (one seed, one prompt
+    set), resized or not.  Replica 0's step ``FLEET_TRACE_STEP`` runs under
+    the profiler.  The kernel counts are zeroed just before the run and
+    read just after.  Returns the result, the replica-steps, the kernel
+    counts, the wall seconds, each replica's timings and the traced
+    step's."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import dmr
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.mesh import logical_workers
+    from repro_torch.serve import ReplicaSet, ServeConfig, make_request_stream
+
+    def sync():
+        torch.cuda.synchronize(device)
+
+    def stream():
+        kw = dict(FLEET_STREAM)
+        return make_request_stream(kw.pop("scenario"), kw.pop("n_requests"),
+                                   **kw)
+
+    def observed(res):
+        return (res.summary(), res.metrics.cdf(), res.timeline,
+                res.scale_events, res.trail, res.ticks, res.device_ticks)
+
+    sc = ServeConfig(**FLEET_CONFIG)
+    host_rs = ReplicaSet(stream(), devices=8, config=sc, policy="slo-aware",
+                         sanitize=True)
+    host = host_rs.run()
+    steps = [rep._tick_i for rep in host_rs.tenants]
+    kinds = [e["kind"] for e in host.scale_events]
+    if sum(steps) != FLEET_REPLICA_STEPS or max(steps) > cache_len or \
+            steps[0] <= FLEET_TRACE_STEP or \
+            not {"replica-add", "grow-in-place", "shrink-in-place"} <= \
+            set(kinds):
+        fail(f"fleet:live: the host model's schedule changed: replica "
+             f"steps {steps} (cache {cache_len}), scale events {kinds}")
+
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (batch, FLEET_PROMPT), dtype=np.int32)
+    step_s = []                          # by rid: each step's seconds
+    trace = {}
+
+    def factory():
+        app = fleet_app(cfg, prompts, cache_len)
+        mine, rid = [], len(step_s)
+        step_s.append(mine)
+
+        def step(mesh):
+            fn = app.make_step(mesh)
+
+            def timed(state, i):
+                traced = rid == 0 and len(mine) == FLEET_TRACE_STEP
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) \
+                        if traced else contextlib.nullcontext() as prof:
+                    t0 = time.perf_counter()
+                    out = fn(state, i)
+                    sync()
+                    mine.append(time.perf_counter() - t0)
+                if traced:
+                    trace.update(step_s=mine[-1], events=device_events(prof))
+                return out
+            return timed
+        return dmr.App(init=app.init_state, shardings=app.state_shardings,
+                       step=step, patterns=app.patterns, name=app.name)
+
+    class TimedFleet(ReplicaSet):
+        """The fleet with each replica bring-up and in-place grow timed
+        (the device synchronised around them)."""
+
+        def __init__(self, *args, **kw):
+            self.up_s, self.grow_s = {}, []
+            super().__init__(*args, **kw)
+
+        def _replica_up(self):
+            sync()
+            t0 = time.perf_counter()
+            rep = super()._replica_up()
+            sync()
+            if rep is not None:
+                self.up_s[rep.rid] = time.perf_counter() - t0
+            return rep
+
+        def _grow_in_place(self, rep, target):
+            sync()
+            t0 = time.perf_counter()
+            super()._grow_in_place(rep, target)
+            sync()
+            self.grow_s.append((rep.rid, rep._tick_i,
+                                time.perf_counter() - t0))
+
+    rs = TimedFleet(stream(), devices=logical_workers(8, device), config=sc,
+                    policy="slo-aware", sanitize=True, app_factory=factory)
+    ops.reset_counts()
+    sync()
+    t0 = time.perf_counter()
+    res = rs.run()
+    sync()
+    wall = time.perf_counter() - t0
+    n = kernel_launches()
+    if observed(res) != observed(host):
+        fail(f"fleet:live: the live run differs from the host model: "
+             f"{res.summary()} vs {host.summary()}")
+    live_steps = [rep._tick_i for rep in rs.tenants]
+    toks = [rep.token_history() for rep in rs.tenants]
+    if live_steps != steps or [len(t) for t in toks] != steps:
+        fail(f"fleet:live: replica steps {live_steps} (tokens "
+             f"{[len(t) for t in toks]}), host model {steps}")
+    longest = max(toks, key=len)
+    for rid, t in enumerate(toks):
+        if not np.array_equal(t, longest[:len(t)]):
+            fail(f"fleet:live: replica {rid}'s tokens differ from the "
+                 "others'")
+    added = [r for r in rs.up_s if r >= sc.initial_replicas]
+    timings = dict(
+        step_s=step_s,
+        replica_add_s=[(r, rs.up_s[r], step_s[r][0]) for r in added],
+        initial_up_s=[rs.up_s[r] for r in rs.up_s if r not in added],
+        grow_s=[(r, g, step_s[r][i]) for r, i, g in rs.grow_s])
+    return res, steps, n, wall, timings, trace
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -681,17 +1016,25 @@ def main() -> None:
     errs = {"float32": 0.0, "bfloat16": 0.0}
     case_paths = dict.fromkeys(fa.PATHS, 0)
 
-    def k1_case(q, k, v, what, **kw):
+    def k1_case(q, k, v, what, mma_kernel=None, **kw):
         """K1 against its plain version on one case; the call must take
-        (and count) the path ``select_path`` names for its shape."""
+        (and count) the path ``select_path`` names for its shape, and, when
+        ``mma_kernel`` names one, launch that kernel of the mma path
+        ("group" or "block"), as the C entry point counts them."""
         name = str(q.dtype).split(".")[1]
         path = fa.select_path(q.dtype, q.shape[1] // k.shape[1] * q.shape[2])
         before = dict(fa.flash_attention.path_launches)
+        mma0 = fa.mma_kernel_launches()
         out = ops.flash_attention(q, k, v, **kw)
         moved = {p: n - before[p]
                  for p, n in fa.flash_attention.path_launches.items()}
         if moved != {p: int(p == path) for p in moved}:
             fail(f"{what}: path launches {moved}, not one on {path}")
+        kern = {k_: n_ - mma0[k_]
+                for k_, n_ in fa.mma_kernel_launches().items()}
+        if mma_kernel is not None and \
+                kern != {k_: int(k_ == mma_kernel) for k_ in kern}:
+            fail(f"{what}: mma kernels launched {kern}, not one {mma_kernel}")
         case_paths[path] += 1
         err = check_close(out, attention_reference(q, k, v, **kw), name,
                           what)
@@ -764,18 +1107,16 @@ def main() -> None:
             kv_len=torch.tensor(n_, dtype=torch.int32, device=dev))
         z_err["decode_all"] = max(z_err["decode_all"], z_err["decode"])
     z_pre = {}
+    z_kernel = {PROMPT: "group", M_PREFILL_S: "block"}
     for S_ in (PROMPT, M_PREFILL_S):
         z_pre[S_] = (rand((BATCH, S_, zH, zD), bf16).transpose(1, 2),
                      rand((BATCH, S_, zHkv, zD), bf16).transpose(1, 2),
                      rand((BATCH, S_, zHkv, zD), bf16).transpose(1, 2))
         _, z_err[f"prefill{S_}"] = k1_case(
             *z_pre[S_], f"zamba2 prefill {BATCH}x{zH}x{zHkv} S={S_} D={zD}",
-            causal=True)
+            mma_kernel=z_kernel[S_], causal=True)
     zpargs = z_pre[M_PREFILL_S]            # timed in phase 15
     del z_pre
-    z_group = [2 * BATCH * zHkv >= sms and -(-S_ // fa.TILE_K) <=
-               (128 * 1024) // (2 * 2 * fa.TILE_K * zD)
-               for S_ in (PROMPT, M_PREFILL_S)]
     torch.cuda.synchronize()
     phase("K1", cases=sum(case_paths.values()) + 3,
           paths=json.dumps(case_paths, separators=(",", ":")),
@@ -787,8 +1128,7 @@ def main() -> None:
           zamba2_decode_err=f"{z_err['decode_all']:.3e}",
           zamba2_prefill_err=f"{z_err[f'prefill{PROMPT}']:.3e},"
                              f"{z_err[f'prefill{M_PREFILL_S}']:.3e}",
-          zamba2_prefill_kernel=",".join("group" if g else "block"
-                                         for g in z_group),
+          zamba2_prefill_kernel=",".join(z_kernel.values()),
           tol=json.dumps(TOL, separators=(",", ":")))
     mark("K1")
 
@@ -1445,6 +1785,115 @@ def main() -> None:
     del zbwd_set, zs_out, zssd_bwd_args, zs_args, zpargs, zdargs, zkc, zvc
     torch.cuda.empty_cache()
 
+    # -- 3c. phi4:K1 -- K1 at phi4-mini's shapes (G = 3, D = 128: shapes no
+    # earlier phase ran), before any phi4 model phase: decode over its
+    # 512-slot cache on split_decode (3 of the 16 rows of an MMA tile) at
+    # kv_lens around tile edges and the serving path's last (384); causal
+    # prefill at S = 256 on mma's group kernel (4 key tiles, the most it
+    # holds at D = 128; 2 B Hkv = 256 CTAs >= the SMs).  Device times as
+    # the other rows', warm and L2-cold, with SDPA beside each
+    pcfg = get_config(PHI4)
+    pH, pHkv, pD = pcfg.num_heads, pcfg.num_kv_heads, pcfg.head_dim
+    p_n = PROMPT + DECODE
+    p_kv = torch.tensor(p_n, dtype=torch.int32, device=dev)
+    pkc, pvc = (rand((BATCH, CACHE, pHkv, pD), bf16) for _ in range(2))
+    pdargs = (rand((BATCH, 1, pH, pD), bf16).transpose(1, 2),
+              pkc.transpose(1, 2), pvc.transpose(1, 2))
+    p_err = {"decode_all": 0.0}
+    paths0 = dict(case_paths)
+    for n_ in (1, 63, 64, 65, 200, CACHE, p_n):
+        _, p_err["decode"] = k1_case(
+            *pdargs, f"phi4 decode {BATCH}x{pH}x{pHkv} D={pD} kv_len {n_}",
+            causal=False,
+            kv_len=torch.tensor(n_, dtype=torch.int32, device=dev))
+        p_err["decode_all"] = max(p_err["decode_all"], p_err["decode"])
+    ppargs = tuple(rand((BATCH, PROMPT, h_, pD), bf16).transpose(1, 2)
+                   for h_ in (pH, pHkv, pHkv))
+    _, p_err["prefill"] = k1_case(
+        *ppargs, f"phi4 prefill {BATCH}x{pH}x{pHkv} S={PROMPT} D={pD}",
+        mma_kernel="group", causal=True)
+    p_paths = {k_: case_paths[k_] - paths0[k_] for k_ in case_paths}
+    if p_paths != {"fma": 0, "mma": 1, "split_decode": 7}:
+        fail(f"phi4 K1 cases took paths {p_paths}")
+    p_lib_dec = lambda: F.scaled_dot_product_attention(
+        pdargs[0], pdargs[1][:, :, :p_n], pdargs[2][:, :, :p_n],
+        enable_gqa=True)
+    p_k1_dec = lambda: ops.flash_attention(*pdargs, causal=False,
+                                           kv_len=p_kv)
+    p_k1_pre = lambda: ops.flash_attention(*ppargs, causal=True)
+    p_lib_pre = lambda: F.scaled_dot_product_attention(
+        *ppargs, is_causal=True, enable_gqa=True)
+    # L2-cold: 4 copies of decode's 33.6 MB and of prefill's 67 MB (output
+    # included) rotate through more than the 50 MB of L2
+    p_cold_dec = [tuple(t.clone() for t in pdargs) for _ in range(4)]
+    p_cold_pre = [tuple(t.clone() for t in ppargs) for _ in range(4)]
+    p_ms = {
+        "K1 decode": device_ms(p_k1_dec, "phi4 K1 decode"),
+        "SDPA decode": device_ms(p_lib_dec, "phi4 SDPA decode"),
+        "K1 decode cold": device_ms(cold(
+            lambda q_, k_, v_: ops.flash_attention(
+                q_, k_, v_, causal=False, kv_len=p_kv), p_cold_dec),
+            "phi4 K1 decode, L2-cold", iters=24),
+        "SDPA decode cold": device_ms(cold(
+            lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_[:, :, :p_n], v_[:, :, :p_n], enable_gqa=True),
+            p_cold_dec), "phi4 SDPA decode, L2-cold", iters=24),
+        "K1 prefill": device_ms(p_k1_pre, "phi4 K1 prefill"),
+        "SDPA prefill": device_ms(p_lib_pre, "phi4 SDPA prefill"),
+        "K1 prefill cold": device_ms(cold(
+            lambda q_, k_, v_: ops.flash_attention(q_, k_, v_, causal=True),
+            p_cold_pre), "phi4 K1 prefill, L2-cold"),
+        "SDPA prefill cold": device_ms(cold(
+            lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, is_causal=True, enable_gqa=True), p_cold_pre),
+            "phi4 SDPA prefill, L2-cold")}
+    del p_cold_dec, p_cold_pre
+    # bounds as the granite rows': q, k and v (the kv_len keys) read and
+    # the output written once in bf16; the work is QK^T and PV over the
+    # keys each row sees
+    pb_dec = bound_ms(2 * (2 * BATCH * pH * pD + 2 * BATCH * pHkv * p_n * pD),
+                      4 * BATCH * pH * p_n * pD, "bfloat16")
+    pb_pre = bound_ms(2 * (2 * BATCH * PROMPT * pH * pD
+                           + 2 * BATCH * PROMPT * pHkv * pD),
+                      4 * BATCH * pH * pD * (PROMPT * (PROMPT + 1) // 2),
+                      "bfloat16")
+    p_rows = []
+    for name, path, err, fn, key, plain, b_, lib, lkey, shape in (
+        ("flash_attention_fwd (phi4 decode, G=3, D=128)", "split_decode",
+         p_err["decode"], p_k1_dec, "K1 decode",
+         (lambda: attention_reference(*pdargs, causal=False, kv_len=p_kv),
+          20), pb_dec, p_lib_dec, "SDPA decode",
+         f"B={BATCH} H={pH} Hkv={pHkv} D={pD} kv_len={p_n} of {CACHE} bf16"),
+        ("flash_attention_fwd (phi4 prefill, causal)", "mma",
+         p_err["prefill"], p_k1_pre, "K1 prefill",
+         (lambda: attention_reference(*ppargs, causal=True), 10), pb_pre,
+         p_lib_pre, "SDPA prefill",
+         f"B={BATCH} H={pH} Hkv={pHkv} D={pD} Sq=Sk={PROMPT} bf16, the "
+         "group kernel")):
+        p_rows.append({
+            "name": name, "route": "cuda", "source": attn_src,
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "path": path, "max_abs_err": err,
+            "ms": time_ms(fn), "device_ms": p_ms[key],
+            "device_ms_cold": p_ms[f"{key} cold"],
+            "plain_ms": time_ms(plain[0], iters=plain[1], warmup=1),
+            "bound_ms": b_[0], "bound_by": b_[1],
+            "library_ms": time_ms(lib), "library_device_ms": p_ms[lkey],
+            "library_device_ms_cold": p_ms[f"{lkey} cold"], "shape": shape})
+    p_rows[0]["host_us"] = host_us(p_k1_dec)
+    phase("phi4:K1", cases=sum(p_paths.values()),
+          paths=json.dumps(p_paths, separators=(",", ":")),
+          decode_err=f"{p_err['decode_all']:.3e}",
+          prefill_err=f"{p_err['prefill']:.3e}",
+          prefill_mma_kernel="group",
+          tol=TOL["bfloat16"],
+          **{k_.replace(" ", "_") + "_device_ms": f"{v_:.6f}"
+             for k_, v_ in p_ms.items()},
+          bound_ms=f"{pb_dec[0]:.4f},{pb_pre[0]:.4f}")
+    del pkc, pvc, pdargs, ppargs
+    torch.cuda.empty_cache()
+    mark("phi4_K1")
+
     def serve_runs(c, tag, k1_per_step):
         """The serving path of ``c``: ``decode_demo`` at the serving
         schedule without and with resizes, kernel counts zeroed just before
@@ -1608,10 +2057,12 @@ def main() -> None:
     serve_runs(mvcfg, "mamba2", 0)
     mark("mamba2_path")
 
-    def prefill_launches(c, params, batch, tag, want):
+    def prefill_launches(c, params, batch, tag, want, mma_kernels):
         """One ``make_prefill_step``, the kernel counts zeroed just before
         and read just after; ``want`` maps K1 and K3 to their launches by
-        path.  Returns K1's and K3's launches."""
+        path, ``mma_kernels`` K1's mma launches to their kernel (block or
+        group) as its C entry point counts them.  Returns K1's and K3's
+        launches."""
         with torch.no_grad():
             torch.cuda.synchronize()
             ops.reset_counts()
@@ -1621,15 +2072,18 @@ def main() -> None:
             secs = time.perf_counter() - t0
         counts = ops.launch_counts()
         paths = {k_: dict(ops.KERNELS[k_].path_launches) for k_ in want}
+        kern = fa.mma_kernel_launches()
         if paths != want or any(counts[k_] != sum(v.values())
-                                for k_, v in want.items()):
-            fail(f"{tag} prefill launched {counts} on paths {paths}, not "
-                 f"{want}")
+                                for k_, v in want.items()) or \
+                kern != mma_kernels:
+            fail(f"{tag} prefill launched {counts} on paths {paths}, mma "
+                 f"kernels {kern}, not {want}, {mma_kernels}")
         phase(f"{tag}:prefill", layers=c.num_layers, batch=BATCH,
               seq=batch["tokens"].shape[1], prefill_s=f"{secs:.3f}",
               launches=json.dumps({k_: counts[k_] for k_ in want},
                                   separators=(",", ":")),
               path_launches=json.dumps(paths, separators=(",", ":")),
+              k1_mma_kernels=json.dumps(kern, separators=(",", ":")),
               first_tokens=",".join(map(str, first[:4].tolist())))
         return {k_: counts[k_] for k_ in want}
 
@@ -1644,7 +2098,8 @@ def main() -> None:
         rms unchecked when None), and the bf16 prefill's and decode's last
         logits against fp32 (``bf16_tol``: the largest and the rms gap),
         beside the fp32 model with its weights rounded to bf16, the
-        yardstick of how far bf16 rounding alone moves them."""
+        yardstick of how far bf16 rounding alone moves them.  Returns the
+        fp32 decode's last logits and the bf16 decode's cache."""
         V, S = c.vocab_size, prompts.shape[1]
         batch = {"tokens": prompts}
         c32 = dataclasses.replace(c, dtype="float32")
@@ -1660,7 +2115,8 @@ def main() -> None:
                     d_ = (logits[:, -1, :V].float() - full[:, i]).abs()
                     mx = torch.maximum(mx, d_.max())
                     sq = sq + d_.square().mean() / S
-            return logits[:, -1, :V].float(), mx.item(), sq.sqrt().item()
+            return (logits[:, -1, :V].float(), mx.item(), sq.sqrt().item(),
+                    cache)
 
         with torch.no_grad():
             lp = prefill_logits(params, c, batch)[:, :V].float()
@@ -1669,9 +2125,9 @@ def main() -> None:
             rounded = T.tree_map(lambda t: t.bfloat16().float(), params)
             lp32w = prefill_logits(rounded, c32, batch)[:, :V].float()
             del rounded
-            ld32, gap_all, rms_all = decode_logits(c32, full32)
+            ld32, gap_all, rms_all, _ = decode_logits(c32, full32)
             del full32
-            ld, _, _ = decode_logits(c)
+            ld, _, _, cache = decode_logits(c)
         if not all(bool(torch.isfinite(t).all()) for t in (lp, ld, lp32,
                                                             ld32)):
             fail(f"{tag} logits are not finite")
@@ -1702,6 +2158,39 @@ def main() -> None:
             fail(f"{tag} bf16 logits off the fp32 ones by "
                  f"{max(err_p, err_d):.3e} (rms {max(rms_p, rms_d):.3e}) > "
                  f"{bf16_tol}")
+        return ld32, cache
+
+    def planted_faults(c, params, prompts, tag, ld32, cache, bf16_tol):
+        """Faults planted in the bf16 decode's last step of a dense model,
+        each read against ``ld32`` (the fp32 decode's last logits) by
+        ``logits_check``'s bf16 measure, the largest and the rms gap, which
+        ``bf16_tol`` must reject: the step at the position before its own
+        (its K/V written over the previous token's row, its rotary phase
+        one back), and the cached rows of KV heads 0 and 1 swapped in every
+        layer.  Beside them the same step replayed unfaulted, which must
+        pass.  ``cache`` is the bf16 decode's (every row filled); it is
+        altered."""
+        V, S = c.vocab_size, prompts.shape[1]
+        tok, kv = prompts[:, S - 1:S], cache["layers"]
+        pos = lambda i: torch.tensor(i, dtype=torch.int32, device=dev)
+        last = lambda cache_, i: M.decode_step(
+            params, c, tok, cache_, pos(i))[0][:, -1, :V].float()
+        copy = lambda: {"layers": {k_: t.clone() for k_, t in kv.items()}}
+        with torch.no_grad():
+            reads = {"replay": max_rms(last(copy(), S - 1), ld32),
+                     "position_one_back": max_rms(last(copy(), S - 2), ld32)}
+            for k_ in ("k", "v"):
+                kv[k_][:, :, :S - 1, [0, 1]] = kv[k_][:, :, :S - 1, [1, 0]]
+            reads["kv_heads_swapped"] = max_rms(last(cache, S - 1), ld32)
+        phase(f"{tag}:faults", step=S - 1, bf16_tol=",".join(
+                  map(str, bf16_tol)),
+              **{k_: f"{m_:.4e},rms={r_:.4e}"
+                 for k_, (m_, r_) in reads.items()})
+        caught = {k_: m_ > bf16_tol[0] or r_ > bf16_tol[1]
+                  for k_, (m_, r_) in reads.items()}
+        if caught != {k_: k_ != "replay" for k_ in reads}:
+            fail(f"{tag}: the bf16 bound {bf16_tol} rejects {caught} of the "
+                 f"replayed and faulted last steps, read {reads}")
 
     def traced_prefill(c, params, batch, tag, names):
         """One untraced, then one traced ``make_prefill_step``: device busy
@@ -1751,7 +2240,8 @@ def main() -> None:
     k3_prefill = prefill_launches(
         mvcfg, mparams, {"tokens": mprompts}, "mamba2",
         {"ssd_scan": {"fma": 0, "wgmma": mvcfg.num_layers},
-         "flash_attention": no_k1})["ssd_scan"]
+         "flash_attention": no_k1},
+        {"block": 0, "group": 0})["ssd_scan"]
     logits_check(mvcfg, mparams, mprompts, "mamba2",
                  (M_FP32_LOGITS_ATOL, None),
                  (M_BF16_LOGITS_MAX, M_BF16_LOGITS_RMS))
@@ -2042,7 +2532,8 @@ def main() -> None:
     z_prefill = prefill_launches(
         zscfg, zparams, {"tokens": zprompts}, "zamba2",
         {"ssd_scan": {"fma": 0, "wgmma": zscfg.num_layers},
-         "flash_attention": dict(no_k1, mma=zgroups)})
+         "flash_attention": dict(no_k1, mma=zgroups)},
+        {"block": zgroups, "group": 0})
     # the logits checks run the first Z_CHECK_LAYERS layers of these weights
     logits_check(dataclasses.replace(zscfg, num_layers=Z_CHECK_LAYERS),
                  dict(zparams, layers=T.tree_map(
@@ -2414,6 +2905,117 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("cluster_mamba2")
 
+    # -- 14c. fleet:inplace -- one live phi4 replica grown and shrunk in
+    # place through the fleet's scale path --------------------------------
+    L = pcfg.num_layers
+    n_params = sum(int(np.prod(d.shape)) for d in T.leaves(
+        M.model_schema(pcfg)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n_in, in_evs = fleet_inplace(pcfg, dev, BATCH, CACHE)
+    want = INPLACE_TICKS * L
+    if n_in["flash_attention"] != want or \
+            n_in["paths"] != {"fma": 0, "mma": 0, "split_decode": want} or \
+            any(v_ for k_, v_ in n_in.items()
+                if k_ not in ("flash_attention", "paths")):
+        fail(f"fleet:inplace launched {n_in}, not K1 {want} times on "
+             "split_decode and nothing else")
+    for e in in_evs:
+        phase("fleet:inplace:resize", step=e.step, action=e.action,
+              sizes=f"{e.from_procs}->{e.to_procs}",
+              bytes_moved=e.transfer.bytes_moved,
+              per_pattern=json.dumps({k_: st.bytes_moved for k_, st in
+                                      e.per_pattern.items()},
+                                     separators=(",", ":")),
+              seconds=f"{e.transfer.seconds:.4f}")
+    phase("fleet:inplace", layers=L, batch=BATCH, cache=CACHE,
+          ticks=INPLACE_TICKS, tokens_equal=True, cache_equal=True,
+          scale_events="grow-in-place,shrink-in-place", sanitizer="clean",
+          k1_launches=n_in["flash_attention"],
+          wall_s=f"{time.perf_counter() - t0:.2f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    torch.cuda.empty_cache()
+    mark("fleet_inplace")
+
+    # -- 14d. fleet:live -- the slo-aware fleet of phi4 replicas ------------
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fres, fsteps, n_fl, fwall, ftm, ftr = fleet_live(pcfg, dev, BATCH, CACHE)
+    want = FLEET_REPLICA_STEPS * L
+    if n_fl["flash_attention"] != want or \
+            n_fl["paths"] != {"fma": 0, "mma": 0, "split_decode": want} or \
+            any(v_ for k_, v_ in n_fl.items()
+                if k_ not in ("flash_attention", "paths")):
+        fail(f"fleet:live launched {n_fl}, not K1 {want} times on "
+             "split_decode and nothing else")
+    fleet_decode_launches = n_fl["flash_attention"]
+    fs = fres.summary()
+    all_steps = [x for v_ in ftm["step_s"] for x in v_]
+    for rid, up, first in ftm["replica_add_s"]:
+        phase("fleet:live:replica-add", rid=rid, up_s=f"{up:.3f}",
+              first_step_s=f"{first:.4f}", total_s=f"{up + first:.3f}")
+    for rid, g_, nxt in ftm["grow_s"]:
+        phase("fleet:live:grow-in-place", rid=rid, apply_s=f"{g_:.4f}",
+              next_step_s=f"{nxt:.4f}", total_s=f"{g_ + nxt:.4f}")
+    phase("fleet:live", layers=L, batch=BATCH, cache=CACHE, workers=8,
+          policy="slo-aware", ticks=fres.ticks,
+          replica_steps=sum(fsteps), steps_by_replica=",".join(
+              map(str, fsteps)),
+          scale_events=",".join(e["kind"] for e in fres.scale_events),
+          equals_host_model=True, tokens_agree=True, sanitizer="clean",
+          k1_launches=fleet_decode_launches,
+          ms_per_replica_step=f"{np.median(all_steps) * 1e3:.3f}",
+          initial_up_s=",".join(f"{x:.3f}" for x in ftm["initial_up_s"]),
+          goodput_rps=fs["goodput_rps"], p99_s=fs["p99_s"],
+          slo_attainment=fs["slo_attainment"],
+          n_scale_ups=fs["n_scale_ups"], n_scale_downs=fs["n_scale_downs"],
+          wall_s=f"{fwall:.2f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+          held_before_gb=f"{base / 1e9:.2f}")
+    busy = sum(device_us(e) for e in ftr["events"]) / 1e3
+    med_ms = np.median(all_steps) * 1e3
+    fk1 = sum(device_us(e) for e in ftr["events"] if is_k1_fwd(e.key)) / 1e3
+    if busy <= 0 or fk1 <= 0:
+        fail("the profiler saw no device time (or no K1) in the traced "
+             "fleet replica-step")
+    phase("fleet:live:profile", rid=0, step=FLEET_TRACE_STEP,
+          traced_step_s=f"{ftr['step_s']:.4f}",
+          median_step_s=f"{med_ms / 1e3:.4f}",
+          traced_device_busy_ms=f"{busy:.3f}",
+          traced_idle_share=f"{1 - busy / (ftr['step_s'] * 1e3):.4f}",
+          idle_share_of_median_step=f"{1 - busy / med_ms:.4f}",
+          k1_ms=f"{fk1:.3f}", k1_share_of_device=f"{fk1 / busy:.4f}",
+          top=json.dumps([{"kernel": e.key[:80], "ms": device_us(e) / 1e3,
+                           "calls": e.count}
+                          for e in ftr["events"][:PROFILE_TOP]],
+                         separators=(",", ":")))
+    del fres, ftm, ftr
+    torch.cuda.empty_cache()
+    mark("fleet_live")
+
+    # -- 14e. phi4-mini prefill vs decode, at full width and all 32 layers --
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pparams = M.init_params(pcfg, torch.Generator(dev).manual_seed(0), dev)
+    pprompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, pcfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to(dev)
+    p_prefill = prefill_launches(
+        pcfg, pparams, {"tokens": pprompts}, "phi4",
+        {"flash_attention": {"fma": 0, "mma": L, "split_decode": 0},
+         "ssd_scan": {"fma": 0, "wgmma": 0}},
+        {"block": 0, "group": L})["flash_attention"]
+    pld32, pcache = logits_check(pcfg, pparams, pprompts, "phi4",
+                                 (P_FP32_LOGITS_ATOL, None),
+                                 (P_BF16_LOGITS_MAX, P_BF16_LOGITS_RMS))
+    planted_faults(pcfg, pparams, pprompts, "phi4", pld32, pcache,
+                   (P_BF16_LOGITS_MAX, P_BF16_LOGITS_RMS))
+    del pparams, pprompts, pld32, pcache
+    torch.cuda.synchronize()
+    phase("phi4", layers=L, params_b=f"{n_params / 1e9:.3f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    torch.cuda.empty_cache()
+    mark("phi4_prefill")
+
     # -- 15. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
@@ -2660,6 +3262,15 @@ def main() -> None:
             z_dec_launches, z_prefill["flash_attention"], *z_train_k1,
             z_prefill["ssd_scan"], *z_train_k3)):
         kernels.append(dict(row, launches=launches))
+    # phi4's rows, timed in phase 3c; their launches are the serving
+    # fleet's (14d) and the 32-layer prefill's (14e)
+    kernels.append(dict(
+        p_rows[0], launches=fleet_decode_launches,
+        launches_note=f"fleet:live, {FLEET_REPLICA_STEPS} replica-steps "
+                      f"x {L} layers; fleet:inplace adds "
+                      f"{n_in['flash_attention']}"))
+    kernels.append(dict(p_rows[1], launches=p_prefill,
+                        launches_note="one make_prefill_step at 32 layers"))
     mark("kernels")
     phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))

@@ -20,10 +20,10 @@ identical trails — the differential harness asserts it)::
     ("resize",  jid, (step, kind, from_procs, to_procs),  tick)
     ("finish",  jid, final_procs,                         tick)
 
-The JAX package's serving fleet (``repro.serve.replica.ReplicaSet``; the
-port's comes with a later slice) records the same stream with
-replica-lifecycle kinds — a replica is a job whose grant/release happens
-atomically with its up/down — plus the in-place mesh-resize event::
+The serving fleet (``repro_torch.serve.replica.ReplicaSet``) records the
+same stream with replica-lifecycle kinds — a replica is a job whose
+grant/release happens atomically with its up/down — plus the in-place
+mesh-resize event::
 
     ("replica-up",   rid, (device ids...),                tick)
     ("replica-down", rid, (device ids...),                tick)
@@ -32,8 +32,8 @@ atomically with its up/down — plus the in-place mesh-resize event::
                              active_seqs, slots_per_device), tick)
 
 **Delegation namespacing** — when a whole fleet runs as one composite
-tenant inside a ``dmr.Cluster`` (``repro/serve/tenant.py``), its internal
-events land in the *cluster's* trail with replica ids namespaced as
+tenant inside a ``dmr.Cluster`` (``repro_torch/serve/tenant.py``), its
+internal events land in the *cluster's* trail with replica ids namespaced as
 ``(parent_jid + 1) * SUB_JID_BASE + rid``.  The auditor recognizes the
 namespace (:func:`parent_of`) and tracks those grants in a *delegation
 ledger*: a delegated device must be owner-held by the parent tenant and

@@ -1,5 +1,6 @@
 """Config registry of the port: the architectures it runs so far (the
-dense, SSM and hybrid families), plus their reduced ``-smoke`` variants."""
+dense family's granite, phi4-mini, qwen2.5 and internlm2, the SSM and the
+hybrid families), plus their reduced ``-smoke`` variants."""
 from __future__ import annotations
 
 import importlib
@@ -13,6 +14,9 @@ _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
     "mamba2-370m": "mamba2_370m",
     "zamba2-2.7b": "zamba2_2_7b",
+    "phi4-mini-3.8b": "phi4_mini_3_8b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "internlm2-20b": "internlm2_20b",
 }
 
 

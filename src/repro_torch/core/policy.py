@@ -209,8 +209,8 @@ class BasePolicy:
         ``dmr.reconfig`` (warm — ready after ``grow_ticks``),
         ``"replica"`` cold-starts a new replica (``cold_start_ticks`` of
         no service).  Batch policies default to whole replicas; the
-        latency policies of the serving fleet (``repro/serve/slo.py``, not
-        yet ported) override this."""
+        latency policies of the serving fleet
+        (``repro_torch/serve/slo.py``) override this."""
         return "replica"
 
     def __repr__(self):

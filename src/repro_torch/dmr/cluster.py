@@ -301,9 +301,8 @@ class _CompositeTenant(_Tenant):
     """A whole serving fleet as ONE tenant of the cluster.
 
     Built from any spec object exposing the composite-tenant surface
-    (the JAX package's ``repro.serve.tenant.ServeTenantSpec``; the port's
-    serving fleet comes with a later slice): ``jid`` / ``submit_step``,
-    ``device_params()`` (the fleet's device budget as
+    (``repro_torch.serve.tenant.ServeTenantSpec``): ``jid`` /
+    ``submit_step``, ``device_params()`` (the fleet's device budget as
     ``MalleabilityParams``), ``profile()`` (an ``AppProfile`` for the
     records/priority surface), ``quantum`` (devices per replica) and
     ``build_runner(...)`` (the ``ReplicaSetRunner`` adapter satisfying
@@ -562,9 +561,9 @@ class _ClusterBase:
         if isinstance(entry, LiveJobSpec):
             return _Tenant(entry, ensure_app(self.app_factory(entry)))
         if hasattr(entry, "build_runner"):
-            # a composite serving-fleet spec (the JAX package's
-            # repro.serve.tenant.ServeTenantSpec) — duck-typed so dmr
-            # never imports serve
+            # a composite serving-fleet spec
+            # (repro_torch.serve.tenant.ServeTenantSpec) — duck-typed so
+            # dmr never imports serve
             return _CompositeTenant(entry)
         if isinstance(entry, tuple) and 3 <= len(entry) <= 5:
             # (app, params, submit_step[, mode[, malleable]]) — flexible

@@ -33,10 +33,9 @@ Implementations in-tree:
   (a training job's live pool).
 * ``repro_torch.dmr.cluster._Tenant`` — a cluster tenant, delegating to its
   runner.
-* in the JAX package, and in the port once its serving fleet comes: a
-  serving replica (``repro.serve.replica.Replica``) and a whole serving
-  fleet presented to ``dmr.Cluster`` as a single composite tenant
-  (``repro.serve.tenant.ReplicaSetRunner``).
+* a serving replica (``repro_torch.serve.replica.Replica``) and a whole
+  serving fleet presented to ``dmr.Cluster`` as a single composite
+  tenant (``repro_torch.serve.tenant.ReplicaSetRunner``).
 """
 from __future__ import annotations
 

@@ -43,6 +43,7 @@ SIGNATURES = {
                                 _i, _i, _ll, _ll, _ll, _ll, _ll, _ll, _ll,
                                 _ll, _ll, _ll, _ll, _ll, _i, _i, _i, _f, _p,
                                 _p, _i, _p, _p],
+        "flash_attention_mma_kernels": [ctypes.POINTER(_ll), _i],
     },
     # its own source, so that it builds in parallel with K1's 25 kernels
     "flash_attention_bwd": {

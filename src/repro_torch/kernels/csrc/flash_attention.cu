@@ -73,6 +73,7 @@
 // raises.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <atomic>
 #include <climits>
 #include <cstdint>
 
@@ -1235,6 +1236,11 @@ int group_tiles(const Params& p) {
              ? tiles : 0;
 }
 
+// The mma path's launches by kernel (0: the block kernel, 1: the group
+// kernel), counted where launch_mma launches each; read and zeroed through
+// flash_attention_mma_kernels.
+std::atomic<long long> mma_kernel_launches[2];
+
 template <int D>
 cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
   cudaError_t err;
@@ -1244,13 +1250,15 @@ cudaError_t launch_mma(const Params& p, cudaStream_t stream) {
       return err;
     attn_mma_group_kernel<D><<<dim3(p.Hkv, p.B), kGroupWGs<D> * kThreads,
                                smem, stream>>>(p);
-    return cudaGetLastError();
+    if ((err = cudaGetLastError()) == cudaSuccess) ++mma_kernel_launches[1];
+    return err;
   }
   constexpr size_t smem = mma_smem_bytes<D>();
   if ((err = allow_smem(attn_mma_kernel<D>, smem)) != cudaSuccess) return err;
   const dim3 grid(p.Hkv, p.B, (p.Sq + kMmaRows - 1) / kMmaRows);
   attn_mma_kernel<D><<<grid, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+  if ((err = cudaGetLastError()) == cudaSuccess) ++mma_kernel_launches[0];
+  return err;
 }
 
 int split_chunk(int Sk, int nsplit) {           // keys per split
@@ -1335,4 +1343,14 @@ extern "C" int flash_attention_fwd(
   return static_cast<int>(dispatch(path, p, dtype, D, static_cast<float*>(ws),
                                    static_cast<int*>(counters), nsplit,
                                    static_cast<cudaStream_t>(stream)));
+}
+
+// Writes the mma path's launches by kernel since the last reset to out[0]
+// (the block kernel) and out[1] (the group kernel), and zeroes them when
+// `reset` is set.  Returns 0.
+extern "C" int flash_attention_mma_kernels(long long* out, int reset) {
+  for (int i = 0; i < 2; ++i)
+    out[i] = reset ? mma_kernel_launches[i].exchange(0)
+                   : mma_kernel_launches[i].load();
+  return 0;
 }

@@ -16,7 +16,9 @@ else ``mma`` for bfloat16 and ``fma`` for float32.  The wrapper makes that
 choice (:func:`select_path`, and :func:`decode_splits` for the split path's
 launch), pure functions of the shapes, and passes it to the entry point,
 which refuses a path whose kernels cannot take the call;
-``flash_attention.path_launches`` counts calls by path.
+``flash_attention.path_launches`` counts calls by path, and
+:func:`mma_kernel_launches` the mma path's launches by kernel (block or
+group), as the entry point chooses and counts them.
 
 Training: when q, k or v requires a gradient (and grad mode is on), the
 call goes through :class:`FlashAttentionFn`, whose forward launches K1
@@ -44,6 +46,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 80, 128)
 #: path names, indexed by the id the C entry point takes
 PATHS = ("fma", "mma", "split_decode")
+#: the mma path's kernels, indexed as the C entry point counts them
+MMA_KERNELS = ("block", "group")
 #: the backward's path names, indexed by the id its C entry point takes
 BWD_PATHS = ("fma", "wgmma")
 DECODE_ROWS = 16            # kDecodeRows: query rows per KV head, at most
@@ -178,6 +182,19 @@ def _launch_fwd(q, k, v, causal, window, kv_len, with_lse):
     flash_attention.launches += 1
     flash_attention.path_launches[path] += 1
     return out, lse
+
+
+def mma_kernel_launches(reset: bool = False) -> dict:
+    """The mma path's launches by kernel (:data:`MMA_KERNELS`) since the
+    last reset, as ``csrc/flash_attention.cu`` counts them where it
+    launches each; zeroed after the read when ``reset``.  All zero while
+    no forward has launched in this process (nothing is built for it)."""
+    out = (ctypes.c_longlong * len(MMA_KERNELS))()
+    if _fwd is not None:
+        _build.check(_build.load()["flash_attention"]
+                     .flash_attention_mma_kernels(out, int(reset)),
+                     "flash_attention_mma_kernels")
+    return dict(zip(MMA_KERNELS, out))
 
 
 def _aligned(t):

@@ -6,13 +6,16 @@ their plain PyTorch version on CPU tensors
 and their CUDA kernel on tensors on a card; a build or launch failure
 raises.  ``launch_counts`` / ``reset_counts`` read and
 zero the per-wrapper counters that show a run really went through the
-kernels (and each one's ``path_launches``, by path).
+kernels (and each one's ``path_launches``, by path); ``reset_counts``
+also zeroes K1's count of its mma kernels
+(``flash_attention.mma_kernel_launches``).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels.blockcyclic import repack
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_bwd)
@@ -36,6 +39,7 @@ def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         fn.path_launches = dict.fromkeys(fn.path_launches, 0)
+    _fa.mma_kernel_launches(reset=True)
 
 
 __all__ = ["flash_attention", "flash_attention_bwd", "repack", "ssd_scan",

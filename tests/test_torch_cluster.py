@@ -9,11 +9,12 @@
   (all but ``wall_s``), every job's record, its resize events (with the
   bytes each moved) and the schedule trail must be identical, and every
   tenant's final state must be its initial vector after each of its steps.
-* A composite tenant (a stand-in serving fleet, written once over either
-  package's types) beside training jobs in ``sched_only``: both port
-  engines against the JAX package's, its published demand, its
-  reclaim-opaque excess, its replicas as delegations in the trail, and the
-  faults the delegation ledger catches.
+* A composite tenant beside training jobs in ``sched_only``, as a stand-in
+  serving fleet (written once over either package's types) and as each
+  package's own ``ServeTenantSpec``: both port engines against the JAX
+  package's, its published demand, its reclaim-opaque excess, its replicas
+  (and the real fleet's in-place grows and shrinks) as delegations in the
+  trail, and the faults the delegation ledger catches.
 * ``Cluster.sched_only`` replays of a 2,000-job synthetic SWF trace, both
   engines against the JAX package's, and the co-simulation crosscheck.
 * The slice as a whole: three ``mamba2-370m-smoke`` training tenants
@@ -498,30 +499,68 @@ COMPOSITE_CASES = {
 }
 
 
-def _mixed_pool(cluster_cls, torch_side, case="demand", **kw):
-    """Six steady training jobs beside the stand-in fleet, on eight
-    synthetic workers, sanitized."""
+#: the real fleet (``ServeTenantSpec``) in the same two cases: case ->
+#: (preferred replicas, horizon of its 100-request diurnal stream, the
+#: fleet's resizes).  Replicas of two workers that may grow in place to
+#: four, at most four replicas, consulted every second tick.  "demand":
+#: its expands block while training holds the pool and are published;
+#: "opaque": it grows from one replica to the whole pool and back with
+#: nothing published
+SERVE_CASES = {
+    "demand": (2, 2.0, [("expand", 4, 6), ("shrink", 6, 4), ("expand", 4, 6),
+                        ("expand", 6, 8), ("shrink", 8, 6), ("shrink", 6, 4),
+                        ("shrink", 4, 2)]),
+    "opaque": (1, 0.5, [("expand", 2, 4), ("expand", 4, 6), ("expand", 6, 8),
+                        ("shrink", 8, 6), ("shrink", 6, 4), ("shrink", 4, 2)]),
+}
+FLEETS = ["stand-in", "serve"]
+
+
+def _serve_spec(torch_side, case):
+    if torch_side:
+        from repro_torch import serve as pkg
+    else:
+        from repro import serve as pkg
+    initial, horizon, _ = SERVE_CASES[case]
+    cfg = pkg.ServeConfig(devices_per_replica=2, min_replicas=1,
+                          max_replicas=4, initial_replicas=initial,
+                          max_devices_per_replica=4, cold_start_ticks=4,
+                          grow_ticks=1, resize_every=2)
+    return pkg.ServeTenantSpec(jid=100, config=cfg, scenario="diurnal",
+                               n_requests=100, horizon_s=horizon,
+                               seed=COMPOSITE_CASES[case][0])
+
+
+def _mixed_pool(cluster_cls, torch_side, case="demand", fleet="stand-in",
+                **kw):
+    """Six steady training jobs beside a serving fleet (the stand-in, or
+    the package's own ``ServeTenantSpec``), on eight synthetic workers,
+    sanitized."""
     seed, initial, _ = COMPOSITE_CASES[case]
     mod = twl if torch_side else jwl
     specs = mod.materialize_live("steady", n_jobs=6, max_steps=16,
                                  device_count=8, seed=seed)
-    fleet = _FleetSpec(_package(torch_side), initial=initial)
-    return cluster_cls.sched_only(list(specs) + [fleet], n_devices=8,
+    spec = _FleetSpec(_package(torch_side), initial=initial) \
+        if fleet == "stand-in" else _serve_spec(torch_side, case)
+    return cluster_cls.sched_only(list(specs) + [spec], n_devices=8,
                                   policy="algorithm2", sanitize=True, **kw)
 
 
+@pytest.mark.parametrize("fleet", FLEETS)
 @pytest.mark.parametrize("case", list(COMPOSITE_CASES))
 @pytest.mark.parametrize("engine", [dmr.Cluster, dmr.ReferenceCluster])
-def test_composite_tenant_matches_jax(engine, case):
+def test_composite_tenant_matches_jax(engine, case, fleet):
     """A composite tenant through both port engines and the JAX package's
     event engine: equal summary, records, resize events and trail; the
     fleet's replicas show in the trail as delegations of its grant and
-    audit clean in both packages."""
+    audit clean in both packages.  The real fleet also grows and shrinks
+    its replicas in place inside the grant, and its serving result equals
+    the JAX fleet's."""
     from repro.analysis import audit_trail as j_audit_trail
     from repro.analysis import job_metadata as j_job_metadata
-    jcl = _mixed_pool(JCluster, False, case)
+    jcl = _mixed_pool(JCluster, False, case, fleet)
     want = _observed(jcl, jcl.run())
-    cl = _mixed_pool(engine, True, case)
+    cl = _mixed_pool(engine, True, case, fleet)
     published = []
     decide = cl._decide
 
@@ -533,37 +572,50 @@ def test_composite_tenant_matches_jax(engine, case):
     res = cl.run()
     assert _observed(cl, res) == want
     assert cl._sanitizer.violations == []
-    fleet = next(t for t in cl.tenants if getattr(t, "composite", False))
-    assert fleet.result["replicas"] == 3
-    base = (fleet.jid + 1) * 1_000_000
+    tenant = next(t for t in cl.tenants if getattr(t, "composite", False))
+    base = (tenant.jid + 1) * 1_000_000
     kinds = {k for k, jid, _, _ in cl.trail if jid >= base}
-    assert kinds == {"replica-up", "replica-down"}
     assert audit_trail(cl.trail, cl._pool_ids, jobs=job_metadata(cl)) == []
     assert j_audit_trail(cl.trail, cl._pool_ids,
                          jobs=j_job_metadata(jcl)) == []
+    if fleet == "stand-in":
+        assert tenant.result["replicas"] == 3
+        assert kinds == {"replica-up", "replica-down"}
+        expect = COMPOSITE_CASES[case][2]
+    else:
+        jtenant = next(t for t in jcl.tenants
+                       if getattr(t, "composite", False))
+        got, ref = tenant.result, jtenant.result
+        assert got.summary() == ref.summary()
+        assert (got.timeline, got.scale_events, got.metrics.cdf()) == \
+            (ref.timeline, ref.scale_events, ref.metrics.cdf())
+        assert got.summary()["n_completed"] == 100
+        assert kinds == {"replica-up", "replica-down", "grant", "release",
+                         "replica-resize"}
+        expect = SERVE_CASES[case][2]
     assert [(e.action, e.from_procs, e.to_procs)
-            for e in res.events_by_jid[fleet.jid]] == \
-        COMPOSITE_CASES[case][2]
+            for e in res.events_by_jid[tenant.jid]] == expect
     assert any(e.action == "shrink" for j, ev in res.events_by_jid.items()
-               if j != fleet.jid for e in ev)
+               if j != tenant.jid for e in ev)
     # only a blocked expand publishes demand
-    assert any(fleet.jid in d for d in published) == (case == "demand")
+    assert any(tenant.jid in d for d in published) == (case == "demand")
 
 
-def test_composite_tenant_delegation_faults_are_caught():
+@pytest.mark.parametrize("fleet", FLEETS)
+def test_composite_tenant_delegation_faults_are_caught(fleet):
     """The delegation ledger: a replica given a device outside its fleet's
     grant, and a fleet releasing a device a live replica still runs on,
     are each the first fault both packages' audit finds."""
     from repro.analysis import audit_trail as j_audit_trail
-    cl = _mixed_pool(dmr.Cluster, True)
+    cl = _mixed_pool(dmr.Cluster, True, fleet=fleet)
     cl.run()
-    fleet = 100
-    base = (fleet + 1) * 1_000_000
+    jid = 100
+    base = (jid + 1) * 1_000_000
     trail = list(cl.trail)
     up = next(i for i, e in enumerate(trail)
               if e[0] == "replica-up" and e[1] >= base)
     held = next(e[2] for e in trail[:up]
-                if e[0] == "grant" and e[1] == fleet)
+                if e[0] == "grant" and e[1] == jid)
     kind, rid, ids, tick = trail[up]
     foreign = next(d for d in cl._pool_ids if d not in held)
     outside = trail[:up] + [(kind, rid, (foreign,) + ids[1:], tick)] + \
@@ -577,13 +629,14 @@ def test_composite_tenant_delegation_faults_are_caught():
         assert (first.kind, first.jid) == ("delegation-outside-grant",
                                             trail[up][1])
         first = audit(early, cl._pool_ids, jobs=meta)[0]
-        assert first.kind == "bad-release" and first.jid == fleet
+        assert first.kind == "bad-release" and first.jid == jid
         assert "delegation not withdrawn" in first.detail
 
 
-def test_composite_tenant_refuses_cosim():
+@pytest.mark.parametrize("fleet", FLEETS)
+def test_composite_tenant_refuses_cosim(fleet):
     with pytest.raises(ValueError, match="composite"):
-        _mixed_pool(dmr.Cluster, True, decisions="cosim")
+        _mixed_pool(dmr.Cluster, True, fleet=fleet, decisions="cosim")
 
 
 def test_cluster_is_reentrant_and_validates():

@@ -68,7 +68,17 @@ GROUP_CASES = [
     (16, 32, 8, 100, 256, True, 0),                  # Sq < Sk
     (16, 8, 8, 130, 130, False, 0),                  # Hkv = H, ragged
     (70, 4, 1, 64, 64, True, 0),                     # Hkv = 1
+    (16, 24, 8, 256, 256, True, 0),                  # phi4-mini's prefill
 ]
+# K1 at head dim 128 with the GQA ratios of the dense configs (phi4-mini
+# G = 3, qwen2.5 G = 5, internlm2 G = 6), on each kernel: (B, Hkv, Sq, Sk,
+# causal) -- split_decode over a 512-slot cache at kv_lens around tile
+# edges, the mma path's group kernel (2 B Hkv >= the SMs, 4 tiles: the
+# most it holds at D = 128) and its block kernel (few CTAs, 5 tiles)
+GQA_RATIOS = (3, 5, 6)
+GQA_KERNELS = {"split_decode": (16, 8, 1, 512, False),
+               "group": (16, 8, 256, 256, True),
+               "block": (2, 2, 300, 300, True)}
 
 # K1's backward: (B, H, Hkv, Sq, Sk, causal, window), every head dim and
 # dtype; GQA, Hkv = H, windows, Sq = Sk not a multiple of 64, Sq < Sk
@@ -194,12 +204,55 @@ def test_flash_group_prefill_on_card(cuda, B, H, Hkv, Sq, Sk, causal, window,
     q, k, v = (torch.randn(s, generator=g, device=cuda).bfloat16() for s in
                [(B, H, Sq, D), (B, Hkv, Sk, D), (B, Hkv, Sk, D)])
     before = fa.flash_attention.path_launches["mma"]
+    mma_before = fa.mma_kernel_launches()
     out = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert fa.flash_attention.path_launches["mma"] == before + 1
+    mma_after = fa.mma_kernel_launches()        # as the C entry counts them
+    assert {k_: mma_after[k_] - mma_before[k_] for k_ in mma_after} == \
+        {"block": 0, "group": 1}
     exp = attention_reference(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(out.float(), exp.float(), atol=TOL["bfloat16"],
                                rtol=TOL["bfloat16"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,dtype", [("split_decode", "bfloat16"),
+                                          ("split_decode", "float32"),
+                                          ("group", "bfloat16"),
+                                          ("block", "bfloat16")])
+@pytest.mark.parametrize("G", GQA_RATIOS)
+def test_flash_gqa_ratios_at_head_dim_128_on_card(cuda, G, kernel, dtype):
+    """Query rows per KV head that are not a power of two (G * Sq = 3, 5,
+    6 of split_decode's 16 rows; G query heads per group CTA) against the
+    plain version, each call on the path and kernel its shape selects."""
+    B, Hkv, Sq, Sk, causal = GQA_KERNELS[kernel]
+    D, H, dt = 128, G * Hkv, getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(G)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, Sk, Hkv, D, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    lens = [1, 63, 64, 65, 255, 384, 512] if kernel == "split_decode" \
+        else [None]
+    path = "split_decode" if kernel == "split_decode" else "mma"
+    assert _expect(B, H, Hkv, Sq, dtype) == path
+    before = dict(fa.flash_attention.path_launches)
+    mma_before = fa.mma_kernel_launches()
+    for n in lens:
+        kw = dict(causal=causal) if n is None else dict(
+            causal=False, kv_len=torch.tensor(n, dtype=torch.int32,
+                                              device=cuda))
+        out = ops.flash_attention(*args, **kw)
+        exp = attention_reference(*args, **kw)
+        torch.testing.assert_close(out.float(), exp.float(),
+                                   atol=TOL[dtype], rtol=TOL[dtype])
+    after = fa.flash_attention.path_launches
+    assert {p: after[p] - before[p] for p in after} == \
+        {p: len(lens) * (p == path) for p in after}
+    mma_after = fa.mma_kernel_launches()        # as the C entry counts them
+    assert {k_: mma_after[k_] - mma_before[k_] for k_ in mma_after} == \
+        {k_: len(lens) * (k_ == kernel) for k_ in mma_after}
 
 
 def _bwd_inputs(cuda, B, H, Hkv, Sq, Sk, D, dtype, seed=5):

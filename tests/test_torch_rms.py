@@ -45,12 +45,13 @@ def test_scenario_registries_agree():
     assert sorted(twl.SCENARIOS) == sorted(jwl.SCENARIOS)
     assert {k: _fields(v) for k, v in twl.APPS.items()} == \
         {k: _fields(v) for k, v in jwl.APPS.items()}
+    # importing either package's serving fleet registers its own latency
+    # policies (slo-aware, queue-depth) into that package's registry
+    import repro.serve  # noqa: F401
+    import repro_torch.serve  # noqa: F401
+    assert sorted(tpolicy.POLICIES) == sorted(jpolicy.POLICIES)
     for name, cls in tpolicy.POLICIES.items():
         assert jpolicy.POLICIES[name].__name__ == cls.__name__
-    # importing the JAX package's serving fleet registers its own policies
-    # (the port's serving fleet is a later slice)
-    assert set(jpolicy.POLICIES) - set(tpolicy.POLICIES) <= \
-        {"slo-aware", "queue-depth"}
 
 
 # -- the event index --------------------------------------------------------

@@ -18,6 +18,7 @@ from repro.configs import get_config as jget_config
 from repro.models import model as JM
 from repro.serve import decode_demo as j_decode_demo
 from repro_torch import dmr
+from repro_torch.configs import get_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.parallel.mesh import Placement, logical_workers
 from repro_torch.serve import decode_demo
@@ -70,6 +71,53 @@ def test_tokens_match_the_jax_serve_step(arch, jax_params):
     assert out["tokens"].shape == (4, 8)
 
 
+#: the dense configs beside granite, at smoke size (head dim 16, G = 2,
+#: as ``reduced()`` cuts every config), then small configs at head dim 128
+#: with each full config's GQA ratio: phi4-mini's G = 3, qwen2.5's G = 5
+#: (with its QKV bias and rope_theta), internlm2's G = 6
+DENSE_CASES = [("phi4-mini-3.8b-smoke", {}), ("qwen2.5-32b-smoke", {}),
+               ("phi4-mini-3.8b-smoke",
+                dict(num_heads=6, num_kv_heads=2, head_dim=128)),
+               ("qwen2.5-32b-smoke",
+                dict(num_heads=10, num_kv_heads=2, head_dim=128)),
+               ("internlm2-20b-smoke",
+                dict(num_heads=12, num_kv_heads=2, head_dim=128))]
+
+
+@pytest.mark.parametrize("name,shape", DENSE_CASES,
+                         ids=["phi4", "qwen2.5", "phi4-D128-G3",
+                              "qwen2.5-D128-G5", "internlm2-D128-G6"])
+def test_dense_config_tokens_match_the_jax_serve_step(name, shape):
+    """``decode_demo`` on one worker against the JAX serve step's greedy
+    tokens from the same parameters and prompts (prefill-by-decode, then
+    greedy decode), in one process."""
+    from dataclasses import replace
+
+    from repro.models.train import make_serve_step as j_make_serve_step
+    jcfg = replace(jget_config(name), **shape)
+    cfg = replace(get_config(name), **shape)
+    assert cfg.__dict__ == jcfg.__dict__
+    small = dict(batch=4, prompt_len=8, decode_steps=8, cache_len=32)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    out = decode_demo(cfg, device="cpu",
+                      params=params_from_numpy(jax.tree.map(np.asarray, jp)),
+                      **small)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (small["batch"], small["prompt_len"]),
+        dtype=np.int32)
+    serve = jax.jit(j_make_serve_step(jcfg))
+    cache = JM.init_cache(jcfg, small["batch"], small["cache_len"],
+                          enc_len=small["cache_len"])
+    want = []
+    for i in range(small["prompt_len"] + small["decode_steps"] - 1):
+        tok = prompts[:, i:i + 1] if i < small["prompt_len"] else tok
+        tok, cache = serve(jp, cache, jax.numpy.asarray(tok), i)
+        tok = np.asarray(tok)
+        if i >= small["prompt_len"] - 1:
+            want.append(tok[:, 0])
+    np.testing.assert_array_equal(out["tokens"], np.stack(want, axis=1))
+
+
 def test_resize_leaves_tokens_unchanged(port_runs):
     base, ela = port_runs
     np.testing.assert_array_equal(base["tokens"], ela["tokens"])
@@ -94,7 +142,6 @@ def test_decode_demo_takes_a_config():
     """``decode_demo`` takes a config as well as a name: the named
     config gives the named run's tokens, one cut to one layer others."""
     from dataclasses import replace
-    from repro_torch.configs import get_config
     small = dict(batch=2, prompt_len=4, decode_steps=4, cache_len=16,
                  device="cpu")
     cfg = get_config(ARCHS[1])
