@@ -17,7 +17,10 @@ multi-tenant cluster (``dmr.Cluster``) on eight workers of the card, with
 toy tenants and with six full-width ``mamba2-370m`` training tenants; then
 the elastic serving fleet (``repro_torch.serve.ReplicaSet``) with live
 ``phi4-mini-3.8b`` decode replicas at full width and all 32 layers (K1 at
-G = 3, D = 128), and phi4's prefill against its decode.
+G = 3, D = 128), and phi4's prefill against its decode; then the MoE
+family at full width: ``mixtral-8x7b`` serving at 8 of its 32 layers and
+elastic training (K1 at G = 4, D = 128, window 4096), and
+``qwen3-moe-235b-a22b`` serving at 8 of its 94 layers (K1 at G = 16).
 Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -52,6 +55,18 @@ Phases:
    the most it holds at D = 128; counted by the C entry point); device
    times warm and L2-cold, SDPA
    beside each, the bounds (phase 15's two phi4 rows);
+3d. moe:K1: K1 at the MoE family's shapes (bf16, D = 128), before any MoE
+   model phase: mixtral's (B=16, H=32, Hkv=8: G = 4) and qwen3-moe's
+   (H=64, Hkv=4: G = 16, all 16 rows of a split_decode tile) decode over a
+   512-slot cache at seven kv_lens on split_decode, causal prefill at
+   S=256 on mma (mixtral's with its window of 4096 on the group kernel,
+   equal bit for bit to the causal call's; qwen3-moe's on the block
+   kernel: 128 CTAs are fewer than the SMs); mixtral's training shape
+   (B=1, S=4096, window 4096) forward with its lse and backward against
+   their plain versions, twice bit for bit and equal bit for bit to the
+   causal call's; the window biting at Sq=Sk=8192 (block kernel); device
+   times warm and L2-cold, SDPA beside each (a band mask for the biting
+   window), the bounds (phase 15's seven MoE rows);
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
@@ -213,6 +228,30 @@ Phases:
     bf16 decode's last step (its position one back; two KV heads' cached
     rows swapped) read by the same bf16 measure, each of which the bf16
     bound must reject; peak GB;
+16. mixtral serving at ``MOE_SERVE_LAYERS`` (8 of 32): ``serve_runs`` (K1
+    8 launches a step on split_decode; tokens and final KV caches equal
+    bit for bit; the share of routed assignments dropped over capacity),
+    ``make_prefill_step`` (K1 8 on mma's group kernel) and its first
+    tokens against decode's, one traced decode step (device busy, idle
+    share, K1's share, and the expert products', the dispatch's and the
+    dtype casts' by operator, ``MOE_OP_GROUPS``), then ``logits_check`` on
+    the first ``MOE_CHECK_LAYERS`` layers at the check config (capacity
+    for every assignment, the window as plain causal attention: both
+    paths drop nothing);
+17. mixtral training (Listing 2): the smoke step on the card against the
+    CPU's (loss, ce_loss, aux_loss, gradient norm), then
+    ``MX_ELASTIC_LAYERS`` (1) at granite's training settings with
+    mixtral's 2 microbatches, 6 static and 6 elastic steps whose losses
+    agree to 1e-4, ce_loss and aux_loss beside them; then 6 static steps
+    at ``MX_DEPTH_LAYERS`` (2), s/step, peak GB; every attention call on
+    K1 (4 forward launches a layer and step on mma, 2 backward on wgmma);
+    one traced step split as phase 16's;
+18. qwen3-moe serving at 8 of its 94 layers in its bf16 master weights:
+    ``serve_runs`` (K1 8 a step on split_decode, q/k norm on the path),
+    the prefill (K1 8 on mma's block kernel), a traced decode step split
+    as phase 16's, bf16 against fp32 logits at all 8 layers after 64
+    prompt tokens (prefill and decode each against its own fp32 path),
+    ``logits_check`` on 2 layers at the check config;
 15. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
@@ -237,7 +276,10 @@ Phases:
     timed right after the device times, its inputs then freed so that they
     do not count in the paths' peak memory.  phi4-mini adds two (phase
     3c): K1 decode (its launches the fleet's, phase 14d) and prefill (14e).
-    Then
+    The MoE family adds seven (phase 3d): mixtral's and qwen3-moe's decode
+    and prefill (their launches phases 16's and 18's), mixtral's training
+    forward and backward at B=4 (phase 17's 2-layer run) and the window
+    biting at S=8192 (no path reaches it: 0 launches).  Then
     the contract line ``{"ok": true, ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
@@ -470,6 +512,55 @@ INPLACE_TICKS, INPLACE_GROW_AT, INPLACE_SHRINK_AT = 10, 3, 6
 P_FP32_LOGITS_ATOL = FP32_LOGITS_ATOL
 P_BF16_LOGITS_MAX, P_BF16_LOGITS_RMS = 0.6, 0.15
 
+#: the MoE family at full width: mixtral-8x7b (32 query heads over 8 of
+#: 128, G = 4, a sliding window of 4096, 8 experts top-2 of d_ff 14336;
+#: 1.451 B parameters a layer, 5.81 GB in fp32) and qwen3-moe-235b-a22b (64
+#: over 4, G = 16, q/k norm, 128 experts top-8 of d_ff 1536; 2.488 B a
+#: layer, 4.98 GB in its bf16 master weights).  Serving (16, 18) runs 8 of
+#: their 32 and 94 layers: 47.5 and 42.3 GB of weights
+MIXTRAL, QWEN3 = "mixtral-8x7b", "qwen3-moe-235b-a22b"
+MOE_SERVE_LAYERS = 8
+#: mixtral training (17): elastic at 1 layer (a resize clones the 20.6 GB
+#: state; at 2 layers the 38.0 GB state and its clone would not fit beside
+#: the step), static at 2 for s/step and peak memory
+MX_ELASTIC_LAYERS, MX_DEPTH_LAYERS = 1, 2
+#: prefill vs decode logits of the MoE models run their first 2 layers, on
+#: a check config of the same weights with the capacity raised to hold
+#: every assignment (capacity_factor E / k: C >= T) and mixtral's window
+#: replaced by plain causal attention: capacity drops depend on the set of
+#: tokens routed together (a decode step routes 16, a prefill 4096), and
+#: mixtral's rolling decode buffer counts every slot live before it fills,
+#: as the reference's does, so neither path equals the other otherwise;
+#: at S = 256 <= 4096 the window changes no bit of the prefill (phase 3d)
+MOE_CHECK_LAYERS = 2
+#: each MoE bf16 path against the fp32 logits (std 1.28 for both models),
+#: by the largest and the rms gap.  bf16 also moves tokens across the
+#: router's top-k boundary, which changes their expert outputs outright.
+#: On an H100 (80GB HBM3, 700 W) at 2 layers: mixtral 0.257 (rms 0.036;
+#: its weights rounded to bf16 alone 0.197, rms 0.023), qwen3-moe 0.577
+#: (rms 0.054; its master weights are bf16).  So the largest gap is held to
+#: 1.2 and the rms gap to 0.15, 2x and 2.8x above the worse reading and
+#: ~1 std and ~12x below decorrelated logits (rms ~1.4 std), which a wrong
+#: cache, position or routing gives
+MOE_BF16_LOGITS_MAX, MOE_BF16_LOGITS_RMS = 1.2, 0.15
+#: qwen3-moe's bf16 paths against fp32 at all 8 serving layers (phase 18)
+#: run the first 64 prompt tokens: its fp32 decode casts every expert
+#: weight to fp32 each step (~60 ms a step), and 256 steps took ~45 s of
+#: a slow host's run; the same bounds hold (0.237, rms 0.023 over 256 on
+#: that card)
+Q8_CHECK_S = 64
+#: operators whose kernels a MoE model's traced step is split into (their
+#: device time, ``op_group_fields``): the expert products; the dispatch
+#: (top-k and rank sorts, searchsorted, the bucket scatter, the gathers --
+#: ``aten::index`` also takes the embedding row lookup); every dtype cast
+#: (the fp32 -> bf16 weight casts, and the fp32 upcasts of norms and the
+#: router's input)
+MOE_OP_GROUPS = {"experts": ("aten::bmm",),
+                 "dispatch": ("aten::sort", "aten::searchsorted",
+                              "aten::_index_put_impl_", "aten::index",
+                              "aten::repeat_interleave", "aten::one_hot"),
+                 "casts": ("aten::_to_copy",)}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -497,6 +588,25 @@ def device_events(prof):
     return sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and device_us(e) > 0),
                   key=device_us, reverse=True)
+
+
+def op_group_fields(prof, busy_ms: float, groups, per: int = 1) -> dict:
+    """For each name of ``groups`` (a name -> operator names), the device
+    time of those operators' kernels in the trace ``prof`` (each
+    operator's own and its children's, over ``per`` steps) and its share
+    of ``busy_ms``, the trace's device busy time."""
+    total = {}
+    for e in prof.key_averages():
+        for attr in ("device_time_total", "cuda_time_total"):
+            if hasattr(e, attr):
+                total[e.key] = getattr(e, attr)
+                break
+    out = {}
+    for name, names in groups.items():
+        us = sum(total.get(n_, 0.0) for n_ in names)
+        out[f"{name}_ms"] = f"{us / 1e3 / per:.3f}"
+        out[f"{name}_share"] = f"{us / 1e3 / busy_ms:.4f}"
+    return out
 
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -914,6 +1024,7 @@ def main() -> None:
                                          ssd_chunked_backward_reference,
                                          ssd_chunked_reference, ssd_reference)
     from repro_torch.models import model as M
+    from repro_torch.models import moe
     from repro_torch.models.train import (init_state, loss_fn,
                                           make_prefill_step, make_serve_step,
                                           make_train_step, prefill_logits)
@@ -1894,13 +2005,270 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("phi4_K1")
 
+    # -- 3d. moe:K1 -- K1 at the MoE family's shapes (D = 128), before any
+    # MoE model phase: mixtral's G = 4 (32 heads over 8) and qwen3-moe's
+    # G = 16 (64 over 4, all 16 rows of a split_decode tile).  Decode over
+    # a 512-slot cache at kv_lens around tile edges, 384 (qwen3-moe's last)
+    # and 512 (mixtral's every step: its rolling window buffer counts every
+    # slot live, as the reference's); causal prefill at S = 256 on mma
+    # (mixtral's group kernel with its window of 4096, which must change no
+    # bit at S <= window; qwen3-moe's block kernel: 2 B Hkv = 128 CTAs are
+    # fewer than the SMs); mixtral's training shape (B = 1, S = 4096, with
+    # the lse and the window) forward and backward, twice bit for bit and
+    # equal to the causal call's bit for bit; and the window biting at
+    # Sq = Sk = 8192 (block kernel).  Device times warm and L2-cold, SDPA
+    # beside each (an explicit band mask for the biting window), the bounds
+    xcfg, qcfg = get_config(MIXTRAL), get_config(QWEN3)
+    moe_err, moe_args, moe_kernel = {}, {}, {}
+    paths0 = dict(case_paths)
+    for tag, c_, kernel in (("mixtral", xcfg, "group"),
+                            ("qwen3", qcfg, "block")):
+        H_, Hkv_, D_ = c_.num_heads, c_.num_kv_heads, c_.head_dim
+        win = c_.window if c_.attention == "swa" else 0
+        kc_, vc_ = (rand((BATCH, CACHE, Hkv_, D_), bf16) for _ in range(2))
+        dargs = (rand((BATCH, 1, H_, D_), bf16).transpose(1, 2),
+                 kc_.transpose(1, 2), vc_.transpose(1, 2))
+        moe_err[f"{tag} decode"] = 0.0
+        for n_ in (1, 63, 64, 65, 200, PROMPT + DECODE, CACHE):
+            _, e_ = k1_case(
+                *dargs, f"{tag} decode {BATCH}x{H_}x{Hkv_} D={D_} kv_len "
+                f"{n_}", causal=False,
+                kv_len=torch.tensor(n_, dtype=torch.int32, device=dev))
+            moe_err[f"{tag} decode"] = max(moe_err[f"{tag} decode"], e_)
+        # the path's kv_len: every slot of mixtral's rolling buffer (an
+        # int, as decode_attn_apply passes it), qwen3-moe's last step's
+        moe_args[f"{tag} decode"] = (dargs, CACHE if win else torch.tensor(
+            PROMPT + DECODE, dtype=torch.int32, device=dev))
+        pargs_ = tuple(rand((BATCH, PROMPT, h_, D_), bf16).transpose(1, 2)
+                       for h_ in (H_, Hkv_, Hkv_))
+        out_, moe_err[f"{tag} prefill"] = k1_case(
+            *pargs_, f"{tag} prefill {BATCH}x{H_}x{Hkv_} S={PROMPT} D={D_}",
+            mma_kernel=kernel, causal=True, window=win)
+        if win and not torch.equal(out_, ops.flash_attention(
+                *pargs_, causal=True)):
+            fail(f"{tag} prefill: the window of {win} changed K1's output "
+                 f"at S = {PROMPT}")
+        moe_args[f"{tag} prefill"] = (pargs_, win)
+        moe_kernel[tag] = kernel
+    m_paths = {k_: case_paths[k_] - paths0[k_] for k_ in case_paths}
+    if m_paths != {"fma": 0, "mma": 2, "split_decode": 14}:
+        fail(f"MoE K1 cases took paths {m_paths}")
+    # mixtral's training shape, B cut to 1 for the plain version's memory
+    xH, xHkv, xD, xW = xcfg.num_heads, xcfg.num_kv_heads, xcfg.head_dim, \
+        xcfg.window
+    bwd_err["bfloat16"] = 0.0
+    xargs_1, xgot = k1_bwd_case(1, xH, xHkv, tS, tS, xD, True, xW, bf16,
+                                f"mixtral bwd train shape S={tS} window {xW}")
+    moe_err["train bwd"] = bwd_err["bfloat16"]
+    xq, xk, xv, xo, xdo, xlse = xargs_1
+    again = ops.flash_attention_bwd(*xargs_1, causal=True, window=xW)
+    o0, lse0 = fa.flash_attention_lse(xq, xk, xv, causal=True)
+    g0 = ops.flash_attention_bwd(xq, xk, xv, o0, xdo, lse0, causal=True)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(xgot, again)):
+        fail("K1 backward at mixtral's shape: two runs differ")
+    if not (torch.equal(xo, o0) and torch.equal(xlse, lse0) and
+            all(torch.equal(a, b) for a, b in zip(xgot, g0))):
+        fail(f"K1 at mixtral's training shape: the window of {xW} changed "
+             f"the output, lse or gradients at S = {tS}")
+    moe_err["train fwd"] = check_close(
+        xo, attention_reference(xq, xk, xv, causal=True), "bfloat16",
+        f"K1 forward at mixtral's train shape S={tS}")
+    del xargs_1, xgot, again, o0, lse0, g0, xq, xk, xv, xo, xdo, xlse
+    # the window biting: twice the window, on the block kernel
+    wS = 2 * xW
+    wargs = tuple(rand((1, wS, h_, xD), bf16).transpose(1, 2)
+                  for h_ in (xH, xHkv, xHkv))
+    _, moe_err["window"] = k1_case(
+        *wargs, f"mixtral window {xW} at Sq=Sk={wS}", mma_kernel="block",
+        causal=True, window=xW)
+    ii = torch.arange(wS, device=dev)
+    band = (ii[:, None] >= ii[None, :]) & (ii[:, None] - ii[None, :] < xW)
+    # SDPA's kernels that take a mask do not take enable_gqa: k and v
+    # expanded to the query heads beforehand
+    wlib = (wargs[0], *(t.repeat_interleave(xH // xHkv, dim=1)
+                        for t in wargs[1:]))
+    # mixtral's training path calls K1 at B = 4 (a microbatch of 8 x 4096
+    # in two): forward with its lse and backward, SDPA beside each
+    xmb = TRAIN_BATCH // xcfg.train_microbatches
+    xq_, xdo_ = (rand((xmb, tS, xH, xD), bf16).transpose(1, 2)
+                 for _ in range(2))
+    xk_, xv_ = (rand((xmb, tS, xHkv, xD), bf16).transpose(1, 2)
+                for _ in range(2))
+    xbwd_set = (xq_, xk_, xv_, *fa.flash_attention_lse(
+        xq_, xk_, xv_, causal=True, window=xW))
+    xbwd_set = xbwd_set[:4] + (xdo_, xbwd_set[4])   # q, k, v, o, dO, lse
+    del xq_, xk_, xv_, xdo_
+    xk1_tfwd = lambda: fa.flash_attention_lse(*xbwd_set[:3], causal=True,
+                                              window=xW)
+    xk1_bwd = lambda: ops.flash_attention_bwd(*xbwd_set, causal=True,
+                                              window=xW)
+    xsdpa_tfwd = lambda: F.scaled_dot_product_attention(
+        *xbwd_set[:3], is_causal=True, enable_gqa=True)
+    xsq, xsk, xsv = (t.detach().requires_grad_() for t in xbwd_set[:3])
+    xs_out = F.scaled_dot_product_attention(xsq, xsk, xsv, is_causal=True,
+                                            enable_gqa=True)
+    xsdpa_bwd = lambda: torch.autograd.grad(xs_out, (xsq, xsk, xsv),
+                                            xbwd_set[4], retain_graph=True)
+    moe_calls = {}
+    for tag in ("mixtral", "qwen3"):
+        dargs, kvl = moe_args[f"{tag} decode"]
+        pargs_, win = moe_args[f"{tag} prefill"]
+        n_ = kvl if isinstance(kvl, int) else PROMPT + DECODE
+        moe_calls[f"{tag} decode"] = (
+            lambda q_, k_, v_, kvl=kvl: ops.flash_attention(
+                q_, k_, v_, causal=False, kv_len=kvl),
+            lambda q_, k_, v_, n_=n_: F.scaled_dot_product_attention(
+                q_, k_[:, :, :n_], v_[:, :, :n_], enable_gqa=True), dargs)
+        moe_calls[f"{tag} prefill"] = (
+            lambda q_, k_, v_, win=win: ops.flash_attention(
+                q_, k_, v_, causal=True, window=win),
+            lambda q_, k_, v_: F.scaled_dot_product_attention(
+                q_, k_, v_, is_causal=True, enable_gqa=True), pargs_)
+    moe_ms = {}
+    for key, (k1_fn, lib_fn, a_) in moe_calls.items():
+        # L2-cold: 4 copies of the inputs (34-67 MB a set) rotate through
+        # more than the 50 MB of L2
+        copies = [tuple(t.clone() for t in a_) for _ in range(4)]
+        moe_ms[f"K1 {key}"] = device_ms(lambda: k1_fn(*a_), f"{key} K1")
+        moe_ms[f"SDPA {key}"] = device_ms(lambda: lib_fn(*a_),
+                                          f"{key} SDPA")
+        moe_ms[f"K1 {key} cold"] = device_ms(
+            cold(k1_fn, copies), f"{key} K1, L2-cold", iters=24)
+        moe_ms[f"SDPA {key} cold"] = device_ms(
+            cold(lib_fn, copies), f"{key} SDPA, L2-cold", iters=24)
+        del copies
+    moe_ms.update({
+        "K1 mixtral train fwd": device_ms(xk1_tfwd, "mixtral K1 forward, "
+                                          "train shape", iters=8),
+        "SDPA mixtral train fwd": device_ms(xsdpa_tfwd, "mixtral SDPA "
+                                            "forward, train shape", iters=8),
+        "K1 mixtral train bwd": device_ms(xk1_bwd, "mixtral K1 backward",
+                                          iters=4),
+        "SDPA mixtral train bwd": device_ms(xsdpa_bwd, "mixtral SDPA "
+                                            "backward", iters=4),
+        "K1 mixtral window": device_ms(
+            lambda: ops.flash_attention(*wargs, causal=True, window=xW),
+            "mixtral K1, window biting", iters=8),
+        "SDPA mixtral window": device_ms(
+            lambda: F.scaled_dot_product_attention(*wlib, attn_mask=band),
+            "mixtral SDPA, band mask", iters=8)})
+    # bounds as the other K1 rows': q, k, v (the keys each row reads) and
+    # the output once in bf16; the work QK^T and PV over the keys each row
+    # sees (the backward's five products; the window's band)
+    moe_rows = []
+    for tag, c_ in (("mixtral", xcfg), ("qwen3", qcfg)):
+        H_, Hkv_, D_ = c_.num_heads, c_.num_kv_heads, c_.head_dim
+        dargs, kvl = moe_args[f"{tag} decode"]
+        pargs_, win = moe_args[f"{tag} prefill"]
+        n_ = kvl if isinstance(kvl, int) else PROMPT + DECODE
+        b_dec_ = bound_ms(2 * (2 * BATCH * H_ * D_ + 2 * BATCH * Hkv_ * n_
+                               * D_), 4 * BATCH * H_ * n_ * D_, "bfloat16")
+        b_pre_ = bound_ms(2 * 2 * BATCH * PROMPT * (H_ + Hkv_) * D_,
+                          4 * BATCH * H_ * D_ * (PROMPT * (PROMPT + 1) // 2),
+                          "bfloat16")
+        k1_dec_, lib_dec_, _ = moe_calls[f"{tag} decode"]
+        k1_pre_, lib_pre_, _ = moe_calls[f"{tag} prefill"]
+        for what, path, err, fn, lib, plain, b_, shape in (
+            ("decode", "split_decode", moe_err[f"{tag} decode"],
+             lambda: k1_dec_(*dargs), lambda: lib_dec_(*dargs),
+             (lambda: attention_reference(*dargs, causal=False,
+                                          kv_len=kvl), 20), b_dec_,
+             f"B={BATCH} H={H_} Hkv={Hkv_} D={D_} kv_len={n_} of {CACHE} "
+             "bf16"),
+            ("prefill", "mma", moe_err[f"{tag} prefill"],
+             lambda: k1_pre_(*pargs_), lambda: lib_pre_(*pargs_),
+             (lambda: attention_reference(*pargs_, causal=True,
+                                          window=win), 10), b_pre_,
+             f"B={BATCH} H={H_} Hkv={Hkv_} D={D_} Sq=Sk={PROMPT} causal"
+             f"{f' window={win}' if win else ''} bf16, the "
+             f"{moe_kernel[tag]} kernel")):
+            key = f"{tag} {what}"
+            moe_rows.append({
+                "name": f"flash_attention_fwd ({tag} {what}, "
+                        f"G={H_ // Hkv_}, D={D_})",
+                "route": "cuda", "source": attn_src,
+                "replaces": "src/repro/kernels/flash_attention.py:73",
+                "path": path, "max_abs_err": err,
+                "ms": time_ms(fn), "device_ms": moe_ms[f"K1 {key}"],
+                "device_ms_cold": moe_ms[f"K1 {key} cold"],
+                "plain_ms": time_ms(plain[0], iters=plain[1], warmup=1),
+                "bound_ms": b_[0], "bound_by": b_[1],
+                "library_ms": time_ms(lib),
+                "library_device_ms": moe_ms[f"SDPA {key}"],
+                "library_device_ms_cold": moe_ms[f"SDPA {key} cold"],
+                "shape": shape})
+    xpairs = tS * (tS + 1) // 2
+    wpairs = sum(min(i_ + 1, xW) for i_ in range(wS))
+    for name, path, err, fn, key, plain, b_, lib, shape in (
+        ("flash_attention_fwd (mixtral train, causal, window, with lse)",
+         "mma", moe_err["train fwd"], xk1_tfwd, "mixtral train fwd",
+         (per_row(lambda *a_, causal: attention_reference(
+             *a_, causal=causal, window=xW), xbwd_set[:3]), 2),
+         bound_ms(2 * 2 * xmb * tS * (xH + xHkv) * xD + 4 * xmb * xH * tS,
+                  2 * 2 * xmb * xH * xD * xpairs, "bfloat16"), xsdpa_tfwd,
+         f"B={xmb} H={xH} Hkv={xHkv} D={xD} S={tS} causal window={xW} "
+         "bf16"),
+        ("flash_attention_bwd (mixtral train, causal, window)", "wgmma",
+         moe_err["train bwd"], xk1_bwd, "mixtral train bwd",
+         (per_row(lambda *a_, causal: attention_backward_reference(
+             *a_, causal=causal, window=xW), xbwd_set), 2),
+         bound_ms(2 * (4 * xmb * tS * xH * xD + 4 * xmb * tS * xHkv * xD)
+                  + 4 * xmb * xH * tS, 5 * 2 * xmb * xH * xD * xpairs,
+                  "bfloat16"), xsdpa_bwd,
+         f"B={xmb} H={xH} Hkv={xHkv} D={xD} S={tS} causal window={xW} "
+         "bf16"),
+        ("flash_attention_fwd (mixtral, the window biting)", "mma",
+         moe_err["window"],
+         lambda: ops.flash_attention(*wargs, causal=True, window=xW),
+         "mixtral window",
+         (lambda: attention_reference(*wargs, causal=True, window=xW), 2),
+         bound_ms(2 * 2 * wS * (xH + xHkv) * xD, 4 * xH * xD * wpairs,
+                  "bfloat16"),
+         lambda: F.scaled_dot_product_attention(*wlib, attn_mask=band),
+         f"B=1 H={xH} Hkv={xHkv} D={xD} Sq=Sk={wS} causal window={xW} "
+         "bf16, the block kernel")):
+        moe_rows.append({
+            "name": name, "route": "cuda",
+            "source": attn_src if "fwd" in name else
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:73",
+            "path": path, "max_abs_err": err,
+            "ms": time_ms(fn, iters=10, warmup=2),
+            "device_ms": moe_ms[f"K1 {key}"],
+            "plain_ms": time_ms(plain[0], iters=plain[1], warmup=1),
+            "bound_ms": b_[0], "bound_by": b_[1],
+            "library_ms": time_ms(lib, iters=10, warmup=2),
+            "library_device_ms": moe_ms[f"SDPA {key}"], "shape": shape})
+    moe_rows[-1]["library_note"] = (
+        "SDPA with the boolean band mask, k and v expanded to the query "
+        "heads (its kernels that take a mask do not take enable_gqa)")
+    phase("moe:K1", cases=sum(m_paths.values()) + 2,
+          paths=json.dumps(m_paths, separators=(",", ":")),
+          **{k_.replace(" ", "_") + "_err": f"{v_:.3e}"
+             for k_, v_ in moe_err.items()},
+          prefill_mma_kernels=f"{moe_kernel['mixtral']},"
+                              f"{moe_kernel['qwen3']}",
+          window_unchanged_at_s_le_window=True, bwd_bitwise_repeatable=True,
+          tol=TOL["bfloat16"],
+          **{k_.replace(" ", "_") + "_device_ms": f"{v_:.6f}"
+             for k_, v_ in moe_ms.items()},
+          bound_ms=",".join(f"{r_['bound_ms']:.4f}" for r_ in moe_rows))
+    del moe_args, moe_calls, xbwd_set, xs_out, xsq, xsk, xsv, wargs, wlib, \
+        band
+    torch.cuda.empty_cache()
+    mark("moe_K1")
+
     def serve_runs(c, tag, k1_per_step):
         """The serving path of ``c``: ``decode_demo`` at the serving
         schedule without and with resizes, kernel counts zeroed just before
         each run and read just after.  Each run must launch K1
         ``k1_per_step`` times a decode step, all on split_decode, and K3
         never (an SSM decode step is the recurrence); both must give the
-        same tokens.  Returns the runs and one run's K1 launches."""
+        same tokens and the same final cache, bit for bit.  A MoE model's
+        runs print the share of routed assignments dropped over capacity.
+        Returns the runs (tokens, events, times) and one run's K1
+        launches."""
         runs = {}
         want = k1_per_step * (PROMPT + DECODE)
         for label, schedule in (("static", None), ("elastic", SCHEDULE)):
@@ -1908,11 +2276,12 @@ def main() -> None:
             torch.cuda.reset_peak_memory_stats()
             torch.cuda.synchronize()
             ops.reset_counts()
-            out = decode_demo(c, batch=BATCH, prompt_len=PROMPT,
-                              decode_steps=DECODE, cache_len=CACHE,
-                              workers=WORKERS, device=dev,
-                              schedule=schedule, seed=0)
-            torch.cuda.synchronize()
+            with moe.count_drops() as drops:
+                out = decode_demo(c, batch=BATCH, prompt_len=PROMPT,
+                                  decode_steps=DECODE, cache_len=CACHE,
+                                  workers=WORKERS, device=dev,
+                                  schedule=schedule, seed=0)
+                torch.cuda.synchronize()
             counts = ops.launch_counts()
             paths = dict(fa.flash_attention.path_launches)
             if counts["flash_attention"] != want or counts["ssd_scan"] or \
@@ -1932,7 +2301,9 @@ def main() -> None:
                   k1_launches=counts["flash_attention"],
                   path_launches=json.dumps(paths, separators=(",", ":")),
                   peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-                  sizes=json.dumps(out["sizes"], separators=(",", ":")))
+                  sizes=json.dumps(out["sizes"], separators=(",", ":")),
+                  **({"dropped_share": f"{drops['dropped'] / drops['routed']:.4f}",
+                      "routed": drops["routed"]} if c.is_moe else {}))
             for ev in out["events"]:
                 phase(f"{tag}:{label}:resize", step=ev.step,
                       action=ev.action,
@@ -1943,10 +2314,16 @@ def main() -> None:
                               runs["elastic"]["tokens"]):
             fail(f"{tag}: tokens differ between the static and the elastic "
                  "run")
+        caches = [T.leaves(r.pop("cache")) for r in runs.values()]
+        if not all(torch.equal(a, b) for a, b in zip(*caches)):
+            fail(f"{tag}: the final decode caches differ between the static "
+                 "and the elastic run")
+        del caches
         actions = [e.action for e in runs["elastic"]["events"]]
         if actions != ["expand", "shrink"]:
             fail(f"{tag} resize actions {actions}")
-        phase(tag, tokens_equal=True, actions=",".join(actions))
+        phase(tag, tokens_equal=True, caches_equal=True,
+              actions=",".join(actions))
         return runs, want
 
     # -- 6. the granite serving path ----------------------------------------
@@ -2008,46 +2385,72 @@ def main() -> None:
 
     # -- 8. where a granite decode step's time goes -------------------------
     from torch.profiler import ProfilerActivity, profile
-    serve = make_serve_step(cfg)
-    cache = M.init_cache(cfg, BATCH, CACHE, device=dev)
-    tok = prompts[:, :1]
-    pos = torch.tensor(PROMPT + DECODE - 1, dtype=torch.int32, device=dev)
 
-    def steps(n):
-        nonlocal tok, cache
-        with torch.no_grad():
-            for _ in range(n):
-                tok, cache = serve(params, cache, tok, pos)
-        torch.cuda.synchronize()
+    # device records of K1's and K3's forward and backward kernels
+    is_k1_fwd = lambda k_: "attn_" in k_ and "attn_bwd" not in k_
+    is_k1_bwd = lambda k_: "attn_bwd" in k_
+    is_k3_fwd = lambda k_: "ssd_scan" in k_
+    is_k3_bwd = lambda k_: "ssd_bwd" in k_
+    no_k1 = {"fma": 0, "mma": 0, "split_decode": 0}
 
-    steps(PROFILE_WARMUP)
-    t0 = time.perf_counter()
-    steps(PROFILE_STEPS)
-    wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    def traced_decode(c, params, prompts, tag, groups):
+        """Where a decode step of a dense or MoE model goes:
+        ``make_serve_step`` at the path's last position (cache index 383
+        of 512), each row fed its own prompt token, PROFILE_WARMUP steps,
+        an untraced window of PROFILE_STEPS, then as many under the
+        profiler: device busy, idle share, K1's device time and share,
+        each of ``groups``' (``op_group_fields``), the ATen operators a
+        step and the largest device kernels, all from that one window."""
+        serve = make_serve_step(c)
+        cache = M.init_cache(c, BATCH, CACHE, device=dev)
+        tok = prompts[:, :1]
+        pos = torch.tensor(PROMPT + DECODE - 1, dtype=torch.int32,
+                           device=dev)
+
+        def steps(n):
+            nonlocal tok, cache
+            with torch.no_grad():
+                for _ in range(n):
+                    tok, cache = serve(params, cache, tok, pos)
+            torch.cuda.synchronize()
+
+        steps(PROFILE_WARMUP)
         t0 = time.perf_counter()
         steps(PROFILE_STEPS)
-        traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
-    events = prof.key_averages()
-    dev_events = device_events(prof)
-    busy_ms = sum(device_us(e) for e in dev_events) / 1e3 / PROFILE_STEPS
-    if busy_ms <= 0:
-        fail("the profiler saw no device time in the traced decode steps")
-    top = [{"kernel": e.key[:80],
-            "ms_per_step": device_us(e) / 1e3 / PROFILE_STEPS,
-            "calls_per_step": e.count / PROFILE_STEPS}
-           for e in dev_events[:PROFILE_TOP]]
-    phase("profile", cache_index=int(pos), steps=PROFILE_STEPS,
-          untraced_ms_per_step=f"{wall_ms:.3f}",
-          traced_ms_per_step=f"{traced_ms:.3f}",
-          traced_device_busy_ms_per_step=f"{busy_ms:.3f}",
-          traced_idle_share=f"{1 - busy_ms / traced_ms:.4f}",
-          aten_ops_per_step=sum(e.count for e in events
-                                if e.key.startswith("aten::"))
-          / PROFILE_STEPS,
-          top=json.dumps(top, separators=(",", ":")))
-    del params, cache, prof, events
+        wall_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps(PROFILE_STEPS)
+            traced_ms = (time.perf_counter() - t0) * 1e3 / PROFILE_STEPS
+        dev_events = device_events(prof)
+        busy = sum(device_us(e) for e in dev_events) / 1e3
+        k1_ms = sum(device_us(e) for e in dev_events
+                    if is_k1_fwd(e.key)) / 1e3
+        if busy <= 0 or k1_ms <= 0:
+            fail(f"the profiler saw no device time (or no K1) in the traced "
+                 f"{tag} decode steps")
+        phase(tag, layers=c.num_layers, cache_index=int(pos),
+              steps=PROFILE_STEPS, untraced_ms_per_step=f"{wall_ms:.3f}",
+              traced_ms_per_step=f"{traced_ms:.3f}",
+              traced_device_busy_ms_per_step=f"{busy / PROFILE_STEPS:.3f}",
+              traced_idle_share=f"{1 - busy / PROFILE_STEPS / traced_ms:.4f}",
+              untraced_idle_share=f"{1 - busy / PROFILE_STEPS / wall_ms:.4f}",
+              k1_ms_per_step=f"{k1_ms / PROFILE_STEPS:.3f}",
+              k1_share=f"{k1_ms / busy:.4f}",
+              **op_group_fields(prof, busy, groups, PROFILE_STEPS),
+              aten_ops_per_step=sum(e.count for e in prof.key_averages()
+                                    if e.key.startswith("aten::"))
+              / PROFILE_STEPS,
+              top=json.dumps([{"kernel": e.key[:80],
+                               "ms_per_step": device_us(e) / 1e3
+                               / PROFILE_STEPS,
+                               "calls_per_step": e.count / PROFILE_STEPS}
+                              for e in dev_events[:PROFILE_TOP]],
+                             separators=(",", ":")))
+
+    traced_decode(cfg, params, prompts, "profile", {})
+    del params
     mark("granite_profile")
 
     # -- 9. the mamba2 serving path -----------------------------------------
@@ -2095,7 +2498,8 @@ def main() -> None:
         """Prefill against token-by-token decode after the same prompts:
         fp32 full-sequence logits at every position against the fp32
         decode's (``fp32_tol``: bounds of the largest and the rms gap, the
-        rms unchecked when None), and the bf16 prefill's and decode's last
+        rms unchecked when None; both only printed when ``fp32_tol`` is
+        None), and the bf16 prefill's and decode's last
         logits against fp32 (``bf16_tol``: the largest and the rms gap),
         beside the fp32 model with its weights rounded to bf16, the
         yardstick of how far bf16 rounding alone moves them.  Returns the
@@ -2122,7 +2526,10 @@ def main() -> None:
             lp = prefill_logits(params, c, batch)[:, :V].float()
             full32 = M.forward(params, c32, batch)[0][..., :V]
             lp32 = prefill_logits(params, c32, batch)[:, :V].float()
-            rounded = T.tree_map(lambda t: t.bfloat16().float(), params)
+            # bf16 master weights are their own rounding: no copy
+            rounded = params if all(t.dtype == bf16 for t in T.leaves(
+                params)) else T.tree_map(lambda t: t.bfloat16().float(),
+                                         params)
             lp32w = prefill_logits(rounded, c32, batch)[:, :V].float()
             del rounded
             ld32, gap_all, rms_all, _ = decode_logits(c32, full32)
@@ -2140,7 +2547,7 @@ def main() -> None:
               fp32_prefill_vs_decode=f"{gap32:.4e}",
               fp32_all_positions=f"{gap_all:.4e}",
               fp32_all_positions_rms=f"{rms_all:.4e}",
-              fp32_tol=",".join(map(str, fp32_tol)),
+              fp32_tol=",".join(map(str, fp32_tol or ("none",))),
               bf16_prefill_vs_fp32=f"{err_p:.4e}",
               bf16_decode_vs_fp32=f"{err_d:.4e}",
               bf16_rms=f"{rms_p:.4e},{rms_d:.4e}",
@@ -2149,8 +2556,8 @@ def main() -> None:
               bf16_tol=",".join(map(str, bf16_tol)),
               logits_std=f"{lp32.std().item():.3f}",
               bf16_prefill_vs_decode_argmax_agreement=f"{agree:.3f}")
-        if max(gap32, gap_all) > fp32_tol[0] or \
-                (fp32_tol[1] is not None and rms_all > fp32_tol[1]):
+        if fp32_tol is not None and (max(gap32, gap_all) > fp32_tol[0] or (
+                fp32_tol[1] is not None and rms_all > fp32_tol[1])):
             fail(f"{tag} fp32 prefill vs decode logits differ by "
                  f"{max(gap32, gap_all):.3e} (rms {rms_all:.3e}) > "
                  f"{fp32_tol}")
@@ -2225,13 +2632,6 @@ def main() -> None:
               traced_idle_share=f"{1 - busy / (traced_s * 1e3):.4f}",
               **fields, top=json.dumps(top, separators=(",", ":")))
 
-    # device records of K1's and K3's forward and backward kernels
-    is_k1_fwd = lambda k_: "attn_" in k_ and "attn_bwd" not in k_
-    is_k1_bwd = lambda k_: "attn_bwd" in k_
-    is_k3_fwd = lambda k_: "ssd_scan" in k_
-    is_k3_bwd = lambda k_: "ssd_bwd" in k_
-    no_k1 = {"fma": 0, "mma": 0, "split_decode": 0}
-
     # -- 10. mamba2 prefill vs decode, and where the prefill's time goes ----
     torch.cuda.empty_cache()
     mparams = M.init_params(mvcfg, torch.Generator(dev).manual_seed(0), dev)
@@ -2276,7 +2676,10 @@ def main() -> None:
     def train_run(c, schedule, steps):
         """``steps`` steps of ``lm_train_app`` on ``c`` (Listing 2's loop);
         kernel counts are zeroed just before the loop and read just after.
-        Returns the runner, its state, losses, seconds per step, counts."""
+        A step runs each layer once per microbatch (``c``'s
+        ``train_microbatches`` of the batch).  Returns the runner, its
+        state, losses (with a MoE model's ce_loss and aux_loss beside each
+        under ``runner.moe_losses``), seconds per step, counts."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         app = lm_train_app(c, tshape, AdamW(learning_rate=1e-3), seed=0)
@@ -2287,14 +2690,20 @@ def main() -> None:
         torch.cuda.synchronize()
         ops.reset_counts()
         losses, secs = [], []
+        runner.moe_losses = []
         for i in range(steps):
             t0 = time.perf_counter()
             state = dmr.reconfig(runner, state, i)
             state, m = runner.step(state, i)
             losses.append(float(m["loss"]))        # waits for the step
             secs.append(time.perf_counter() - t0)
+            if c.is_moe:
+                runner.moe_losses.append((float(m["ce_loss"]),
+                                          float(m["aux_loss"])))
         L = c.num_layers
-        fwd, bwd = 2 * L * steps, L * steps           # remat: twice
+        mb = c.train_microbatches if TRAIN_BATCH % max(
+            1, c.train_microbatches) == 0 else 1
+        fwd, bwd = 2 * L * steps * mb, L * steps * mb   # remat: twice
         if c.is_ssm or c.is_hybrid:
             # K3 forward on wgmma, its backward; the hybrid's shared block
             # runs K1 once per group (twice under remat) and its backward
@@ -2347,7 +2756,12 @@ def main() -> None:
                                       separators=(",", ":")),
                   paths=json.dumps(counts["paths"], separators=(",", ":")),
                   peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
-                  sizes=",".join(str(e.to_procs) for e in runner.events))
+                  sizes=",".join(str(e.to_procs) for e in runner.events),
+                  **({"ce_loss": ",".join(f"{a:.6f}" for a, _ in
+                                          runner.moe_losses),
+                      "aux_loss": ",".join(f"{b:.6f}" for _, b in
+                                           runner.moe_losses)}
+                     if c.is_moe else {}))
             for ev in runner.events:
                 phase(f"{tag}:{label}:resize", step=ev.step,
                       action=ev.action,
@@ -2370,13 +2784,14 @@ def main() -> None:
               state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}")
         return runner, state, counts
 
-    def traced_step(runner, state, step, want):
+    def traced_step(runner, state, step, want, groups=None):
         """One traced ``runner.step``, taken again (four times at most)
         while the profiler dropped a record: ``want`` maps a name to a test
-        on a device record's key and the records a step launches.  Returns
-        the state, the phase fields (device busy, idle share, each name's
-        device ms and share, the largest operators) and each name's
-        records."""
+        on a device record's key and the records a step launches;
+        ``groups`` a name to operator names whose device time
+        (``op_group_fields``) the fields give too.  Returns the state, the
+        phase fields (device busy, idle share, each name's device ms and
+        share, the largest operators) and each name's records."""
         for attempt in range(4):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -2404,6 +2819,7 @@ def main() -> None:
             ms_ = sum(device_us(e) for e in r) / 1e3
             fields[f"{k_}_ms"] = f"{ms_:.3f}"
             fields[f"{k_}_share"] = f"{ms_ / busy:.4f}"
+        fields.update(op_group_fields(prof, busy, groups or {}))
         fields["top"] = json.dumps(
             [{"kernel": e.key[:80], "ms": device_us(e) / 1e3,
               "calls": e.count} for e in evs[:PROFILE_TRAIN_TOP]],
@@ -3016,6 +3432,151 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("phi4_prefill")
 
+    def moe_check(c, params, prompts, tag):
+        """``logits_check`` of a MoE model on its first MOE_CHECK_LAYERS
+        layers (the rest of ``params`` freed), at the check config: the
+        capacity raised to hold every assignment and a window replaced by
+        plain causal attention (see MOE_CHECK_LAYERS).  Both paths must
+        drop nothing."""
+        n_ = MOE_CHECK_LAYERS
+        m_ = c.moe
+        cc = dataclasses.replace(
+            c, num_layers=n_, attention="full", window=0,
+            moe=dataclasses.replace(m_, capacity_factor=m_.num_experts
+                                    / m_.experts_per_token))
+        params["layers"] = T.tree_map(lambda t: t[:n_].clone(),
+                                      params["layers"])
+        torch.cuda.empty_cache()
+        with moe.count_drops() as drops:
+            logits_check(cc, params, prompts, tag, (FP32_LOGITS_ATOL, None),
+                         (MOE_BF16_LOGITS_MAX, MOE_BF16_LOGITS_RMS))
+        if drops["dropped"] or not drops["routed"]:
+            fail(f"{tag} logits check: {drops} assignments dropped/routed "
+                 "at the check config's capacity")
+
+    def moe_prefill(c, params, prompts, tag, kernel, runs):
+        """The MoE model's ``make_prefill_step`` at B = 16, S = 256 (K1 once
+        a layer on mma's ``kernel``, no K3) and its first tokens against
+        the decode path's (``runs``, from the same weights and prompts;
+        capacity drops differ between the two, so they are compared, not
+        held equal).  Returns K1's launches."""
+        L_ = c.num_layers
+        n_k1 = prefill_launches(
+            c, params, {"tokens": prompts}, tag,
+            {"flash_attention": dict(no_k1, mma=L_),
+             "ssd_scan": {"fma": 0, "wgmma": 0}},
+            {"block": L_ * (kernel == "block"),
+             "group": L_ * (kernel == "group")})["flash_attention"]
+        with torch.no_grad():
+            first = make_prefill_step(c)(params, {"tokens": prompts})
+        agree = (first.cpu().numpy() == runs["static"]["tokens"][:, 0]).mean()
+        phase(f"{tag}:first_token", prefill_vs_decode_agreement=f"{agree:.3f}")
+        return n_k1
+
+    # -- 16. mixtral serving at MOE_SERVE_LAYERS of its 32 layers, full
+    # width: elastic decode (K1 on split_decode at G = 4, every slot of its
+    # rolling window buffer live), prefill, logits, a traced decode step ----
+    xs = dataclasses.replace(xcfg, num_layers=MOE_SERVE_LAYERS)
+    xruns, x_dec_launches = serve_runs(xs, "mixtral", xs.num_layers)
+    mark("mixtral_path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    xparams = M.init_params(xs, torch.Generator(dev).manual_seed(0), dev)
+    xprompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, xs.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to(dev)
+    x_prefill = moe_prefill(xs, xparams, xprompts, "mixtral", "group", xruns)
+    traced_decode(xs, xparams, xprompts, "mixtral:profile", MOE_OP_GROUPS)
+    moe_check(xs, xparams, xprompts, "mixtral")
+    del xparams, xruns
+    phase("mixtral", layers=xs.num_layers, params_b=f"{sum(int(np.prod(d.shape)) for d in T.leaves(M.model_schema(xs))) / 1e9:.3f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    torch.cuda.empty_cache()
+    mark("mixtral_serve")
+
+    # -- 17. mixtral training (Listing 2): the smoke step on the card
+    # against the CPU's, then elastic and static runs at full width --------
+    xsm = get_config(f"{MIXTRAL}-smoke")
+    xsbatch = lm_train_app(xsm, dataclasses.replace(
+        get_shape("smoke"), global_batch=8)).dataset.batch_at(0)
+    xsmoke = {}
+    for d in ("cpu", dev):
+        st = T.tree_map(lambda t: t.to(d), init_state(xsm, sopt, 0))
+        ops.reset_counts()
+        _, m = make_train_step(xsm, sopt)(
+            st, {k_: torch.from_numpy(v_).to(d) for k_, v_ in xsbatch.items()})
+        xsmoke[str(d)] = ({k_: float(m[k_]) for k_ in ("loss", "ce_loss",
+                                                       "aux_loss",
+                                                       "grad_norm")},
+                          kernel_launches())
+    (m_c, n_c), (m_g, n_g) = xsmoke["cpu"], xsmoke[str(dev)]
+    nl = xsm.num_layers
+    if n_c["flash_attention"] or n_g["flash_attention"] != nl or \
+            n_g["flash_attention_bwd"] != nl or \
+            n_g["paths"] != {"fma": nl, "mma": 0, "split_decode": 0}:
+        fail(f"mixtral smoke train step launched {n_g} on the card, {n_c} "
+             "on the CPU")
+    if any(abs(m_g[k_] - m_c[k_]) > 1e-5 * abs(m_c[k_])
+           for k_ in ("loss", "ce_loss", "aux_loss")) or \
+            abs(m_g["grad_norm"] - m_c["grad_norm"]) > 1e-4 * m_c["grad_norm"]:
+        fail(f"mixtral smoke train step: card {m_g} vs CPU {m_c}")
+    phase("mixtral:train:smoke",
+          **{f"{k_}_card": f"{m_g[k_]:.7f}" for k_ in m_g},
+          **{f"{k_}_cpu": f"{m_c[k_]:.7f}" for k_ in m_c},
+          k1_launches=f"{n_g['flash_attention']},{n_g['flash_attention_bwd']}")
+    runner, state, _ = elastic_pair(
+        dataclasses.replace(xcfg, num_layers=MX_ELASTIC_LAYERS),
+        "mixtral:train")
+    del runner, state
+    mark("mixtral_train")
+    xd = dataclasses.replace(xcfg, num_layers=MX_DEPTH_LAYERS)
+    runner, state, losses, secs, counts = train_run(xd, {}, TRAIN_STEPS)
+    x_train_k1 = (counts["flash_attention"], counts["flash_attention_bwd"])
+    phase("mixtral:train:depth", layers=xd.num_layers,
+          losses=",".join(f"{x:.6f}" for x in losses),
+          ce_loss=",".join(f"{a:.6f}" for a, _ in runner.moe_losses),
+          aux_loss=",".join(f"{b:.6f}" for _, b in runner.moe_losses),
+          step_s=",".join(f"{x:.3f}" for x in secs),
+          s_per_step=f"{step_s(secs):.4f}",
+          tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
+          per_step=json.dumps({k_: counts[k_] / TRAIN_STEPS for k_ in
+                               counts["paths"]}, separators=(",", ":")),
+          paths=json.dumps(counts["paths"], separators=(",", ":")),
+          state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    nl = xd.num_layers * xd.train_microbatches     # layer passes a step
+    state, fields, _ = traced_step(runner, state, TRAIN_STEPS, {
+        "k1_fwd": (is_k1_fwd, 2 * nl), "k1_bwd": (is_k1_bwd, 3 * nl)},
+        MOE_OP_GROUPS)
+    phase("mixtral:train:profile", layers=xd.num_layers, **fields)
+    del runner, state
+    torch.cuda.empty_cache()
+    mark("mixtral_train_depth")
+
+    # -- 18. qwen3-moe serving at MOE_SERVE_LAYERS of its 94 layers, full
+    # width, bf16 master weights: elastic decode (K1 on split_decode at
+    # G = 16, q/k norm), prefill (the block kernel), logits ----------------
+    qs = dataclasses.replace(qcfg, num_layers=MOE_SERVE_LAYERS)
+    qruns, q_dec_launches = serve_runs(qs, "qwen3moe", qs.num_layers)
+    mark("qwen3moe_path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    qparams = M.init_params(qs, torch.Generator(dev).manual_seed(0), dev)
+    qprompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, qs.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to(dev)
+    q_prefill = moe_prefill(qs, qparams, qprompts, "qwen3moe", "block", qruns)
+    traced_decode(qs, qparams, qprompts, "qwen3moe:profile", MOE_OP_GROUPS)
+    # bf16 against fp32 at all 8 layers, each path against itself (the
+    # same tokens routed together in both dtypes); prefill against decode
+    # is held at the check config below
+    logits_check(qs, qparams, qprompts[:, :Q8_CHECK_S], "qwen3moe:8", None,
+                 (MOE_BF16_LOGITS_MAX, MOE_BF16_LOGITS_RMS))
+    moe_check(qs, qparams, qprompts, "qwen3moe")
+    del qparams, qruns
+    phase("qwen3moe", layers=qs.num_layers, params_b=f"{sum(int(np.prod(d.shape)) for d in T.leaves(M.model_schema(qs))) / 1e9:.3f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    torch.cuda.empty_cache()
+    mark("qwen3moe_serve")
+
     # -- 15. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
@@ -3271,6 +3832,20 @@ def main() -> None:
                       f"{n_in['flash_attention']}"))
     kernels.append(dict(p_rows[1], launches=p_prefill,
                         launches_note="one make_prefill_step at 32 layers"))
+    # the MoE family's rows, timed in phase 3d; their launches are the
+    # serving paths' (16, 18) and mixtral's 2-layer training run's (17)
+    for row, launches, note in zip(moe_rows, (
+            x_dec_launches, x_prefill, q_dec_launches, q_prefill,
+            *x_train_k1, 0), (
+            f"one decode_demo run at {MOE_SERVE_LAYERS} layers",
+            f"one make_prefill_step at {MOE_SERVE_LAYERS} layers",
+            f"one decode_demo run at {MOE_SERVE_LAYERS} layers",
+            f"one make_prefill_step at {MOE_SERVE_LAYERS} layers",
+            f"mixtral-8x7b's {TRAIN_STEPS}-step {MX_DEPTH_LAYERS}-layer "
+            "training run", "the same run",
+            "no path of this script: the window bites only past 4096 "
+            "tokens, and the training path runs 4096")):
+        kernels.append(dict(row, launches=launches, launches_note=note))
     mark("kernels")
     phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))

@@ -1,6 +1,7 @@
 """Config registry of the port: the architectures it runs so far (the
-dense family's granite, phi4-mini, qwen2.5 and internlm2, the SSM and the
-hybrid families), plus their reduced ``-smoke`` variants."""
+dense family's granite, phi4-mini, qwen2.5 and internlm2, the MoE family's
+mixtral and qwen3-moe, the SSM and the hybrid families), plus their
+reduced ``-smoke`` variants."""
 from __future__ import annotations
 
 import importlib
@@ -17,6 +18,8 @@ _ARCH_MODULES = {
     "phi4-mini-3.8b": "phi4_mini_3_8b",
     "qwen2.5-32b": "qwen2_5_32b",
     "internlm2-20b": "internlm2_20b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
 }
 
 

@@ -15,10 +15,17 @@ import torch
 from repro_torch import tree as T
 
 
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":       # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_numpy(tree, device="cpu"):
-    """Nested dict of numpy arrays -> the same dict of torch tensors."""
-    return T.tree_map(
-        lambda a: torch.from_numpy(np.array(a, copy=True)).to(device), tree)
+    """Nested dict of numpy arrays -> the same dict of torch tensors (a
+    bfloat16 array, as JAX's bf16 master weights come, keeps its bits)."""
+    return T.tree_map(lambda a: _tensor(a).to(device), tree)
 
 
 def train_state_from_numpy(state, device="cpu"):

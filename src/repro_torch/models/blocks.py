@@ -1,28 +1,44 @@
-"""Dense decoder and SSM (Mamba2) blocks of the port (port of
-``repro/models/blocks.py``)."""
+"""Decoder blocks (self-attention, then a dense MLP or, for the MoE
+family, a mixture of experts) and SSM (Mamba2) blocks of the port (port of
+``repro/models/blocks.py``).  A decoder block's full-sequence application
+returns its MoE aux loss beside its output (zero for a dense MLP); its
+decode step drops it, as the reference's."""
 from __future__ import annotations
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import mlp, mlp_schema, rmsnorm, rmsnorm_schema
 
 
 def decoder_block_schema(cfg: ArchConfig):
-    return {
+    s = {
         "ln1": rmsnorm_schema(cfg.d_model, cfg),
         "attn": attn.attention_schema(cfg),
         "ln2": rmsnorm_schema(cfg.d_model, cfg),
-        "mlp": mlp_schema(cfg),
     }
+    if cfg.is_moe:
+        s["moe"] = moe_mod.moe_schema(cfg)
+    else:
+        s["mlp"] = mlp_schema(cfg)
+    return s
 
 
 def decoder_block_apply(params, x, cfg: ArchConfig, *, positions, causal=True):
+    """-> (x, aux): the block's output and its MoE aux loss (fp32)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     x = x + attn.attn_apply(params["attn"], h, cfg, positions=positions,
                             causal=causal)
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp(params["mlp"], h, cfg)
+    if cfg.is_moe:
+        y, aux = moe_mod.moe_apply(params["moe"], h, cfg)
+    else:
+        y = mlp(params["mlp"], h, cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, aux
 
 
 def decoder_block_decode(params, x, cfg: ArchConfig, cache, *, cache_index,
@@ -33,7 +49,11 @@ def decoder_block_decode(params, x, cfg: ArchConfig, cache, *, cache_index,
                                       cache_index=cache_index, kv_len=kv_len)
     x = x + a
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + mlp(params["mlp"], h, cfg), cache
+    if cfg.is_moe:
+        y, _ = moe_mod.moe_apply(params["moe"], h, cfg)
+    else:
+        y = mlp(params["mlp"], h, cfg)
+    return x + y, cache
 
 
 # ----------------------------------------------------------------------

@@ -1,13 +1,16 @@
-"""Model assembly of the port: the dense decoder-only, the SSM (Mamba2) and
-the hybrid (zamba2) families (port of those branches of
+"""Model assembly of the port: the dense and MoE decoder-only, the SSM
+(Mamba2) and the hybrid (zamba2) families (port of those branches of
 ``repro/models/model.py``).
 
 Layer stacks are ``(L, ...)`` tensors indexed per layer in a Python loop,
-where the JAX package scans.  The hybrid family runs its SSM layers in
-groups of ``shared_attention_every``, each group followed by ONE shared
-attention block (``params["shared_attn"]``, a single set of leaves
-applied once per group).  MoE, encoder-decoder and vision families come
-in later slices and raise ``NotImplementedError`` here.
+where the JAX package scans.  A MoE decoder block holds a mixture of
+experts (``models/moe.py``) where a dense block holds its MLP; the trunk
+sums the blocks' aux losses over the layers.  The hybrid family runs its
+SSM layers in groups of ``shared_attention_every``, each group followed by
+ONE shared attention block (``params["shared_attn"]``, a single set of
+leaves applied once per group).  Encoder-decoder and vision families, and
+a hybrid or SSM model with experts, come in later slices and raise
+``NotImplementedError`` here.
 """
 from __future__ import annotations
 
@@ -25,14 +28,16 @@ from repro_torch.models.layers import (embed, embed_schema, rmsnorm,
 
 
 def _require_supported(cfg: ArchConfig):
-    """Admit the dense decoder-only, the SSM and the hybrid families; raise
-    for the others (MoE, encoder-decoder, vision)."""
-    dense = cfg.ssm is None and cfg.attention != "none"
-    if not (dense or cfg.is_ssm or cfg.is_hybrid) or cfg.is_moe or \
-            cfg.is_encdec or cfg.frontend is not None:
+    """Admit the dense and MoE decoder-only, the SSM and the hybrid
+    families; raise for the others (encoder-decoder, vision, and experts
+    in an SSM or hybrid model)."""
+    decoder = cfg.ssm is None and cfg.attention != "none"
+    if not (decoder or cfg.is_ssm or cfg.is_hybrid) or \
+            (cfg.is_moe and not decoder) or cfg.is_encdec or \
+            cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name} ({cfg.family}): the PyTorch port runs the dense "
-            "decoder-only, the SSM and the hybrid families so far")
+            "and MoE decoder-only, the SSM and the hybrid families so far")
     if cfg.is_hybrid and cfg.num_layers % cfg.shared_attention_every:
         raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
                          f"groups of {cfg.shared_attention_every}")
@@ -75,13 +80,16 @@ def layer(stacked, i: int):
 # ----------------------------------------------------------------------
 
 def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
-    """Trunk only -> (final normed hidden (B, S, D), aux_loss = 0).
+    """Trunk only -> (final normed hidden (B, S, D), aux_loss): the MoE
+    family's aux loss summed over the layers in order (fp32; zero for the
+    other families).
 
     With ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``
     (non-reentrant), the counterpart of the reference's ``jax.checkpoint``
     over the layer scan: a layer keeps only its input for the backward and
     runs again there, so a training step launches each layer's kernel (K1
-    or K3) forward twice and its backward once.  The stacked parameters
+    or K3) forward twice and its backward once; a checkpointed decoder
+    block returns its aux loss beside its output.  The stacked parameters
     are unbound once, so their
     gradients are stacked once (indexing each layer would build a
     full-size zero gradient per layer).
@@ -102,7 +110,7 @@ def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
 
     def body(h, lp):
         if cfg.is_ssm or cfg.is_hybrid:
-            return blocks.ssm_block_apply(lp, h, cfg)
+            return blocks.ssm_block_apply(lp, h, cfg), None
         return blocks.decoder_block_apply(lp, h, cfg, positions=positions,
                                           causal=True)
 
@@ -115,12 +123,15 @@ def forward_hidden(params, cfg: ArchConfig, batch: Dict[str, Any]):
             return checkpoint(fn, h, p, use_reentrant=False)
         return fn(h, p)
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.num_layers):
-        x = run(body, x, T.tree_map(lambda views: views[i], stacks))
+        x, a = run(body, x, T.tree_map(lambda views: views[i], stacks))
+        if cfg.is_moe:
+            aux = aux + a
         if _shared_after(cfg, i):
-            x = run(shared, x, params["shared_attn"])
+            x, _ = run(shared, x, params["shared_attn"])
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(params, cfg: ArchConfig, batch: Dict[str, Any]):

@@ -49,7 +49,8 @@ def _init_leaf(d: ParamDef, gen: torch.Generator, device) -> torch.Tensor:
                        device=device) * 15.0 + 1.0
         return torch.log(u).to(dt)
     x = torch.randn(d.shape, generator=gen, dtype=torch.float32, device=device)
-    return (x * d.scale).to(dt)
+    # scaled in place: a stacked expert leaf in fp32 is ~26 GB at full width
+    return x.mul_(d.scale).to(dt)
 
 
 def init(schema, gen: torch.Generator, device="cpu"):

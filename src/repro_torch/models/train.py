@@ -108,7 +108,9 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW):
         if eff_mb == 1:
             loss, metrics, grads = _value_and_grad(state.params, cfg, batch)
         else:
-            # gradient accumulation in opt_moment_dtype, as the reference's
+            # gradient accumulation in opt_moment_dtype, as the reference's,
+            # into one buffer per leaf (in place: at mixtral's width a
+            # second copy of the sums would not fit beside the state)
             acc_dt = torch_dtype(cfg.opt_moment_dtype)
             grads = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                      for p in T.leaves(state.params)]
@@ -117,10 +119,13 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW):
                 one = {k: v.reshape(eff_mb, B // eff_mb, *v.shape[1:])[j]
                        for k, v in batch.items()}
                 l, m, g = _value_and_grad(state.params, cfg, one)
-                grads = [a + gg.to(acc_dt) for a, gg in zip(grads, g)]
+                for a, gg in zip(grads, g):
+                    a.add_(gg.to(acc_dt))
+                del g
                 losses.append(l)
                 ms.append(m)
-            grads = [g / eff_mb for g in grads]
+            for a in grads:
+                a.div_(eff_mb)
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}

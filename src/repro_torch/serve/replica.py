@@ -175,8 +175,9 @@ def decode_demo(arch, *, batch: int = 4, prompt_len: int = 16,
     ``schedule`` is a ``{step: target_workers}`` dict (``dmr.connect``'s
     scripted form); the default resizes nobody.  Returns ``{"tokens":
     (batch, decode_steps) array, "events": [ResizeEvent...], "sizes":
-    [(step, workers)...], "prefill_s", "decode_s"}``; the two times end
-    with the device synchronised.
+    [(step, workers)...], "prefill_s", "decode_s", "cache": the final
+    decode cache (on the device)}``; the two times end with the device
+    synchronised.
     """
     from repro_torch import dmr
     from repro_torch.configs import get_config
@@ -218,7 +219,8 @@ def decode_demo(arch, *, batch: int = 4, prompt_len: int = 16,
     decode_s = time.perf_counter() - t0
     tokens = torch.stack(outs[:decode_steps], dim=1).cpu().numpy()
     return {"tokens": tokens, "events": list(runner.events),
-            "sizes": sizes, "prefill_s": prefill_s, "decode_s": decode_s}
+            "sizes": sizes, "prefill_s": prefill_s, "decode_s": decode_s,
+            "cache": state["cache"]}
 
 
 # ======================================================================

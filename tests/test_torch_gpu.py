@@ -1225,3 +1225,213 @@ def test_live_cluster_grid_on_card_equals_cpu(cuda, engine):
         else:
             assert card[0]["throughput_jps"] > base, cfg
     assert devices_seen == {"cuda", "cpu"}
+
+
+# -- the MoE family: K1 at G = 4 (mixtral) and G = 16 (qwen3-moe) -----------
+
+#: (kernel, G, dtype) -> (B, Hkv, Sq, Sk, causal): each path and mma kernel
+#: at head dim 128 with mixtral's G = 4 and qwen3-moe's G = 16 (split
+#: decode's 16 rows, all of them); the group kernel needs 2 B Hkv >= the
+#: SMs, so G = 16 takes it at B = 17, Hkv = 4 (qwen3-moe's own B = 16 takes
+#: the block kernel)
+MOE_K1 = {("split_decode", 4): (16, 8, 1, 512, False),
+          ("split_decode", 16): (16, 4, 1, 512, False),
+          ("group", 4): (16, 8, 256, 256, True),
+          ("group", 16): (17, 4, 256, 256, True),
+          ("block", 4): (2, 2, 300, 300, True),
+          ("block", 16): (16, 4, 256, 256, True),
+          ("fma", 4): (2, 2, 130, 130, True),
+          ("fma", 16): (1, 2, 130, 130, True)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,dtype", [("split_decode", "bfloat16"),
+                                          ("split_decode", "float32"),
+                                          ("group", "bfloat16"),
+                                          ("block", "bfloat16"),
+                                          ("fma", "float32")])
+@pytest.mark.parametrize("G", [4, 16])
+def test_flash_moe_gqa_at_head_dim_128_on_card(cuda, G, kernel, dtype):
+    """K1 at mixtral's and qwen3-moe's GQA ratios, D = 128, against the
+    plain version on every path: decode over a 512-slot cache at kv_lens
+    around tile edges; prefill causal, and with mixtral's window (4096,
+    past the sequence: the output equals the causal call's bit for bit)
+    and a window that bites (100 keys)."""
+    B, Hkv, Sq, Sk, causal = MOE_K1[kernel, G]
+    D, H, dt = 128, G * Hkv, getattr(torch, dtype)
+    g = torch.Generator(cuda).manual_seed(G)
+    q = torch.randn(B, Sq, H, D, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(B, Sk, Hkv, D, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    if kernel == "split_decode":
+        calls = [dict(causal=False, kv_len=torch.tensor(
+            n, dtype=torch.int32, device=cuda))
+            for n in (1, 63, 64, 65, 255, 384, 512)]
+    else:
+        calls = [dict(causal=True), dict(causal=True, window=4096),
+                 dict(causal=True, window=100)]
+    path = {"split_decode": "split_decode", "fma": "fma"}.get(kernel, "mma")
+    assert _expect(B, H, Hkv, Sq, dtype) == path
+    before = dict(fa.flash_attention.path_launches)
+    mma_before = fa.mma_kernel_launches()
+    outs = []
+    for kw in calls:
+        outs.append(ops.flash_attention(*args, **kw))
+        torch.testing.assert_close(
+            outs[-1].float(), attention_reference(*args, **kw).float(),
+            atol=TOL[dtype], rtol=TOL[dtype], msg=str(kw))
+    if kernel != "split_decode":
+        assert torch.equal(outs[0], outs[1])
+    after = fa.flash_attention.path_launches
+    assert {p: after[p] - before[p] for p in after} == \
+        {p: len(calls) * (p == path) for p in after}
+    mma_after = fa.mma_kernel_launches()        # as the C entry counts them
+    assert {k_: mma_after[k_] - mma_before[k_] for k_ in mma_after} == \
+        {k_: len(calls) * (k_ == kernel) for k_ in mma_after}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("window", [0, 100])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", [4, 16])
+def test_flash_bwd_moe_gqa_on_card(cuda, G, dtype, window):
+    """K1's backward at G = 4 and 16, D = 128 (dK and dV summed over 4 and
+    16 query heads), causal and windowed, on its dtype's path, against the
+    plain backward from the same output and lse."""
+    q, k, v, do = _bwd_inputs(cuda, 1, 2 * G, 2, 300, 300, 128, dtype)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True, window=window)
+    paths = dict(fa.flash_attention_bwd.path_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                 window=window)
+    torch.cuda.synchronize()
+    path = "wgmma" if dtype == "bfloat16" else "fma"
+    assert {p: n - paths[p] for p, n in
+            fa.flash_attention_bwd.path_launches.items()} == \
+        {p: int(p == path) for p in fa.BWD_PATHS}
+    exp = attention_backward_reference(q, k, v, out, do, lse, causal=True,
+                                       window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        torch.testing.assert_close(a.float(), b.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype], msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_at_mixtrals_training_shape_on_card(cuda):
+    """mixtral-8x7b's attention as training calls it: 32 query heads over 8
+    KV heads (G = 4) at head dim 128, S = 4096, causal with its window of
+    4096, bf16 (B cut to 1 to bound the plain version's memory).  Forward
+    with its lse on mma, backward on wgmma, each against its plain
+    version; two backward runs equal bit for bit; at S <= window the
+    window changes no bit of the output, the lse or the gradients."""
+    q, k, v, do = _bwd_inputs(cuda, 1, 32, 8, 4096, 4096, 128, "bfloat16")
+    ops.reset_counts()
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True, window=4096)
+    torch.testing.assert_close(out.float(), attention_reference(
+        q, k, v, causal=True).float(), atol=TOL["bfloat16"],
+        rtol=TOL["bfloat16"])
+    torch.testing.assert_close(lse, attention_lse_reference(q, k, causal=True),
+                               atol=BWD_TOL["float32"],
+                               rtol=BWD_TOL["float32"])
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                 window=4096)
+    again = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                   window=4096)
+    out0, lse0 = fa.flash_attention_lse(q, k, v, causal=True)
+    plain = fa.flash_attention_bwd(q, k, v, out0, do, lse0, causal=True)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.path_launches == {"fma": 0, "mma": 2,
+                                                "split_decode": 0}
+    assert fa.flash_attention_bwd.path_launches == {"fma": 0, "wgmma": 3}
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(out, out0) and torch.equal(lse, lse0)
+    assert all(torch.equal(a, b) for a, b in zip(got, plain))
+    exp = attention_backward_reference(q, k, v, out, do, lse, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        torch.testing.assert_close(a.float(), b.float(),
+                                   atol=BWD_TOL["bfloat16"],
+                                   rtol=BWD_TOL["bfloat16"], msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cf", [2.0, 0.5])
+def test_moe_layer_on_card_matches_cpu(cuda, cf):
+    """mixtral-smoke's MoE layer (no kernel of its own: plain PyTorch, as
+    the JAX package's jnp) in fp32 on the card against the CPU: the same
+    kept slots, output, aux loss and gradients of x and every leaf, at the
+    config's capacity and at one that drops."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MoE
+    from repro_torch.models.params import init
+    cfg = get_config("mixtral-8x7b-smoke")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cf))
+    params = init(MoE.moe_schema(cfg), torch.Generator().manual_seed(0))
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(4, 16, cfg.d_model, generator=g)
+    w = torch.randn(4, 16, cfg.d_model, generator=g)
+    res = {}
+    for dev in ("cpu", cuda):
+        p = {k_: t.to(dev).detach().requires_grad_()
+             for k_, t in params.items()}
+        xd = x.to(dev).detach().requires_grad_()
+        with MoE.count_drops() as drops:
+            y, aux = MoE.moe_apply(p, xd, cfg)
+        ((y * w.to(dev)).sum() + aux).backward()
+        res[str(dev)] = (y.detach().cpu(), float(aux), xd.grad.cpu(),
+                         {k_: t.grad.cpu() for k_, t in p.items()},
+                         dict(drops))
+    (yc, ac, gxc, gc, dc), (yg, ag, gxg, gg, dg) = res["cpu"], res["cuda"]
+    assert dc == dg and (dc["dropped"] > 0) == (cf < 1.0)
+    torch.testing.assert_close(yg, yc, atol=1e-5, rtol=1e-5)
+    assert abs(ag - ac) <= 1e-6 * abs(ac)
+    torch.testing.assert_close(gxg, gxc, atol=1e-6, rtol=1e-4)
+    for k_ in gc:
+        assert _rel_err(gg[k_], gc[k_]) <= 1e-5, k_
+
+
+@pytest.mark.gpu
+def test_mixtral_train_step_on_card_matches_cpu(cuda):
+    """One mixtral-8x7b-smoke training step in fp32 on the card (K1 on the
+    fma path with its window of 16 over 64 tokens, its backward on fma,
+    the MoE layer in plain PyTorch) gives the CPU's loss, ce_loss,
+    aux_loss and gradient norm, and every leaf's gradient within 1e-4 of
+    its largest entry."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import train as TT
+    from repro_torch.optim import AdamW
+    cfg = get_config("mixtral-8x7b-smoke")
+    opt = AdamW(learning_rate=1e-3)
+    batch = SyntheticDataset(cfg, ShapeConfig("t", "train", 64, 8)
+                             ).batch_at(0)
+    out, grads = {}, {}
+    for dev in ("cpu", cuda):
+        tbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        ops.reset_counts()
+        _, m = TT.make_train_step(cfg, opt)(state, tbatch)
+        out[str(dev)] = ({k: float(m[k]) for k in ("loss", "ce_loss",
+                                                   "aux_loss", "grad_norm")},
+                         ops.launch_counts(),
+                         dict(fa.flash_attention.path_launches),
+                         dict(fa.flash_attention_bwd.path_launches))
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        g_ = TT._value_and_grad(state.params, cfg, tbatch)[2]
+        grads[str(dev)] = {k: t.cpu() for (k, _), t in
+                           zip(T.flatten(state.params), g_)}
+    (mc, nc, _, _), (mg, ng, pg, pbg) = out["cpu"], out["cuda"]
+    L = cfg.num_layers
+    assert nc["flash_attention"] == nc["flash_attention_bwd"] == 0
+    assert ng["flash_attention"] == ng["flash_attention_bwd"] == L
+    assert pg == {"fma": L, "mma": 0, "split_decode": 0}
+    assert pbg == {"fma": L, "wgmma": 0}
+    for k in ("loss", "ce_loss", "aux_loss"):
+        assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k]), k
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
+    assert any("/moe/" in k for k in grads["cpu"])
+    for k, exp in grads["cpu"].items():
+        assert _rel_err(grads["cuda"][k], exp) <= 1e-4, k

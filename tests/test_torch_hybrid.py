@@ -234,8 +234,8 @@ def _per_group_loss(params, copies, cfg, batch):
     for i in range(cfg.num_layers):
         x = TB.ssm_block_apply(TM.layer(params["layers"], i), x, cfg)
         if (i + 1) % every == 0:
-            x = TB.decoder_block_apply(copies[i // every], x, cfg,
-                                       positions=positions, causal=True)
+            x, _ = TB.decoder_block_apply(copies[i // every], x, cfg,
+                                          positions=positions, causal=True)
     x = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     labels, mask = batch["labels"], batch["mask"]
     return TT.chunked_ce(params["embed"], x, labels, mask, cfg) / \

@@ -154,10 +154,26 @@ def test_prefill_step(setup):
 
 @pytest.mark.parametrize("family", ["moe", "encdec"])
 def test_other_families_raise(family):
+    """The encoder-decoder family raises.  Experts are admitted in a
+    decoder-only model, whose schema's leaves and shapes are then JAX's
+    ``model_schema``'s (a ``moe`` block where the dense ``mlp`` was), and
+    still raise in an SSM model."""
     from dataclasses import replace
+
+    from repro.configs.base import MoEConfig as JMoEConfig
+    from repro_torch import tree as T
     from repro_torch.configs.base import MoEConfig
     if family == "moe":
         cfg = replace(get_config(ARCH), moe=MoEConfig(4, 2, 64))
+        jcfg = replace(jget_config(ARCH), moe=JMoEConfig(4, 2, 64))
+        exp = [("/".join(str(getattr(e, "key", e)) for e in path), d.shape)
+               for path, d in jax.tree_util.tree_flatten_with_path(
+                   JM.model_schema(jcfg), is_leaf=jparams.is_def)[0]]
+        assert [(k, d.shape) for k, d in T.flatten(TM.model_schema(cfg))] \
+            == exp
+        assert "layers/moe/wi_gate" in dict(exp)
+        assert not any("/mlp/" in k for k, _ in exp)
+        cfg = replace(get_config("mamba2-370m-smoke"), moe=MoEConfig(4, 2, 64))
     else:   # seamless's shape: an encoder stack and cross-attention
         cfg = replace(get_config(ARCH), encoder_layers=2)
         assert cfg.is_encdec

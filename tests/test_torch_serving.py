@@ -1,7 +1,10 @@
 """The port's serving slice against the JAX package's: elastic decode of
 ``granite-3-2b-smoke`` (a KV cache), ``mamba2-370m-smoke`` (an SSM state
-and conv tails) and ``zamba2-2.7b-smoke`` (both: the SSM cache and one KV
-cache per group, ``shared_kv``) on the CPU, from the same parameters.
+and conv tails), ``zamba2-2.7b-smoke`` (both: the SSM cache and one KV
+cache per group, ``shared_kv``) and ``mixtral-8x7b-smoke`` (experts routed
+over the batch's tokens each step, a rolling window cache; JAX serving
+runs the MoE layer's global formulation, as the port does) on the CPU,
+from the same parameters.
 
 Greedy tokens must be equal (float32 logits on both sides; argmax picks
 the first maximum in both), unchanged by a 4 -> 8 -> 2 resize, and every
@@ -24,7 +27,8 @@ from repro_torch.parallel.mesh import Placement, logical_workers
 from repro_torch.serve import decode_demo
 from tests.util import run_devices
 
-ARCHS = ["granite-3-2b-smoke", "mamba2-370m-smoke", "zamba2-2.7b-smoke"]
+ARCHS = ["granite-3-2b-smoke", "mamba2-370m-smoke", "zamba2-2.7b-smoke",
+         "mixtral-8x7b-smoke"]
 RUN = dict(batch=8, prompt_len=8, decode_steps=8, cache_len=64)
 SCHEDULE = {10: 8, 13: 2}
 
