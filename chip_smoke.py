@@ -9,7 +9,7 @@ against its plain PyTorch version, then drives the port's three families'
 serving and training paths at full width with random weights from a
 seed -- ``granite-3-2b`` (dense, K1; 10 of its 40 layers, see
 ``GRANITE_LAYERS``; training also at all 40), ``mamba2-370m`` (SSM, K3;
-serving at 24 of its 48 layers, ``MAMBA_SERVE_LAYERS``, training at all
+serving at 12 of its 48 layers, ``MAMBA_SERVE_LAYERS``, training at all
 48), ``zamba2-2.7b`` (hybrid, K3 and K1
 at G = 1, D = 80; all 54 layers, elastic training at 12) -- and checks
 that each really ran through its kernels; then the paper's live
@@ -20,7 +20,12 @@ the elastic serving fleet (``repro_torch.serve.ReplicaSet``) with live
 G = 3, D = 128), and phi4's prefill against its decode; then the MoE
 family at full width: ``mixtral-8x7b`` serving at 8 of its 32 layers and
 elastic training (K1 at G = 4, D = 128, window 4096), and
-``qwen3-moe-235b-a22b`` serving at 8 of its 94 layers (K1 at G = 16).
+``qwen3-moe-235b-a22b`` serving at 8 of its 94 layers (K1 at G = 16);
+then the encoder-decoder ``seamless-m4t-medium`` at full width and all
+12 + 12 layers (K1 non-causal: the encoder's self-attention and the
+decoder's cross-attention, in prefill, decode and training) and the
+vision-prefix ``pixtral-12b`` at full width (serving at 8 of its 40
+layers, training at 1; K1 causal over 256 patches + the text).
 Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -67,6 +72,19 @@ Phases:
    causal call's; the window biting at Sq=Sk=8192 (block kernel); device
    times warm and L2-cold, SDPA beside each (a band mask for the biting
    window), the bounds (phase 15's seven MoE rows);
+3e. zoo:K1: K1 at the encoder-decoder and vision-prefix families' shapes,
+   before their model phases (bf16): seamless's encoder self-attention
+   (B=16, H = Hkv = 16: G = 1, D=64, S=512, non-causal) and its
+   cross-attention prefill (Sq=256 over Sk=512, non-causal), both on
+   mma's group kernel; its cross decode on split_decode over 512 valid
+   slots (no kv_len); its training shape (B=8, S=4096, non-causal) with
+   the lse and the backward, twice bit for bit; pixtral's causal prefix +
+   text (B=16, H=32, Hkv=8, D=128, S=512) on the block kernel.  Each
+   within TOL of its plain version and within ``K1_ULPS`` bf16 units of
+   its largest entry (the training shape batch row by batch row, each
+   gradient on its own), which a planted one-tile drop must fail; device
+   times warm and L2-cold, SDPA beside each, the bounds (phase 15's six
+   rows; ``k1_row``, as phases 3c's and 3d's);
 4. K2 block-cyclic repack against ``repack_reference``: the kernel tests'
    shapes, then a 4 -> 8 -> 2 block-cyclic redistribution of the fp32
    embedding table (49280 x 2048, block 64) through
@@ -109,7 +127,7 @@ Phases:
    timed on the host clock, then a window of as many steps under
    ``torch.profiler`` whose device busy time, idle share and largest
    device kernels all come from that one traced window;
-9. the mamba2 serving path at ``MAMBA_SERVE_LAYERS`` (24 of 48; so is
+9. the mamba2 serving path at ``MAMBA_SERVE_LAYERS`` (12 of 48; so is
    phase 10): ``decode_demo`` at granite's batch, prompt,
    decode length, workers and resize schedule; tokens must agree, and the
    decode path (the SSM recurrence) launches neither K1 nor K3;
@@ -118,7 +136,9 @@ Phases:
     K3 once per layer, every launch on the wgmma path; fp32 full-sequence logits at every position against
     fp32 token-by-token decode logits (tight), bf16 prefill and decode each
     against fp32 (beside the fp32 model with bf16-rounded weights, the
-    yardstick of how far bf16 rounding alone moves these logits); then one
+    yardstick of how far bf16 rounding alone moves these logits), and a
+    state advanced twice in each decode's last step, which both bounds
+    must reject (``state_faults``); then one
     traced ``make_prefill_step`` whose top device kernels and K3 share of
     device time come from that one trace;
 11. the granite training path (the paper's Listing 2): ``lm_train_app``
@@ -153,11 +173,14 @@ Phases:
     once per group per step (9 x 384), all on split_decode, and no K3;
 13f. zamba2 prefill vs decode: ``make_prefill_step`` at B=16, S=1024 must
     launch K3 once per layer (54, wgmma) and K1 once per group (9, mma);
-    then, at ``Z_CHECK_LAYERS`` (the first 24 layers of the same weights),
+    then, at ``Z_CHECK_LAYERS`` (the first 12 layers of the same weights),
     fp32 full-sequence logits at every position against the fp32
     token-by-token decode, bf16 prefill and decode against fp32 (largest
-    and rms gap, beside the fp32 model with bf16-rounded weights); one
-    traced 54-layer prefill: K3's and K1's shares, the top device kernels;
+    and rms gap, beside the fp32 model with bf16-rounded weights), faults
+    planted in each decode's last step (``state_faults``: a state
+    advanced twice; in fp32 also a KV slot one back and two KV heads
+    swapped) that the bounds must reject; one traced 54-layer prefill:
+    K3's and K1's shares, the top device kernels;
 13g. zamba2 training: the smoke step at two groups (4 layers, fp32) on
     the card against the CPU's, for loss, gradient norm and every leaf's
     gradient (``shared_attn`` among them); then ``Z_ELASTIC_LAYERS`` (12,
@@ -252,6 +275,27 @@ Phases:
     as phase 16's, bf16 against fp32 logits at all 8 layers after 64
     prompt tokens (prefill and decode each against its own fp32 path),
     ``logits_check`` on 2 layers at the check config;
+19. seamless-m4t-medium serving at all 12 + 12 layers: ``serve_runs`` (K1
+    24 launches a step on split_decode, half of them cross-attention over
+    the 512-slot cross cache; tokens and final caches, the cross cache
+    included, equal bit for bit; each resize's ``bytes_moved``), the
+    prefill with 512 frames of 1024 (K1 36 on mma's group kernel), then
+    the card against the CPU in fp32 at 2 + 2 layers
+    (``zoo_cpu_check``): a prefill's logits and 8 decode steps' over a
+    seeded cross cache, which the steps must leave unchanged;
+20. seamless training at all 12 + 12 layers (8 x 4096 tokens over 8 x 4096
+    frames): 6 static and 6 elastic steps whose losses agree to 1e-4, K1
+    72 forward and 36 backward launches a step (by mask: the decoder's
+    causal 24 and 12, the encoder's and cross-attention's 48 and 24); one
+    traced step's K1 shares and the chunked CE's (the kernels of its
+    ``CE_SPAN`` spans and of their operators' backward, ``span_fields``);
+21. pixtral-12b serving at ``PX_SERVE_LAYERS`` (8 of 40): ``serve_runs``
+    (text-only decode, K1 8 a step on split_decode), the prefill over 256
+    patch embeddings + 256 text tokens (K1 8 on mma's block kernel), the
+    card against the CPU in fp32 at 2 layers;
+22. pixtral training at ``PX_TRAIN_LAYERS`` (1): 4096 = 256 patches + 3840
+    text tokens, the loss on the text only, 6 static and 6 elastic steps
+    whose losses agree to 1e-4;
 15. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
@@ -279,8 +323,13 @@ Phases:
     The MoE family adds seven (phase 3d): mixtral's and qwen3-moe's decode
     and prefill (their launches phases 16's and 18's), mixtral's training
     forward and backward at B=4 (phase 17's 2-layer run) and the window
-    biting at S=8192 (no path reaches it: 0 launches).  Then
-    the contract line ``{"ok": true, ...}``.
+    biting at S=8192 (no path reaches it: 0 launches).  The
+    encoder-decoder and vision-prefix families add six (phase 3e):
+    seamless's encoder prefill, cross prefill, cross decode, training
+    forward and backward (their launches phases 19's and 20's, counted by
+    mask where K1 launches them: ``flash_attention.mask_launches``), and
+    pixtral's prefill (21's).  Then the contract line ``{"ok": true,
+    ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
 continued.  Needs a CUDA card; without one (or outside a checkout) it
@@ -328,6 +377,17 @@ BF16_LOGITS_ATOL = 0.3
 #: entry (1e-4); bf16 gradients are rounded once to 8 bits, as the
 #: forward's 2e-2.  The lse (fp32 in both) is held to the fp32 bound.
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: K1 at the encoder-decoder's non-causal shapes (phase 3e) and pixtral's
+#: prefix: a row there averages hundreds to thousands of keys, so |o| and
+#: the gradients are ~0.03 (0.2 at their largest), and TOL's 2e-2 + 2e-2
+#: |ref| is the size of a typical entry.  Each output is also held to this
+#: many bf16 units in the last place of its plain version's largest entry
+#: (4e-3 at the training shape): both sides round to bf16 once, and K1
+#: rounds P (and dS) to bf16 before its products; on the CPU
+#: ``kernels/bwd_rounding``'s model of that arithmetic errs by 1 unit at
+#: S = 4096, non-causal, and a kernel that skipped one 64-key tile would
+#: move o by ~12 units and dq by ~17
+K1_ULPS = 4
 BWD_TRAIN = (1, 32, 8, 4096, 64)    # B (cut to bound the plain version), H, Hkv, S, D
 #: the training path: train_4k's sequence at a global batch cut from 256 to
 #: 8 for one card; tests/test_elastic.py's malleability and schedule
@@ -341,11 +401,16 @@ PROFILE_TRAIN_TOP = 5
 
 MAMBA = "mamba2-370m"               # serving runs at granite's batch, prompt,
 M_PREFILL_S = 1024                  # decode length, workers and schedule
-#: mamba2 serving and its prefill-vs-decode check run 24 of its 48 layers:
-#: both are host-bound (~1.1 ms of dispatch a layer and decode step), and
+#: mamba2 serving and its prefill-vs-decode check run 12 of its 48 layers:
+#: both are host-bound (~1.1-1.9 ms of dispatch a layer and decode step);
 #: at 48 layers they took 160 of the script's 300 s before zamba2's paths
-#: joined them; K3's own checks and times, and mamba2 training, keep all 48
-MAMBA_SERVE_LAYERS = 24
+#: joined them, at 24 112-137 s of 823-1032, which the encoder-decoder
+#: and vision phases need; K3's own checks and times, and mamba2
+#: training, keep all 48.  A depth cut of an earlier check: at 12 layers
+#: its bounds (M_FP32_LOGITS_ATOL, M_BF16_*) sit 9x and 3.6x / 8x over
+#: the readings, and reject a planted state advanced twice (4.35, rms
+#: 0.88: ``state_faults``)
+MAMBA_SERVE_LAYERS = 12
 SSD_CASES = [  # (B, H, S, P, N, Q, dtype) -- tests/test_kernels.py
     (2, 4, 256, 32, 16, 64, "float32"), (1, 2, 128, 64, 128, 32, "float32"),
     (1, 2, 128, 32, 16, 128, "float32"), (2, 2, 64, 16, 16, 16, "bfloat16")]
@@ -441,33 +506,38 @@ Z_SSD_TRAIN = (TRAIN_BATCH, 80, 4096, 64, 64, 256)
 #: step's own peak does not fit the card; the static run takes all 54
 Z_ELASTIC_LAYERS = 12
 #: zamba2 serving and the prefill that counts its launches, in layers (all
-#: 54); the prefill-vs-decode logits checks run the first 24 (four groups)
+#: 54); the prefill-vs-decode logits checks run the first 12 (two groups)
 #: of the same weights: their two 1024-step decode loops are host-bound
-#: (75-170 ms a step at 54 layers on H100 hosts) and took 210 of the
-#: script's 590 s there
-Z_SERVE_LAYERS, Z_CHECK_LAYERS = 54, 24
+#: (75-175 ms a step at 54 layers on H100 hosts) and took 210 of the
+#: script's 590 s there, 100-138 s of 823-1032 at 24 layers, where the
+#: whole script, with the encoder-decoder and vision phases, took 963 s
+#: on a 109 ms host.  A depth cut of an earlier check: its bounds are set
+#: from 12-layer readings and shown to reject planted faults
+Z_SERVE_LAYERS, Z_CHECK_LAYERS = 54, 12
 #: zamba2 fp32 full-sequence logits vs the token-by-token decode at every
-#: one of the 1024 positions, by the largest and the rms gap.  The same
-#: function in fp32 through the SSM layers and the attention blocks; the
-#: chunked scan is ~1e-4 from the exact recurrence in y at these decays
-#: (see M_FP32_LOGITS_ATOL), and this random-init model amplifies a
-#: perturbation ~4x more than mamba2's (its fp32 logits move by rms 0.37
-#: with the weights rounded to bf16, mamba2's by 0.085).  At all 54 layers
-#: an H100 (80GB HBM3, 700 W) measured 5.5e-2 at worst over all positions
-#: (8.7e-3 at the last), rms 8.8e-4; fewer layers amplify less.  A wrong cache slot,
-#: position or carry moves the logits by about their std (~1.0), an rms
-#: gap of ~1.4; so the largest gap is held to 0.25 and the rms gap, which
-#: numeric noise keeps far below the largest, to 0.05
-Z_FP32_LOGITS_ATOL, Z_FP32_LOGITS_RMS = 0.25, 0.05
-#: each zamba2 bf16 path against the fp32 logits, by the largest and the
-#: rms gap.  At all 54 layers on that card, rounding only the weights to
-#: bf16 moved the fp32 logits by up to 2.31 (rms 0.37), and computing in
-#: bf16 by up to 3.07 (rms 0.54 and 0.58, prefill and decode) against a
-#: logits std of 1.01: this model's bf16 path is far noisier than
-#: mamba2's.  The largest
-#: gap is held to 6.0 (~6 std: overflow and blow-ups), the rms gap to 0.9,
-#: between the measured 0.58 and the ~1.4 of decorrelated logits
-Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS = 6.0, 0.9
+#: one of the 1024 positions, at Z_CHECK_LAYERS, by the largest and the
+#: rms gap.  The same function in fp32 through the SSM layers and the
+#: attention blocks; the chunked scan is ~1e-4 from the exact recurrence
+#: in y at these decays (see M_FP32_LOGITS_ATOL), and this random-init
+#: model amplifies a perturbation ~4x more than mamba2's.  At 12 layers
+#: an H100 (80GB HBM3, 700 W) measured 8.3e-3 at worst over all
+#: positions, rms 1.4e-4 (5.5e-2 and 8.8e-4 at all 54).  A state advanced
+#: twice in the last step moves the last logits by 7.0 (rms 1.4), but a
+#: wrong shared-attention slot far less in this model: the last token's
+#: K/V one slot back by 4.1e-2 (rms 6.9e-3), KV heads 0 and 1 swapped by
+#: 0.135 (rms 2.6e-2).  So the bounds, 0.03 and 2e-3, sit 3.6x and 14x
+#: over the readings and under every such fault (``state_faults``)
+Z_FP32_LOGITS_ATOL, Z_FP32_LOGITS_RMS = 0.03, 2e-3
+#: each zamba2 bf16 path against the fp32 logits at Z_CHECK_LAYERS, by the
+#: largest and the rms gap.  At 12 layers on that card, rounding only the
+#: weights to bf16 moved the fp32 logits by up to 0.56 (rms 0.073), and
+#: computing in bf16 by up to 1.07 (rms 0.124 and 0.136, prefill and
+#: decode) against a logits std of 1.01 (at all 54: 3.07, rms 0.58):
+#: this model's bf16 path is far noisier than mamba2's.  The largest gap
+#: is held to 3.0, the rms gap to 0.45, ~3x the readings and under the
+#: 7.3 (rms 1.38) of a state advanced twice; a wrong attention slot moves
+#: these logits less than bf16 rounding does, and only the fp32 bound sees it
+Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS = 3.0, 0.45
 
 
 #: phi4-mini (3.836 B parameters, 32 layers, 24 query heads of 128 over 8
@@ -561,6 +631,27 @@ MOE_OP_GROUPS = {"experts": ("aten::bmm",),
                               "aten::repeat_interleave", "aten::one_hot"),
                  "casts": ("aten::_to_copy",)}
 
+#: the encoder-decoder family at full width and depth: seamless-m4t-medium
+#: (12 encoder and 12 decoder layers, d 1024, 16 heads of 64 with no
+#: grouping, G = 1, vocab 256206; 0.979 B parameters, 3.92 GB in fp32);
+#: and the vision-prefix family at full width: pixtral-12b (40 layers, d
+#: 5120, 32 heads over 8 of 128, G = 4, vocab 131072, a prefix of 256
+#: patch embeddings of 1024; 12.25 B parameters, 49.0 GB in fp32)
+SEAMLESS, PIXTRAL = "seamless-m4t-medium", "pixtral-12b"
+#: the encoder's frames on the serving paths: as many as the cache's slots
+#: (the reference's serving cache sizes its cross cache enc_len =
+#: cache_len), so the cross decode reads 512 valid slots
+S_ENC = CACHE
+#: pixtral serving runs 8 of its 40 layers (3.53 B parameters, 14.1 GB in
+#: fp32), as mixtral's; its elastic training 1 (1.62 B, a 19.5 GB state
+#: that a resize clones)
+PX_SERVE_LAYERS, PX_TRAIN_LAYERS = 8, 1
+#: card against CPU in fp32 (phases 19, 21): seamless at 2 + 2 layers,
+#: pixtral at 2, full width; logits of a prefill and of decode steps (over
+#: a seeded random cross cache for seamless) within 1e-4: the same
+#: function in fp32 on both (no TF32), differing in summation order only
+ZOO_CHECK_LAYERS, ZOO_FP32_ATOL, ZOO_CHECK_STEPS = 2, 1e-4, 8
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
@@ -583,10 +674,14 @@ def device_us(e) -> float:
 
 def device_events(prof):
     """Device-side events only, largest first: an operator's own device
-    time repeats the time of the kernels it launched, listed as events."""
+    time repeats the time of the kernels it launched, listed as events,
+    and so does a ``record_function`` span's device-side record (a key
+    the host side has too), left out."""
     from torch.autograd import DeviceType
-    return sorted((e for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+    evs = prof.key_averages()
+    host = {e.key for e in evs if e.device_type == DeviceType.CPU}
+    return sorted((e for e in evs if e.device_type == DeviceType.CUDA and
+                   device_us(e) > 0 and e.key not in host),
                   key=device_us, reverse=True)
 
 
@@ -606,6 +701,56 @@ def op_group_fields(prof, busy_ms: float, groups, per: int = 1) -> dict:
         us = sum(total.get(n_, 0.0) for n_ in names)
         out[f"{name}_ms"] = f"{us / 1e3 / per:.3f}"
         out[f"{name}_share"] = f"{us / 1e3 / busy_ms:.4f}"
+    return out
+
+
+def span_events(evs, name: str) -> list:
+    """The operator records of the trace's events ``evs`` that belong to
+    the ``record_function`` span ``name``: each span and what it ran
+    (a span inside the backward, a recomputation, included), and each
+    record of the autograd engine that ran the backward of an operator
+    the span's forward ran (matched by the forward's thread and sequence
+    number), with all they ran; each record once."""
+    step = "autograd::engine::evaluate_function"
+
+    def walk(e):
+        todo = [e]
+        while todo:
+            e = todo.pop()
+            yield e
+            todo.extend(e.cpu_children)
+
+    def in_backward(e):
+        while e.cpu_parent is not None:
+            e = e.cpu_parent
+            if e.name.startswith(step):
+                return True
+        return False
+
+    roots = [e for e in evs if e.name == name]
+    fwd = {(d.thread, d.sequence_nr) for r in roots if not in_backward(r)
+           for d in walk(r) if d.sequence_nr >= 0}
+    roots += [e for e in evs if e.name.startswith(step) and
+              (e.fwd_thread, e.sequence_nr) in fwd]
+    seen = {}
+    for r in roots:
+        for d in walk(r):
+            seen.setdefault(d.id, d)
+    return list(seen.values())
+
+
+def span_fields(prof, busy_ms: float, spans) -> dict:
+    """For each name of ``spans`` (a name -> a ``record_function`` span's
+    name), the device time of the kernels that the span's records
+    (``span_events``) launched in the trace ``prof``, and its share of
+    ``busy_ms``, the trace's device busy time."""
+    evs = prof.events()
+    out = {}
+    for key, name in spans.items():
+        us = sum(k_.duration for e in span_events(evs, name)
+                 for k_ in e.kernels)
+        out[f"{key}_ms"] = f"{us / 1e3:.3f}"
+        out[f"{key}_share"] = f"{us / 1e3 / busy_ms:.4f}"
     return out
 
 
@@ -1009,7 +1154,7 @@ def main() -> None:
 
     from repro_torch import tree as T
     from repro_torch import dmr
-    from repro_torch.configs import get_config, get_shape
+    from repro_torch.configs import get_config, get_shape, phys_vocab
     from repro_torch.core.lm_app import lm_train_app
     from repro_torch.core.redistribute import blockcyclic_split
     from repro_torch.dmr import get_pattern
@@ -1025,7 +1170,7 @@ def main() -> None:
                                          ssd_chunked_reference, ssd_reference)
     from repro_torch.models import model as M
     from repro_torch.models import moe
-    from repro_torch.models.train import (init_state, loss_fn,
+    from repro_torch.models.train import (CE_SPAN, init_state, loss_fn,
                                           make_prefill_step, make_serve_step,
                                           make_train_step, prefill_logits)
     from repro_torch.optim import AdamW
@@ -1792,6 +1937,7 @@ def main() -> None:
     # backward); work and bytes counted as phase 15's rows count them.
     # Their launches come from the zamba2 paths (phases 13e-13h)
     attn_src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    attn_bwd_src = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
     zb_dec = bound_ms(2 * (2 * BATCH * zH * zD + 2 * BATCH * zHkv * z_n * zD),
                       4 * BATCH * zH * z_n * zD, "bfloat16")
     zS_ = M_PREFILL_S
@@ -1896,6 +2042,45 @@ def main() -> None:
     del zbwd_set, zs_out, zssd_bwd_args, zs_args, zpargs, zdargs, zkc, zvc
     torch.cuda.empty_cache()
 
+    def k1_row(name, args, k1_fn, lib_fn, plain, bound, path, err, shape,
+               l2_cold=True, iters=20, source=attn_src):
+        """One K1 row of phase 15's line at the shape of ``args``: K1
+        (``k1_fn(*args)``) and the library call (``lib_fn(*args)``) timed
+        on the device (``device_ms``, ``iters`` calls; when ``l2_cold``,
+        again over 4 copies of ``args`` in turn, more than the 50 MB of
+        L2) and with CUDA events (``time_ms``; 10 calls when ``iters`` is
+        below 20), the plain version (``plain``: a callable and its
+        calls) with CUDA events, beside ``bound`` (``bound_ms``'s pair),
+        the error ``err`` and ``shape``."""
+        k1_, lib_ = (lambda: k1_fn(*args)), (lambda: lib_fn(*args))
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": "src/repro/kernels/flash_attention.py:73",
+               "path": path, "max_abs_err": err,
+               "device_ms": device_ms(k1_, f"{name} K1", iters=iters),
+               "library_device_ms": device_ms(lib_, f"{name} SDPA",
+                                              iters=iters)}
+        if l2_cold:
+            copies = [tuple(t.clone() for t in args) for _ in range(4)]
+            row["device_ms_cold"] = device_ms(
+                cold(k1_fn, copies), f"{name} K1, L2-cold", iters=24)
+            row["library_device_ms_cold"] = device_ms(
+                cold(lib_fn, copies), f"{name} SDPA, L2-cold", iters=24)
+            del copies
+        few = dict(iters=10, warmup=2) if iters < 20 else {}
+        row.update(ms=time_ms(k1_, **few), library_ms=time_ms(lib_, **few),
+                   plain_ms=time_ms(plain[0], iters=plain[1], warmup=1),
+                   bound_ms=bound[0], bound_by=bound[1], shape=shape)
+        return row
+
+    def row_fields(rows) -> dict:
+        """A phase's fields for its K1 rows (a short name -> row): device
+        ms warm and L2-cold, the library's beside, and the bound."""
+        return {f"{k_}_{f_}".replace(" ", "_"): f"{r_[f_]:.6f}"
+                for k_, r_ in rows.items()
+                for f_ in ("device_ms", "device_ms_cold", "library_device_ms",
+                           "library_device_ms_cold", "bound_ms") if f_ in r_}
+
+    sdpa = F.scaled_dot_product_attention
     # -- 3c. phi4:K1 -- K1 at phi4-mini's shapes (G = 3, D = 128: shapes no
     # earlier phase ran), before any phi4 model phase: decode over its
     # 512-slot cache on split_decode (3 of the 16 rows of an MMA tile) at
@@ -1926,81 +2111,44 @@ def main() -> None:
     p_paths = {k_: case_paths[k_] - paths0[k_] for k_ in case_paths}
     if p_paths != {"fma": 0, "mma": 1, "split_decode": 7}:
         fail(f"phi4 K1 cases took paths {p_paths}")
-    p_lib_dec = lambda: F.scaled_dot_product_attention(
-        pdargs[0], pdargs[1][:, :, :p_n], pdargs[2][:, :, :p_n],
-        enable_gqa=True)
-    p_k1_dec = lambda: ops.flash_attention(*pdargs, causal=False,
-                                           kv_len=p_kv)
-    p_k1_pre = lambda: ops.flash_attention(*ppargs, causal=True)
-    p_lib_pre = lambda: F.scaled_dot_product_attention(
-        *ppargs, is_causal=True, enable_gqa=True)
-    # L2-cold: 4 copies of decode's 33.6 MB and of prefill's 67 MB (output
-    # included) rotate through more than the 50 MB of L2
-    p_cold_dec = [tuple(t.clone() for t in pdargs) for _ in range(4)]
-    p_cold_pre = [tuple(t.clone() for t in ppargs) for _ in range(4)]
-    p_ms = {
-        "K1 decode": device_ms(p_k1_dec, "phi4 K1 decode"),
-        "SDPA decode": device_ms(p_lib_dec, "phi4 SDPA decode"),
-        "K1 decode cold": device_ms(cold(
-            lambda q_, k_, v_: ops.flash_attention(
-                q_, k_, v_, causal=False, kv_len=p_kv), p_cold_dec),
-            "phi4 K1 decode, L2-cold", iters=24),
-        "SDPA decode cold": device_ms(cold(
-            lambda q_, k_, v_: F.scaled_dot_product_attention(
-                q_, k_[:, :, :p_n], v_[:, :, :p_n], enable_gqa=True),
-            p_cold_dec), "phi4 SDPA decode, L2-cold", iters=24),
-        "K1 prefill": device_ms(p_k1_pre, "phi4 K1 prefill"),
-        "SDPA prefill": device_ms(p_lib_pre, "phi4 SDPA prefill"),
-        "K1 prefill cold": device_ms(cold(
-            lambda q_, k_, v_: ops.flash_attention(q_, k_, v_, causal=True),
-            p_cold_pre), "phi4 K1 prefill, L2-cold"),
-        "SDPA prefill cold": device_ms(cold(
-            lambda q_, k_, v_: F.scaled_dot_product_attention(
-                q_, k_, v_, is_causal=True, enable_gqa=True), p_cold_pre),
-            "phi4 SDPA prefill, L2-cold")}
-    del p_cold_dec, p_cold_pre
     # bounds as the granite rows': q, k and v (the kv_len keys) read and
     # the output written once in bf16; the work is QK^T and PV over the
     # keys each row sees
-    pb_dec = bound_ms(2 * (2 * BATCH * pH * pD + 2 * BATCH * pHkv * p_n * pD),
-                      4 * BATCH * pH * p_n * pD, "bfloat16")
-    pb_pre = bound_ms(2 * (2 * BATCH * PROMPT * pH * pD
-                           + 2 * BATCH * PROMPT * pHkv * pD),
-                      4 * BATCH * pH * pD * (PROMPT * (PROMPT + 1) // 2),
-                      "bfloat16")
-    p_rows = []
-    for name, path, err, fn, key, plain, b_, lib, lkey, shape in (
-        ("flash_attention_fwd (phi4 decode, G=3, D=128)", "split_decode",
-         p_err["decode"], p_k1_dec, "K1 decode",
-         (lambda: attention_reference(*pdargs, causal=False, kv_len=p_kv),
-          20), pb_dec, p_lib_dec, "SDPA decode",
-         f"B={BATCH} H={pH} Hkv={pHkv} D={pD} kv_len={p_n} of {CACHE} bf16"),
-        ("flash_attention_fwd (phi4 prefill, causal)", "mma",
-         p_err["prefill"], p_k1_pre, "K1 prefill",
-         (lambda: attention_reference(*ppargs, causal=True), 10), pb_pre,
-         p_lib_pre, "SDPA prefill",
-         f"B={BATCH} H={pH} Hkv={pHkv} D={pD} Sq=Sk={PROMPT} bf16, the "
-         "group kernel")):
-        p_rows.append({
-            "name": name, "route": "cuda", "source": attn_src,
-            "replaces": "src/repro/kernels/flash_attention.py:73",
-            "path": path, "max_abs_err": err,
-            "ms": time_ms(fn), "device_ms": p_ms[key],
-            "device_ms_cold": p_ms[f"{key} cold"],
-            "plain_ms": time_ms(plain[0], iters=plain[1], warmup=1),
-            "bound_ms": b_[0], "bound_by": b_[1],
-            "library_ms": time_ms(lib), "library_device_ms": p_ms[lkey],
-            "library_device_ms_cold": p_ms[f"{lkey} cold"], "shape": shape})
-    p_rows[0]["host_us"] = host_us(p_k1_dec)
+    p_k1_dec = lambda q_, k_, v_: ops.flash_attention(q_, k_, v_,
+                                                      causal=False,
+                                                      kv_len=p_kv)
+    p_rows = {
+        "decode": k1_row(
+            "flash_attention_fwd (phi4 decode, G=3, D=128)", pdargs, p_k1_dec,
+            lambda q_, k_, v_: sdpa(q_, k_[:, :, :p_n], v_[:, :, :p_n],
+                                    enable_gqa=True),
+            (lambda: attention_reference(*pdargs, causal=False,
+                                         kv_len=p_kv), 20),
+            bound_ms(2 * (2 * BATCH * pH * pD + 2 * BATCH * pHkv * p_n * pD),
+                     4 * BATCH * pH * p_n * pD, "bfloat16"),
+            "split_decode", p_err["decode"],
+            f"B={BATCH} H={pH} Hkv={pHkv} D={pD} kv_len={p_n} of {CACHE} "
+            "bf16"),
+        "prefill": k1_row(
+            "flash_attention_fwd (phi4 prefill, causal)", ppargs,
+            lambda q_, k_, v_: ops.flash_attention(q_, k_, v_, causal=True),
+            lambda q_, k_, v_: sdpa(q_, k_, v_, is_causal=True,
+                                    enable_gqa=True),
+            (lambda: attention_reference(*ppargs, causal=True), 10),
+            bound_ms(2 * (2 * BATCH * PROMPT * pH * pD
+                          + 2 * BATCH * PROMPT * pHkv * pD),
+                     4 * BATCH * pH * pD * (PROMPT * (PROMPT + 1) // 2),
+                     "bfloat16"),
+            "mma", p_err["prefill"],
+            f"B={BATCH} H={pH} Hkv={pHkv} D={pD} Sq=Sk={PROMPT} bf16, the "
+            "group kernel")}
+    p_rows["decode"]["host_us"] = host_us(lambda: p_k1_dec(*pdargs))
     phase("phi4:K1", cases=sum(p_paths.values()),
           paths=json.dumps(p_paths, separators=(",", ":")),
           decode_err=f"{p_err['decode_all']:.3e}",
           prefill_err=f"{p_err['prefill']:.3e}",
-          prefill_mma_kernel="group",
-          tol=TOL["bfloat16"],
-          **{k_.replace(" ", "_") + "_device_ms": f"{v_:.6f}"
-             for k_, v_ in p_ms.items()},
-          bound_ms=f"{pb_dec[0]:.4f},{pb_pre[0]:.4f}")
+          prefill_mma_kernel="group", tol=TOL["bfloat16"],
+          **row_fields(p_rows))
     del pkc, pvc, pdargs, ppargs
     torch.cuda.empty_cache()
     mark("phi4_K1")
@@ -2017,9 +2165,12 @@ def main() -> None:
     # the lse and the window) forward and backward, twice bit for bit and
     # equal to the causal call's bit for bit; and the window biting at
     # Sq = Sk = 8192 (block kernel).  Device times warm and L2-cold, SDPA
-    # beside each (an explicit band mask for the biting window), the bounds
+    # beside each (an explicit band mask for the biting window), the
+    # bounds as the other K1 rows': q, k, v (the keys each row reads) and
+    # the output once in bf16; the work QK^T and PV over the keys each row
+    # sees (the backward's five products; the window's band)
     xcfg, qcfg = get_config(MIXTRAL), get_config(QWEN3)
-    moe_err, moe_args, moe_kernel = {}, {}, {}
+    moe_err, moe_rows, moe_kernel = {}, {}, {}
     paths0 = dict(case_paths)
     for tag, c_, kernel in (("mixtral", xcfg, "group"),
                             ("qwen3", qcfg, "block")):
@@ -2035,10 +2186,6 @@ def main() -> None:
                 f"{n_}", causal=False,
                 kv_len=torch.tensor(n_, dtype=torch.int32, device=dev))
             moe_err[f"{tag} decode"] = max(moe_err[f"{tag} decode"], e_)
-        # the path's kv_len: every slot of mixtral's rolling buffer (an
-        # int, as decode_attn_apply passes it), qwen3-moe's last step's
-        moe_args[f"{tag} decode"] = (dargs, CACHE if win else torch.tensor(
-            PROMPT + DECODE, dtype=torch.int32, device=dev))
         pargs_ = tuple(rand((BATCH, PROMPT, h_, D_), bf16).transpose(1, 2)
                        for h_ in (H_, Hkv_, Hkv_))
         out_, moe_err[f"{tag} prefill"] = k1_case(
@@ -2048,8 +2195,39 @@ def main() -> None:
                 *pargs_, causal=True)):
             fail(f"{tag} prefill: the window of {win} changed K1's output "
                  f"at S = {PROMPT}")
-        moe_args[f"{tag} prefill"] = (pargs_, win)
         moe_kernel[tag] = kernel
+        # the path's kv_len: every slot of mixtral's rolling buffer (an
+        # int, as decode_attn_apply passes it), qwen3-moe's last step's
+        n_ = CACHE if win else PROMPT + DECODE
+        kvl = n_ if win else torch.tensor(n_, dtype=torch.int32, device=dev)
+        moe_rows[f"{tag} decode"] = k1_row(
+            f"flash_attention_fwd ({tag} decode, G={H_ // Hkv_}, D={D_})",
+            dargs, lambda q_, k_, v_, kvl=kvl: ops.flash_attention(
+                q_, k_, v_, causal=False, kv_len=kvl),
+            lambda q_, k_, v_, n_=n_: sdpa(q_, k_[:, :, :n_], v_[:, :, :n_],
+                                           enable_gqa=True),
+            (lambda a_=dargs, kvl=kvl: attention_reference(
+                *a_, causal=False, kv_len=kvl), 20),
+            bound_ms(2 * (2 * BATCH * H_ * D_ + 2 * BATCH * Hkv_ * n_ * D_),
+                     4 * BATCH * H_ * n_ * D_, "bfloat16"),
+            "split_decode", moe_err[f"{tag} decode"],
+            f"B={BATCH} H={H_} Hkv={Hkv_} D={D_} kv_len={n_} of {CACHE} "
+            "bf16")
+        moe_rows[f"{tag} prefill"] = k1_row(
+            f"flash_attention_fwd ({tag} prefill, G={H_ // Hkv_}, D={D_})",
+            pargs_, lambda q_, k_, v_, win=win: ops.flash_attention(
+                q_, k_, v_, causal=True, window=win),
+            lambda q_, k_, v_: sdpa(q_, k_, v_, is_causal=True,
+                                    enable_gqa=True),
+            (lambda a_=pargs_, win=win: attention_reference(
+                *a_, causal=True, window=win), 10),
+            bound_ms(2 * 2 * BATCH * PROMPT * (H_ + Hkv_) * D_,
+                     4 * BATCH * H_ * D_ * (PROMPT * (PROMPT + 1) // 2),
+                     "bfloat16"),
+            "mma", moe_err[f"{tag} prefill"],
+            f"B={BATCH} H={H_} Hkv={Hkv_} D={D_} Sq=Sk={PROMPT} causal"
+            f"{f' window={win}' if win else ''} bf16, the {kernel} kernel")
+        del kc_, vc_, dargs, pargs_
     m_paths = {k_: case_paths[k_] - paths0[k_] for k_ in case_paths}
     if m_paths != {"fma": 0, "mma": 2, "split_decode": 14}:
         fail(f"MoE K1 cases took paths {m_paths}")
@@ -2099,148 +2277,45 @@ def main() -> None:
         xq_, xk_, xv_, causal=True, window=xW))
     xbwd_set = xbwd_set[:4] + (xdo_, xbwd_set[4])   # q, k, v, o, dO, lse
     del xq_, xk_, xv_, xdo_
-    xk1_tfwd = lambda: fa.flash_attention_lse(*xbwd_set[:3], causal=True,
-                                              window=xW)
-    xk1_bwd = lambda: ops.flash_attention_bwd(*xbwd_set, causal=True,
-                                              window=xW)
-    xsdpa_tfwd = lambda: F.scaled_dot_product_attention(
-        *xbwd_set[:3], is_causal=True, enable_gqa=True)
     xsq, xsk, xsv = (t.detach().requires_grad_() for t in xbwd_set[:3])
-    xs_out = F.scaled_dot_product_attention(xsq, xsk, xsv, is_causal=True,
-                                            enable_gqa=True)
-    xsdpa_bwd = lambda: torch.autograd.grad(xs_out, (xsq, xsk, xsv),
-                                            xbwd_set[4], retain_graph=True)
-    moe_calls = {}
-    for tag in ("mixtral", "qwen3"):
-        dargs, kvl = moe_args[f"{tag} decode"]
-        pargs_, win = moe_args[f"{tag} prefill"]
-        n_ = kvl if isinstance(kvl, int) else PROMPT + DECODE
-        moe_calls[f"{tag} decode"] = (
-            lambda q_, k_, v_, kvl=kvl: ops.flash_attention(
-                q_, k_, v_, causal=False, kv_len=kvl),
-            lambda q_, k_, v_, n_=n_: F.scaled_dot_product_attention(
-                q_, k_[:, :, :n_], v_[:, :, :n_], enable_gqa=True), dargs)
-        moe_calls[f"{tag} prefill"] = (
-            lambda q_, k_, v_, win=win: ops.flash_attention(
-                q_, k_, v_, causal=True, window=win),
-            lambda q_, k_, v_: F.scaled_dot_product_attention(
-                q_, k_, v_, is_causal=True, enable_gqa=True), pargs_)
-    moe_ms = {}
-    for key, (k1_fn, lib_fn, a_) in moe_calls.items():
-        # L2-cold: 4 copies of the inputs (34-67 MB a set) rotate through
-        # more than the 50 MB of L2
-        copies = [tuple(t.clone() for t in a_) for _ in range(4)]
-        moe_ms[f"K1 {key}"] = device_ms(lambda: k1_fn(*a_), f"{key} K1")
-        moe_ms[f"SDPA {key}"] = device_ms(lambda: lib_fn(*a_),
-                                          f"{key} SDPA")
-        moe_ms[f"K1 {key} cold"] = device_ms(
-            cold(k1_fn, copies), f"{key} K1, L2-cold", iters=24)
-        moe_ms[f"SDPA {key} cold"] = device_ms(
-            cold(lib_fn, copies), f"{key} SDPA, L2-cold", iters=24)
-        del copies
-    moe_ms.update({
-        "K1 mixtral train fwd": device_ms(xk1_tfwd, "mixtral K1 forward, "
-                                          "train shape", iters=8),
-        "SDPA mixtral train fwd": device_ms(xsdpa_tfwd, "mixtral SDPA "
-                                            "forward, train shape", iters=8),
-        "K1 mixtral train bwd": device_ms(xk1_bwd, "mixtral K1 backward",
-                                          iters=4),
-        "SDPA mixtral train bwd": device_ms(xsdpa_bwd, "mixtral SDPA "
-                                            "backward", iters=4),
-        "K1 mixtral window": device_ms(
-            lambda: ops.flash_attention(*wargs, causal=True, window=xW),
-            "mixtral K1, window biting", iters=8),
-        "SDPA mixtral window": device_ms(
-            lambda: F.scaled_dot_product_attention(*wlib, attn_mask=band),
-            "mixtral SDPA, band mask", iters=8)})
-    # bounds as the other K1 rows': q, k, v (the keys each row reads) and
-    # the output once in bf16; the work QK^T and PV over the keys each row
-    # sees (the backward's five products; the window's band)
-    moe_rows = []
-    for tag, c_ in (("mixtral", xcfg), ("qwen3", qcfg)):
-        H_, Hkv_, D_ = c_.num_heads, c_.num_kv_heads, c_.head_dim
-        dargs, kvl = moe_args[f"{tag} decode"]
-        pargs_, win = moe_args[f"{tag} prefill"]
-        n_ = kvl if isinstance(kvl, int) else PROMPT + DECODE
-        b_dec_ = bound_ms(2 * (2 * BATCH * H_ * D_ + 2 * BATCH * Hkv_ * n_
-                               * D_), 4 * BATCH * H_ * n_ * D_, "bfloat16")
-        b_pre_ = bound_ms(2 * 2 * BATCH * PROMPT * (H_ + Hkv_) * D_,
-                          4 * BATCH * H_ * D_ * (PROMPT * (PROMPT + 1) // 2),
-                          "bfloat16")
-        k1_dec_, lib_dec_, _ = moe_calls[f"{tag} decode"]
-        k1_pre_, lib_pre_, _ = moe_calls[f"{tag} prefill"]
-        for what, path, err, fn, lib, plain, b_, shape in (
-            ("decode", "split_decode", moe_err[f"{tag} decode"],
-             lambda: k1_dec_(*dargs), lambda: lib_dec_(*dargs),
-             (lambda: attention_reference(*dargs, causal=False,
-                                          kv_len=kvl), 20), b_dec_,
-             f"B={BATCH} H={H_} Hkv={Hkv_} D={D_} kv_len={n_} of {CACHE} "
-             "bf16"),
-            ("prefill", "mma", moe_err[f"{tag} prefill"],
-             lambda: k1_pre_(*pargs_), lambda: lib_pre_(*pargs_),
-             (lambda: attention_reference(*pargs_, causal=True,
-                                          window=win), 10), b_pre_,
-             f"B={BATCH} H={H_} Hkv={Hkv_} D={D_} Sq=Sk={PROMPT} causal"
-             f"{f' window={win}' if win else ''} bf16, the "
-             f"{moe_kernel[tag]} kernel")):
-            key = f"{tag} {what}"
-            moe_rows.append({
-                "name": f"flash_attention_fwd ({tag} {what}, "
-                        f"G={H_ // Hkv_}, D={D_})",
-                "route": "cuda", "source": attn_src,
-                "replaces": "src/repro/kernels/flash_attention.py:73",
-                "path": path, "max_abs_err": err,
-                "ms": time_ms(fn), "device_ms": moe_ms[f"K1 {key}"],
-                "device_ms_cold": moe_ms[f"K1 {key} cold"],
-                "plain_ms": time_ms(plain[0], iters=plain[1], warmup=1),
-                "bound_ms": b_[0], "bound_by": b_[1],
-                "library_ms": time_ms(lib),
-                "library_device_ms": moe_ms[f"SDPA {key}"],
-                "library_device_ms_cold": moe_ms[f"SDPA {key} cold"],
-                "shape": shape})
+    xs_out = sdpa(xsq, xsk, xsv, is_causal=True, enable_gqa=True)
     xpairs = tS * (tS + 1) // 2
     wpairs = sum(min(i_ + 1, xW) for i_ in range(wS))
-    for name, path, err, fn, key, plain, b_, lib, shape in (
-        ("flash_attention_fwd (mixtral train, causal, window, with lse)",
-         "mma", moe_err["train fwd"], xk1_tfwd, "mixtral train fwd",
-         (per_row(lambda *a_, causal: attention_reference(
-             *a_, causal=causal, window=xW), xbwd_set[:3]), 2),
-         bound_ms(2 * 2 * xmb * tS * (xH + xHkv) * xD + 4 * xmb * xH * tS,
-                  2 * 2 * xmb * xH * xD * xpairs, "bfloat16"), xsdpa_tfwd,
-         f"B={xmb} H={xH} Hkv={xHkv} D={xD} S={tS} causal window={xW} "
-         "bf16"),
-        ("flash_attention_bwd (mixtral train, causal, window)", "wgmma",
-         moe_err["train bwd"], xk1_bwd, "mixtral train bwd",
-         (per_row(lambda *a_, causal: attention_backward_reference(
-             *a_, causal=causal, window=xW), xbwd_set), 2),
-         bound_ms(2 * (4 * xmb * tS * xH * xD + 4 * xmb * tS * xHkv * xD)
-                  + 4 * xmb * xH * tS, 5 * 2 * xmb * xH * xD * xpairs,
-                  "bfloat16"), xsdpa_bwd,
-         f"B={xmb} H={xH} Hkv={xHkv} D={xD} S={tS} causal window={xW} "
-         "bf16"),
-        ("flash_attention_fwd (mixtral, the window biting)", "mma",
-         moe_err["window"],
-         lambda: ops.flash_attention(*wargs, causal=True, window=xW),
-         "mixtral window",
-         (lambda: attention_reference(*wargs, causal=True, window=xW), 2),
-         bound_ms(2 * 2 * wS * (xH + xHkv) * xD, 4 * xH * xD * wpairs,
-                  "bfloat16"),
-         lambda: F.scaled_dot_product_attention(*wlib, attn_mask=band),
-         f"B=1 H={xH} Hkv={xHkv} D={xD} Sq=Sk={wS} causal window={xW} "
-         "bf16, the block kernel")):
-        moe_rows.append({
-            "name": name, "route": "cuda",
-            "source": attn_src if "fwd" in name else
-            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:73",
-            "path": path, "max_abs_err": err,
-            "ms": time_ms(fn, iters=10, warmup=2),
-            "device_ms": moe_ms[f"K1 {key}"],
-            "plain_ms": time_ms(plain[0], iters=plain[1], warmup=1),
-            "bound_ms": b_[0], "bound_by": b_[1],
-            "library_ms": time_ms(lib, iters=10, warmup=2),
-            "library_device_ms": moe_ms[f"SDPA {key}"], "shape": shape})
-    moe_rows[-1]["library_note"] = (
+    xshape = f"B={xmb} H={xH} Hkv={xHkv} D={xD} S={tS} causal window={xW} bf16"
+    moe_rows["mixtral train fwd"] = k1_row(
+        "flash_attention_fwd (mixtral train, causal, window, with lse)",
+        xbwd_set[:3], lambda q_, k_, v_: fa.flash_attention_lse(
+            q_, k_, v_, causal=True, window=xW),
+        lambda q_, k_, v_: sdpa(q_, k_, v_, is_causal=True, enable_gqa=True),
+        (per_row(lambda *a_, causal: attention_reference(
+            *a_, causal=causal, window=xW), xbwd_set[:3]), 2),
+        bound_ms(2 * 2 * xmb * tS * (xH + xHkv) * xD + 4 * xmb * xH * tS,
+                 2 * 2 * xmb * xH * xD * xpairs, "bfloat16"),
+        "mma", moe_err["train fwd"], xshape, l2_cold=False, iters=8)
+    moe_rows["mixtral train bwd"] = k1_row(
+        "flash_attention_bwd (mixtral train, causal, window)", xbwd_set,
+        lambda *a_: ops.flash_attention_bwd(*a_, causal=True, window=xW),
+        lambda *a_: torch.autograd.grad(xs_out, (xsq, xsk, xsv), a_[4],
+                                        retain_graph=True),
+        (per_row(lambda *a_, causal: attention_backward_reference(
+            *a_, causal=causal, window=xW), xbwd_set), 2),
+        bound_ms(2 * (4 * xmb * tS * xH * xD + 4 * xmb * tS * xHkv * xD)
+                 + 4 * xmb * xH * tS, 5 * 2 * xmb * xH * xD * xpairs,
+                 "bfloat16"),
+        "wgmma", moe_err["train bwd"], xshape, l2_cold=False, iters=4,
+        source=attn_bwd_src)
+    moe_rows["mixtral window"] = k1_row(
+        "flash_attention_fwd (mixtral, the window biting)", wargs,
+        lambda q_, k_, v_: ops.flash_attention(q_, k_, v_, causal=True,
+                                               window=xW),
+        lambda *a_: sdpa(*wlib, attn_mask=band),
+        (lambda: attention_reference(*wargs, causal=True, window=xW), 2),
+        bound_ms(2 * 2 * wS * (xH + xHkv) * xD, 4 * xH * xD * wpairs,
+                 "bfloat16"),
+        "mma", moe_err["window"],
+        f"B=1 H={xH} Hkv={xHkv} D={xD} Sq=Sk={wS} causal window={xW} "
+        "bf16, the block kernel", l2_cold=False, iters=8)
+    moe_rows["mixtral window"]["library_note"] = (
         "SDPA with the boolean band mask, k and v expanded to the query "
         "heads (its kernels that take a mask do not take enable_gqa)")
     phase("moe:K1", cases=sum(m_paths.values()) + 2,
@@ -2250,14 +2325,246 @@ def main() -> None:
           prefill_mma_kernels=f"{moe_kernel['mixtral']},"
                               f"{moe_kernel['qwen3']}",
           window_unchanged_at_s_le_window=True, bwd_bitwise_repeatable=True,
-          tol=TOL["bfloat16"],
-          **{k_.replace(" ", "_") + "_device_ms": f"{v_:.6f}"
-             for k_, v_ in moe_ms.items()},
-          bound_ms=",".join(f"{r_['bound_ms']:.4f}" for r_ in moe_rows))
-    del moe_args, moe_calls, xbwd_set, xs_out, xsq, xsk, xsv, wargs, wlib, \
-        band
+          tol=TOL["bfloat16"], **row_fields(moe_rows))
+    del xbwd_set, xs_out, xsq, xsk, xsv, wargs, wlib, band
     torch.cuda.empty_cache()
     mark("moe_K1")
+
+    def ulp_check(out, exp, what) -> tuple:
+        """``out`` against its plain version ``exp``: the largest error
+        held to K1_ULPS bf16 units in the last place of exp's largest
+        magnitude.  Returns the error and the bound."""
+        top = exp.float().abs().max().item()
+        bound = K1_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+        err = (out.float() - exp.float()).abs().max().item()
+        if err > bound:
+            fail(f"{what}: max abs error {err:.3e} over {K1_ULPS} bf16 ulps "
+                 f"of its largest entry {top:.3e} ({bound:.3e})")
+        return err, bound
+
+    def drop_tile(k, v):
+        """k and v without their middle 64-key tile, and its first key:
+        what a kernel that skipped that tile would read."""
+        t0 = k.shape[2] // fa.TILE_K // 2 * fa.TILE_K
+        keep = torch.cat([torch.arange(t0, device=k.device), torch.arange(
+            t0 + fa.TILE_K, k.shape[2], device=k.device)])
+        return k[:, :, keep], v[:, :, keep], t0
+
+    def caught(planted, exp, bound, what) -> float:
+        """A planted fault's gap from ``exp``, which ``bound`` must
+        reject."""
+        gap = (planted.float() - exp.float()).abs().max().item()
+        if gap <= bound:
+            fail(f"{what}: a planted one-tile drop moves it by {gap:.3e}, "
+                 f"within the bound {bound:.3e}")
+        return gap
+
+    # -- 3e. zoo:K1 -- K1 at the encoder-decoder (seamless-m4t: H = Hkv =
+    # 16, G = 1, D = 64) and the vision-prefix (pixtral: 32 heads over 8 of
+    # 128, G = 4) families' shapes, before any of their model phases: the
+    # encoder's self-attention over S_ENC = 512 frames and the decoder's
+    # cross-attention (Sq = 256 over Sk = 512, no mask) on mma's group
+    # kernel; a decode step's cross-attention over 512 valid slots (no
+    # kv_len) on split_decode; pixtral's causal 256 patches + 256 text
+    # tokens on the block kernel; the training shape (B = 8, S = 4096,
+    # non-causal: the encoder's and the cross-attention) forward with its
+    # lse and backward, twice bit for bit.  Each against its plain version
+    # within TOL and within K1_ULPS of its largest entry (row by row at the
+    # training shape, each gradient on its own), a dropped key tile
+    # planted beside the non-causal ones; device times warm and L2-cold,
+    # SDPA beside each, the bounds
+    smcfg, pxcfg = get_config(SEAMLESS), get_config(PIXTRAL)
+    eH, eHkv, eD = smcfg.num_heads, smcfg.num_kv_heads, smcfg.head_dim
+    vH, vHkv, vD = pxcfg.num_heads, pxcfg.num_kv_heads, pxcfg.head_dim
+    vS = pxcfg.frontend.tokens_per_sample + PROMPT
+    zoo_err, zoo_ulps, zoo_drop = {}, {}, {}
+    paths0 = dict(case_paths)
+    enc_ = tuple(rand((BATCH, S_ENC, h_, eD), bf16).transpose(1, 2)
+                 for h_ in (eH, eHkv, eHkv))
+    cross_ = (rand((BATCH, PROMPT, eH, eD), bf16).transpose(1, 2),
+              enc_[1], enc_[2])
+    xdec_ = (rand((BATCH, 1, eH, eD), bf16).transpose(1, 2), enc_[1],
+             enc_[2])
+    pre_ = tuple(rand((BATCH, vS, h_, vD), bf16).transpose(1, 2)
+                 for h_ in (vH, vHkv, vHkv))
+    zoo_args = {"encoder prefill": (enc_, "group", False),
+                "cross prefill": (cross_, "group", False),
+                "cross decode": (xdec_, None, False),
+                "pixtral prefill": (pre_, "block", True)}
+    for zkey, (a_, kern_, causal_) in zoo_args.items():
+        out_, zoo_err[zkey] = k1_case(
+            *a_, f"zoo {zkey} {tuple(a_[0].shape)} over "
+            f"{tuple(a_[1].shape)}", mma_kernel=kern_, causal=causal_)
+        exp_ = attention_reference(*a_, causal=causal_)
+        zoo_ulps[zkey] = ulp_check(out_, exp_, f"zoo {zkey}")
+        if not causal_:
+            kd_, vd_, _ = drop_tile(*a_[1:])
+            zoo_drop[zkey] = caught(attention_reference(
+                a_[0], kd_, vd_, causal=False), exp_, zoo_ulps[zkey][1],
+                f"zoo {zkey}")
+        del out_, exp_
+    zoo_paths = {k_: case_paths[k_] - paths0[k_] for k_ in case_paths}
+    if zoo_paths != {"fma": 0, "mma": 3, "split_decode": 1}:
+        fail(f"zoo K1 cases took paths {zoo_paths}")
+    # the training shape as the rows time it: K1's forward with its lse
+    # (mma) and backward (wgmma) at B = 8, each batch row against the plain
+    # versions (fp32 scores of one row: 1.1 GB); a tile dropped at row 0
+    eq_, edo_ = (rand((TRAIN_BATCH, tS, eH, eD), bf16).transpose(1, 2)
+                 for _ in range(2))
+    ek_, ev_ = (rand((TRAIN_BATCH, tS, eHkv, eD), bf16).transpose(1, 2)
+                for _ in range(2))
+    fwd0 = dict(fa.flash_attention.path_launches)
+    bwd0 = dict(fa.flash_attention_bwd.path_launches)
+    sbwd_set = (eq_, ek_, ev_, *fa.flash_attention_lse(eq_, ek_, ev_,
+                                                        causal=False))
+    sbwd_set = sbwd_set[:4] + (edo_, sbwd_set[4])   # q, k, v, o, dO, lse
+    del eq_, ek_, ev_, edo_
+    sg = [ops.flash_attention_bwd(*sbwd_set, causal=False) for _ in range(2)]
+    torch.cuda.synchronize()
+    moved = ({p: n - fwd0[p] for p, n in fa.flash_attention.path_launches
+              .items()}, {p: n - bwd0[p] for p, n in
+                          fa.flash_attention_bwd.path_launches.items()})
+    if moved != ({"fma": 0, "mma": 1, "split_decode": 0},
+                 {"fma": 0, "wgmma": 2}):
+        fail(f"K1 at seamless's training shape took the paths {moved}")
+    if not all(torch.equal(a, b) for a, b in zip(*sg)):
+        fail("K1 backward at seamless's training shape: two runs differ")
+    t_names = ("o", "dq", "dk", "dv")
+    t_err = {n_: (0.0, np.inf) for n_ in t_names}   # error, least bound
+    lse_train = 0.0
+    for b_ in range(TRAIN_BATCH):
+        a_ = [t[b_:b_ + 1] for t in sbwd_set]
+        lse_train = max(lse_train, check_close(
+            a_[5], attention_lse_reference(*a_[:2], causal=False),
+            "float32", f"K1 lse at seamless's train shape, row {b_}",
+            BWD_TOL["float32"]))
+        got_ = dict(zip(t_names, (a_[3], *(g_[b_:b_ + 1] for g_ in sg[0]))))
+        exp_ = dict(zip(t_names, (
+            attention_reference(*a_[:3], causal=False),
+            *attention_backward_reference(*a_, causal=False))))
+        bounds_ = {}
+        for n_ in t_names:
+            e_, bounds_[n_] = ulp_check(
+                got_[n_], exp_[n_], f"K1 at seamless's train shape, {n_} "
+                f"of row {b_}")
+            t_err[n_] = (max(t_err[n_][0], e_), min(t_err[n_][1], bounds_[n_]))
+        if b_ == 0:
+            kd_, vd_, t0 = drop_tile(*a_[1:3])
+            od_ = attention_reference(a_[0], kd_, vd_, causal=False)
+            planted = {"o": od_, "dq": attention_backward_reference(
+                a_[0], kd_, vd_, od_, a_[4], attention_lse_reference(
+                    a_[0], kd_, causal=False), causal=False)[0]}
+            for n_ in ("dk", "dv"):     # that tile's rows left unwritten
+                planted[n_] = exp_[n_].clone()
+                planted[n_][:, :, t0:t0 + fa.TILE_K] = 0
+            for n_ in t_names:
+                zoo_drop[f"train {n_}"] = caught(
+                    planted[n_], exp_[n_], bounds_[n_],
+                    f"K1 at seamless's train shape, {n_}")
+            del kd_, vd_, od_, planted
+        del got_, exp_
+    zoo_err["train fwd"] = t_err["o"][0]
+    zoo_err["train bwd"] = max(t_err[n_][0] for n_ in t_names[1:])
+    del sg
+    ssq, ssk, ssv = (t.detach().requires_grad_() for t in sbwd_set[:3])
+    ss_out = sdpa(ssq, ssk, ssv)
+    nc_k1 = lambda q_, k_, v_: ops.flash_attention(q_, k_, v_, causal=False)
+    # bounds as the other K1 rows': q, k, v and the output once in bf16
+    # (the lse and the backward's tensors as there); the work QK^T and PV
+    # over every pair a row sees (the backward's five products)
+    zoo_rows = {
+        "encoder prefill": k1_row(
+            f"flash_attention_fwd (seamless encoder prefill, G=1, D={eD})",
+            enc_, nc_k1, sdpa,
+            (lambda: attention_reference(*enc_, causal=False), 10),
+            bound_ms(2 * 2 * BATCH * S_ENC * (eH + eHkv) * eD,
+                     4 * BATCH * eH * eD * S_ENC * S_ENC, "bfloat16"),
+            "mma", zoo_err["encoder prefill"],
+            f"B={BATCH} H={eH} Hkv={eHkv} D={eD} Sq=Sk={S_ENC} non-causal "
+            "bf16, the group kernel"),
+        "cross prefill": k1_row(
+            f"flash_attention_fwd (seamless cross prefill, G=1, D={eD})",
+            cross_, nc_k1, sdpa,
+            (lambda: attention_reference(*cross_, causal=False), 10),
+            bound_ms(2 * (2 * BATCH * PROMPT * eH * eD
+                          + 2 * BATCH * S_ENC * eHkv * eD),
+                     4 * BATCH * eH * eD * PROMPT * S_ENC, "bfloat16"),
+            "mma", zoo_err["cross prefill"],
+            f"B={BATCH} H={eH} Hkv={eHkv} D={eD} Sq={PROMPT} Sk={S_ENC} "
+            "non-causal bf16, the group kernel"),
+        "cross decode": k1_row(
+            f"flash_attention_fwd (seamless cross decode, G=1, D={eD})",
+            xdec_, nc_k1, sdpa,
+            (lambda: attention_reference(*xdec_, causal=False), 20),
+            bound_ms(2 * (2 * BATCH * eH * eD + 2 * BATCH * eHkv * S_ENC * eD),
+                     4 * BATCH * eH * S_ENC * eD, "bfloat16"),
+            "split_decode", zoo_err["cross decode"],
+            f"B={BATCH} H={eH} Hkv={eHkv} D={eD} Sq=1 over {S_ENC} valid "
+            "slots (no kv_len) bf16"),
+        "pixtral prefill": k1_row(
+            f"flash_attention_fwd (pixtral prefill, G={vH // vHkv}, D={vD})",
+            pre_, lambda q_, k_, v_: ops.flash_attention(q_, k_, v_,
+                                                         causal=True),
+            lambda q_, k_, v_: sdpa(q_, k_, v_, is_causal=True,
+                                    enable_gqa=True),
+            (lambda: attention_reference(*pre_, causal=True), 5),
+            bound_ms(2 * 2 * BATCH * vS * (vH + vHkv) * vD,
+                     4 * BATCH * vH * vD * (vS * (vS + 1) // 2), "bfloat16"),
+            "mma", zoo_err["pixtral prefill"],
+            f"B={BATCH} H={vH} Hkv={vHkv} D={vD} Sq=Sk={vS} causal (256 "
+            "patches + 256 text) bf16, the block kernel")}
+    sshape = f"B={TRAIN_BATCH} H={eH} Hkv={eHkv} D={eD} S={tS} non-causal bf16"
+    zoo_rows["train fwd"] = k1_row(
+        "flash_attention_fwd (seamless train, non-causal, with lse)",
+        sbwd_set[:3], lambda q_, k_, v_: fa.flash_attention_lse(
+            q_, k_, v_, causal=False), sdpa,
+        (per_row(lambda *a_, causal: attention_reference(*a_, causal=False),
+                 sbwd_set[:3]), 2),
+        bound_ms(2 * 2 * TRAIN_BATCH * tS * (eH + eHkv) * eD
+                 + 4 * TRAIN_BATCH * eH * tS,
+                 2 * 2 * TRAIN_BATCH * eH * eD * tS * tS, "bfloat16"),
+        "mma", zoo_err["train fwd"], sshape + ", the block kernel",
+        l2_cold=False, iters=8)
+    zoo_rows["train bwd"] = k1_row(
+        "flash_attention_bwd (seamless train, non-causal)", sbwd_set,
+        lambda *a_: ops.flash_attention_bwd(*a_, causal=False),
+        lambda *a_: torch.autograd.grad(ss_out, (ssq, ssk, ssv), a_[4],
+                                        retain_graph=True),
+        (per_row(lambda *a_, causal: attention_backward_reference(
+            *a_, causal=False), sbwd_set), 2),
+        bound_ms(2 * (4 * TRAIN_BATCH * tS * eH * eD
+                      + 4 * TRAIN_BATCH * tS * eHkv * eD)
+                 + 4 * TRAIN_BATCH * eH * tS,
+                 5 * 2 * TRAIN_BATCH * eH * eD * tS * tS, "bfloat16"),
+        "wgmma", zoo_err["train bwd"], sshape, l2_cold=False, iters=4,
+        source=attn_bwd_src)
+    # each row's error beside its K1_ULPS bound (the least over the
+    # training shape's batch rows; the backward's, each gradient's)
+    for zkey, (e_, b_) in zoo_ulps.items():
+        zoo_rows[zkey]["max_abs_err_bound"] = b_
+    zoo_rows["train fwd"]["max_abs_err_bound"] = t_err["o"][1]
+    zoo_rows["train bwd"]["max_abs_err_by_gradient"] = {
+        n_: {"max_abs_err": e_, "bound": b_}
+        for n_, (e_, b_) in t_err.items() if n_ != "o"}
+    phase("zoo:K1", cases=sum(zoo_paths.values()) + 1,
+          paths=json.dumps(zoo_paths, separators=(",", ":")),
+          **{k_.replace(" ", "_") + "_err": f"{v_:.3e}"
+             for k_, v_ in zoo_err.items()},
+          tol=TOL["bfloat16"], ulps=K1_ULPS,
+          ulp_err_bound=json.dumps(
+              {**{k_: [f"{e_:.3e}", f"{b_:.3e}"]
+                  for k_, (e_, b_) in zoo_ulps.items()},
+               **{f"train {k_}": [f"{e_:.3e}", f"{b_:.3e}"]
+                  for k_, (e_, b_) in t_err.items()}},
+              separators=(",", ":")).replace(" ", "_"),
+          tile_drop_gap=json.dumps({k_: f"{v_:.3e}"
+                                    for k_, v_ in zoo_drop.items()},
+                                   separators=(",", ":")).replace(" ", "_"),
+          train_lse_err=f"{lse_train:.3e}", bwd_bitwise_repeatable=True,
+          **row_fields(zoo_rows))
+    del sbwd_set, ss_out, ssq, ssk, ssv, enc_, cross_, xdec_, pre_, zoo_args
+    torch.cuda.empty_cache()
+    mark("zoo_K1")
 
     def serve_runs(c, tag, k1_per_step):
         """The serving path of ``c``: ``decode_demo`` at the serving
@@ -2267,8 +2574,8 @@ def main() -> None:
         never (an SSM decode step is the recurrence); both must give the
         same tokens and the same final cache, bit for bit.  A MoE model's
         runs print the share of routed assignments dropped over capacity.
-        Returns the runs (tokens, events, times) and one run's K1
-        launches."""
+        Returns the runs (tokens, events, times, K1's launches by mask)
+        and one run's K1 launches."""
         runs = {}
         want = k1_per_step * (PROMPT + DECODE)
         for label, schedule in (("static", None), ("elastic", SCHEDULE)):
@@ -2284,6 +2591,7 @@ def main() -> None:
                 torch.cuda.synchronize()
             counts = ops.launch_counts()
             paths = dict(fa.flash_attention.path_launches)
+            out["k1_masks"] = dict(fa.flash_attention.mask_launches)
             if counts["flash_attention"] != want or counts["ssd_scan"] or \
                     paths != {"fma": 0, "mma": 0, "split_decode": want}:
                 fail(f"{tag} {label} run launched {counts} (K1 paths "
@@ -2300,6 +2608,8 @@ def main() -> None:
                   decode_ms_per_token=f"{out['decode_s'] / DECODE * 1e3:.3f}",
                   k1_launches=counts["flash_attention"],
                   path_launches=json.dumps(paths, separators=(",", ":")),
+                  mask_launches=json.dumps(out["k1_masks"],
+                                           separators=(",", ":")),
                   peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                   sizes=json.dumps(out["sizes"], separators=(",", ":")),
                   **({"dropped_share": f"{drops['dropped'] / drops['routed']:.4f}",
@@ -2460,12 +2770,14 @@ def main() -> None:
     serve_runs(mvcfg, "mamba2", 0)
     mark("mamba2_path")
 
-    def prefill_launches(c, params, batch, tag, want, mma_kernels):
+    def prefill_launches(c, params, batch, tag, want, mma_kernels,
+                         masks=None):
         """One ``make_prefill_step``, the kernel counts zeroed just before
         and read just after; ``want`` maps K1 and K3 to their launches by
         path, ``mma_kernels`` K1's mma launches to their kernel (block or
-        group) as its C entry point counts them.  Returns K1's and K3's
-        launches."""
+        group) as its C entry point counts them, ``masks`` (when given)
+        K1's launches by mask.  Returns K1's and K3's launches, and K1's
+        by mask (``k1_masks``)."""
         with torch.no_grad():
             torch.cuda.synchronize()
             ops.reset_counts()
@@ -2476,25 +2788,29 @@ def main() -> None:
         counts = ops.launch_counts()
         paths = {k_: dict(ops.KERNELS[k_].path_launches) for k_ in want}
         kern = fa.mma_kernel_launches()
+        k1_masks = dict(fa.flash_attention.mask_launches)
         if paths != want or any(counts[k_] != sum(v.values())
                                 for k_, v in want.items()) or \
-                kern != mma_kernels:
+                kern != mma_kernels or masks not in (None, k1_masks):
             fail(f"{tag} prefill launched {counts} on paths {paths}, mma "
-                 f"kernels {kern}, not {want}, {mma_kernels}")
+                 f"kernels {kern}, K1 masks {k1_masks}, not {want}, "
+                 f"{mma_kernels}, {masks}")
         phase(f"{tag}:prefill", layers=c.num_layers, batch=BATCH,
               seq=batch["tokens"].shape[1], prefill_s=f"{secs:.3f}",
               launches=json.dumps({k_: counts[k_] for k_ in want},
                                   separators=(",", ":")),
               path_launches=json.dumps(paths, separators=(",", ":")),
               k1_mma_kernels=json.dumps(kern, separators=(",", ":")),
+              k1_masks=json.dumps(k1_masks, separators=(",", ":")),
               first_tokens=",".join(map(str, first[:4].tolist())))
-        return {k_: counts[k_] for k_ in want}
+        return dict({k_: counts[k_] for k_ in want}, k1_masks=k1_masks)
 
     def max_rms(a, b):
         d = (a - b).abs()
         return d.max().item(), d.square().mean().sqrt().item()
 
-    def logits_check(c, params, prompts, tag, fp32_tol, bf16_tol):
+    def logits_check(c, params, prompts, tag, fp32_tol, bf16_tol,
+                     faults=False):
         """Prefill against token-by-token decode after the same prompts:
         fp32 full-sequence logits at every position against the fp32
         decode's (``fp32_tol``: bounds of the largest and the rms gap, the
@@ -2502,16 +2818,22 @@ def main() -> None:
         None), and the bf16 prefill's and decode's last
         logits against fp32 (``bf16_tol``: the largest and the rms gap),
         beside the fp32 model with its weights rounded to bf16, the
-        yardstick of how far bf16 rounding alone moves them.  Returns the
-        fp32 decode's last logits and the bf16 decode's cache."""
+        yardstick of how far bf16 rounding alone moves them.  With
+        ``faults``, ``state_faults`` planted in each decode's last step
+        must fail its bound.  Returns the fp32 decode's last logits and
+        the bf16 decode's cache."""
         V, S = c.vocab_size, prompts.shape[1]
         batch = {"tokens": prompts}
         c32 = dataclasses.replace(c, dtype="float32")
+        copy = lambda tree: T.tree_map(lambda t: t.clone(), tree)
 
         def decode_logits(cc, full=None):
             cache = M.init_cache(cc, BATCH, S, device=dev)
             mx = sq = torch.zeros((), device=dev)
+            prev = None
             for i in range(S):
+                if faults and i == S - 1:
+                    prev = copy(cache)      # the cache before the last step
                 logits, cache = M.decode_step(
                     params, cc, prompts[:, i:i + 1], cache,
                     torch.tensor(i, dtype=torch.int32, device=dev))
@@ -2520,7 +2842,7 @@ def main() -> None:
                     mx = torch.maximum(mx, d_.max())
                     sq = sq + d_.square().mean() / S
             return (logits[:, -1, :V].float(), mx.item(), sq.sqrt().item(),
-                    cache)
+                    cache, prev)
 
         with torch.no_grad():
             lp = prefill_logits(params, c, batch)[:, :V].float()
@@ -2532,9 +2854,15 @@ def main() -> None:
                                          params)
             lp32w = prefill_logits(rounded, c32, batch)[:, :V].float()
             del rounded
-            ld32, gap_all, rms_all, _ = decode_logits(c32, full32)
+            ld32, gap_all, rms_all, cache32, prev32 = decode_logits(c32,
+                                                                  full32)
             del full32
-            ld, _, _, cache = decode_logits(c)
+            ld, _, _, cache, prev = decode_logits(c)
+            if faults:
+                state_faults(c, params, prompts, tag, {
+                    "fp32": (c32, prev32, cache32, lp32, fp32_tol),
+                    "bf16": (c, prev, cache, ld32, bf16_tol)})
+            del cache32, prev32, prev
         if not all(bool(torch.isfinite(t).all()) for t in (lp, ld, lp32,
                                                             ld32)):
             fail(f"{tag} logits are not finite")
@@ -2566,6 +2894,61 @@ def main() -> None:
                  f"{max(err_p, err_d):.3e} (rms {max(rms_p, rms_d):.3e}) > "
                  f"{bf16_tol}")
         return ld32, cache
+
+    def state_faults(c, params, prompts, tag, runs):
+        """Faults planted in the last decode step of an SSM or hybrid
+        model's ``logits_check``, for each of ``runs`` (a dtype -> its
+        config, cache before and after the last step, the logits it is
+        read against and the bound, the largest and the rms gap, the rms
+        unchecked when None): that step replayed on the cache before it,
+        which must pass, and fed on the cache that already holds its token
+        (every layer's state advanced twice by it), which must fail; with
+        attention (the hybrid) also the step at the position before its
+        own (its K/V over the previous token's slot, its rotary phase one
+        back) and the cached rows of KV heads 0 and 1 swapped in every
+        block, which the fp32 bound must reject and the bf16 one cannot
+        (they move the logits less than bf16 rounding does: read, not
+        held)."""
+        V, S = c.vocab_size, prompts.shape[1]
+        tok = prompts[:, S - 1:S]
+        copy = lambda tree: T.tree_map(lambda t: t.clone(), tree)
+
+        def swapped(cache_):
+            cache_ = copy(cache_)
+            for k_ in ("k", "v"):
+                kv_ = cache_["shared_kv"][k_]
+                kv_[:, :, :S - 1, [0, 1]] = kv_[:, :, :S - 1, [1, 0]]
+            return cache_
+
+        reads = {}
+        with torch.no_grad():
+            for dt_, (cc, prev_, done_, ref_, _) in runs.items():
+                last = lambda cache_, i: max_rms(M.decode_step(
+                    params, cc, tok, copy(cache_),
+                    torch.tensor(i, dtype=torch.int32, device=dev))[0][
+                        :, -1, :V].float(), ref_)
+                reads[dt_] = {"replay": last(prev_, S - 1),
+                              "token_twice": last(done_, S - 1)}
+                if c.is_hybrid:
+                    reads[dt_].update(
+                        position_one_back=last(prev_, S - 2),
+                        kv_heads_swapped=last(swapped(prev_), S - 1))
+        held = {dt_: [k_ for k_ in r if dt_ == "fp32" or k_ in (
+            "replay", "token_twice")] for dt_, r in reads.items()}
+        phase(f"{tag}:faults", layers=c.num_layers, step=S - 1,
+              **{f"{dt_}_{k_}{'' if k_ in held[dt_] else '_not_held'}":
+                 f"{m_:.4e},rms={r_:.4e}"
+                 for dt_, r in reads.items() for k_, (m_, r_) in r.items()},
+              **{f"{dt_}_tol": ",".join(map(str, runs[dt_][4]))
+                 for dt_ in runs})
+        for dt_, r in reads.items():
+            tol_ = runs[dt_][4]
+            caught = {k_: r[k_][0] > tol_[0] or (tol_[1] is not None and
+                                                 r[k_][1] > tol_[1])
+                      for k_ in held[dt_]}
+            if caught != {k_: k_ != "replay" for k_ in held[dt_]}:
+                fail(f"{tag}: the {dt_} bound {tol_} rejects {caught} of the "
+                     f"replayed and faulted last steps, read {r}")
 
     def planted_faults(c, params, prompts, tag, ld32, cache, bf16_tol):
         """Faults planted in the bf16 decode's last step of a dense model,
@@ -2644,7 +3027,7 @@ def main() -> None:
         {"block": 0, "group": 0})["ssd_scan"]
     logits_check(mvcfg, mparams, mprompts, "mamba2",
                  (M_FP32_LOGITS_ATOL, None),
-                 (M_BF16_LOGITS_MAX, M_BF16_LOGITS_RMS))
+                 (M_BF16_LOGITS_MAX, M_BF16_LOGITS_RMS), faults=True)
     traced_prefill(mvcfg, mparams, {"tokens": mprompts}, "mamba2",
                    {"k3": is_k3_fwd})
     del mparams
@@ -2679,7 +3062,8 @@ def main() -> None:
         A step runs each layer once per microbatch (``c``'s
         ``train_microbatches`` of the batch).  Returns the runner, its
         state, losses (with a MoE model's ce_loss and aux_loss beside each
-        under ``runner.moe_losses``), seconds per step, counts."""
+        under ``runner.moe_losses``), seconds per step, counts (K1's by
+        path and by mask too)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         app = lm_train_app(c, tshape, AdamW(learning_rate=1e-3), seed=0)
@@ -2718,13 +3102,19 @@ def main() -> None:
                           "flash_attention_bwd": {"fma": 0,
                                                   "wgmma": g * steps}}
         else:            # K1 forward on mma, its backward on wgmma; no K3
+            # once a decoder layer, twice with cross-attention, once an
+            # encoder layer
+            n_ = (2 if c.is_encdec else 1) * L + c.encoder_layers
+            fwd, bwd = 2 * n_ * steps * mb, n_ * steps * mb
             want = {"flash_attention": fwd, "flash_attention_bwd": bwd,
                     "ssd_scan": 0, "ssd_scan_bwd": 0}
             want_paths = {"flash_attention": {"fma": 0, "mma": fwd,
                                               "split_decode": 0},
                           "flash_attention_bwd": {"fma": 0, "wgmma": bwd}}
         counts = dict(ops.launch_counts(), paths={
-            k_: dict(ops.KERNELS[k_].path_launches) for k_ in want_paths})
+            k_: dict(ops.KERNELS[k_].path_launches) for k_ in want_paths},
+            masks={k_: dict(ops.KERNELS[k_].mask_launches)
+                   for k_ in ("flash_attention", "flash_attention_bwd")})
         if {k_: counts[k_] for k_ in want} != want or \
                 counts["paths"] != want_paths:
             fail(f"{L}-layer {c.name} training launched {counts}, not "
@@ -2755,6 +3145,7 @@ def main() -> None:
                                        counts["paths"]},
                                       separators=(",", ":")),
                   paths=json.dumps(counts["paths"], separators=(",", ":")),
+                  k1_masks=json.dumps(counts["masks"], separators=(",", ":")),
                   peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
                   sizes=",".join(str(e.to_procs) for e in runner.events),
                   **({"ce_loss": ",".join(f"{a:.6f}" for a, _ in
@@ -2784,14 +3175,16 @@ def main() -> None:
               state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}")
         return runner, state, counts
 
-    def traced_step(runner, state, step, want, groups=None):
+    def traced_step(runner, state, step, want, groups=None, spans=None):
         """One traced ``runner.step``, taken again (four times at most)
         while the profiler dropped a record: ``want`` maps a name to a test
         on a device record's key and the records a step launches;
         ``groups`` a name to operator names whose device time
-        (``op_group_fields``) the fields give too.  Returns the state, the
-        phase fields (device busy, idle share, each name's device ms and
-        share, the largest operators) and each name's records."""
+        (``op_group_fields``) the fields give too, ``spans`` a name to a
+        ``record_function`` span whose forward and backward device time
+        (``span_fields``) they give.  Returns the state, the phase fields
+        (device busy, idle share, each name's device ms and share, the
+        largest operators) and each name's records."""
         for attempt in range(4):
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
@@ -2820,6 +3213,7 @@ def main() -> None:
             fields[f"{k_}_ms"] = f"{ms_:.3f}"
             fields[f"{k_}_share"] = f"{ms_ / busy:.4f}"
         fields.update(op_group_fields(prof, busy, groups or {}))
+        fields.update(span_fields(prof, busy, spans or {}))
         fields["top"] = json.dumps(
             [{"kernel": e.key[:80], "ms": device_us(e) / 1e3,
               "calls": e.count} for e in evs[:PROFILE_TRAIN_TOP]],
@@ -2955,7 +3349,7 @@ def main() -> None:
                  dict(zparams, layers=T.tree_map(
                      lambda t: t[:Z_CHECK_LAYERS], zparams["layers"])),
                  zprompts, "zamba2", (Z_FP32_LOGITS_ATOL, Z_FP32_LOGITS_RMS),
-                 (Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS))
+                 (Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS), faults=True)
     traced_prefill(zscfg, zparams, {"tokens": zprompts}, "zamba2",
                    {"k3": is_k3_fwd, "k1": is_k1_fwd})
     del zparams
@@ -3577,6 +3971,193 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("qwen3moe_serve")
 
+    def zoo_cpu_check(c, params, batch, tag, cross=None):
+        """``c`` (cut in depth, fp32) on the card against the CPU from the
+        same weights (``params``, on the card) and inputs: full-sequence
+        logits (the last position's when the model is wide), then
+        ZOO_CHECK_STEPS decode steps of the batch's tokens from an empty
+        cache, each step's logits; ``cross`` (numpy, a seeded cross cache)
+        replaces the encoder-decoder cache's zeros, and must come out of
+        the card's decode unchanged.  Returns the largest gaps."""
+        V = c.vocab_size
+        cpu = torch.device("cpu")
+        gaps = {}
+        out = {}
+        for d in (cpu, dev):
+            p_ = T.tree_map(lambda t: t.to(d), params)
+            b_ = {k_: v_.to(d) for k_, v_ in batch.items()}
+            with torch.no_grad():
+                lp = prefill_logits(p_, c, b_)[:, :V].float().cpu()
+                toks = b_["tokens"]
+                B_ = toks.shape[0]
+                cache = M.init_cache(c, B_, ZOO_CHECK_STEPS, device=d,
+                                     enc_len=None if cross is None else
+                                     cross["k"].shape[2])
+                if cross is not None:
+                    cache["cross"] = {k_: torch.from_numpy(v_).to(d)
+                                      for k_, v_ in cross.items()}
+                steps_ = []
+                for i in range(ZOO_CHECK_STEPS):
+                    lg, cache = M.decode_step(
+                        p_, c, toks[:, i:i + 1], cache,
+                        torch.tensor(i, dtype=torch.int32, device=d))
+                    steps_.append(lg[:, -1, :V].float().cpu())
+            if cross is not None and d == dev and not all(
+                    np.array_equal(cache["cross"][k_].cpu().numpy(), v_)
+                    for k_, v_ in cross.items()):
+                fail(f"{tag}: the decode steps wrote the cross cache")
+            out[d.type] = (lp, torch.stack(steps_))
+            del p_, b_, cache
+        (lp_c, st_c), (lp_g, st_g) = out["cpu"], out["cuda"]
+        if not all(bool(torch.isfinite(t).all()) for t in (lp_g, st_g)):
+            fail(f"{tag}: the card's logits are not finite")
+        gaps["prefill"] = (lp_g - lp_c).abs().max().item()
+        gaps["decode"] = (st_g - st_c).abs().max().item()
+        phase(f"{tag}:cpu_check", layers=c.num_layers,
+              encoder_layers=c.encoder_layers,
+              batch=batch["tokens"].shape[0],
+              seq=batch["tokens"].shape[1],
+              prefill_vs_cpu=f"{gaps['prefill']:.4e}",
+              decode_vs_cpu=f"{gaps['decode']:.4e}",
+              decode_steps=ZOO_CHECK_STEPS, tol=ZOO_FP32_ATOL,
+              logits_std=f"{lp_c.std().item():.3f}",
+              cross_cache="seeded, unchanged" if cross is not None else
+              "none")
+        if max(gaps.values()) > ZOO_FP32_ATOL:
+            fail(f"{tag}: card against CPU fp32 logits differ by {gaps} > "
+                 f"{ZOO_FP32_ATOL}")
+        return gaps
+
+    # -- 19. seamless-m4t-medium serving at full width and all 12 + 12
+    # layers: elastic decode (K1 24 a step on split_decode: each decoder
+    # layer's self-attention and its cross-attention over the 512-slot
+    # cross cache), the prefill with 512 frames (K1 36 on mma's group
+    # kernel), the card against the CPU at 2 + 2 layers -------------------
+    sruns, _ = serve_runs(smcfg, "seamless", 2 * smcfg.num_layers)
+    # by mask: each decoder layer's self-attention over the filled cache
+    # prefix (kv_len) and its cross-attention over every slot (rect)
+    s_dec_masks = sruns["static"]["k1_masks"]
+    n_dec = smcfg.num_layers * (PROMPT + DECODE)
+    if s_dec_masks != dict(dict.fromkeys(fa.MASKS, 0), kv_len=n_dec,
+                           rect=n_dec):
+        fail(f"seamless decode: K1 launches by mask {s_dec_masks}, not "
+             f"{n_dec} kv_len and {n_dec} rect")
+    mark("seamless_path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    sparams = M.init_params(smcfg, torch.Generator(dev).manual_seed(0), dev)
+    sprompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, smcfg.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to(dev)
+    sframes = rand((BATCH, S_ENC, smcfg.frontend.embed_dim))
+    L_ = smcfg.num_layers + smcfg.encoder_layers
+    # by mask: the decoder's causal self-attention, the encoder's over its
+    # 512 frames (square), the cross-attention's 256 over 512 (rect)
+    s_prefill = prefill_launches(
+        smcfg, sparams, {"tokens": sprompts, "frames": sframes}, "seamless",
+        {"flash_attention": dict(no_k1, mma=L_ + smcfg.num_layers),
+         "ssd_scan": {"fma": 0, "wgmma": 0}},
+        {"block": 0, "group": L_ + smcfg.num_layers},
+        {"causal": smcfg.num_layers, "kv_len": 0,
+         "square": smcfg.encoder_layers, "rect": smcfg.num_layers}
+    )["k1_masks"]
+    n_ = ZOO_CHECK_LAYERS
+    s22 = dataclasses.replace(smcfg, num_layers=n_, encoder_layers=n_,
+                              dtype="float32")
+    cut = dict(sparams, layers=T.tree_map(lambda t: t[:n_].clone(),
+                                          sparams["layers"]),
+               enc_layers=T.tree_map(lambda t: t[:n_].clone(),
+                                     sparams["enc_layers"]))
+    del sparams
+    crng = np.random.default_rng(7)
+    cshape = (n_, 4, 128, smcfg.num_kv_heads, smcfg.head_dim)
+    zoo_cpu_check(s22, cut, {
+        "tokens": sprompts[:4, :4 * ZOO_CHECK_STEPS].cpu(),
+        "frames": sframes[:4, :128].cpu()}, "seamless",
+        cross={k_: crng.standard_normal(cshape).astype(np.float32)
+               for k_ in ("k", "v")})
+    del cut, sruns
+    phase("seamless", layers=f"{smcfg.encoder_layers}+{smcfg.num_layers}",
+          params_b=f"{sum(int(np.prod(d.shape)) for d in T.leaves(M.model_schema(smcfg))) / 1e9:.3f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    torch.cuda.empty_cache()
+    mark("seamless_serve")
+
+    # -- 20. seamless-m4t-medium training (Listing 2) at full width and
+    # depth: 8 x 4096 tokens over 8 x 4096 frames, 6 static and 6 elastic
+    # steps, K1 72 forward launches a step (remat) and 36 backward; a traced
+    # step's K1 shares, and the CE's over the 256256-wide vocab ------------
+    runner, state, counts = elastic_pair(smcfg, "seamless:train")
+    # the non-causal launches (the encoder's and the cross-attention's,
+    # over as many frames as tokens) by mask, each forward twice (remat)
+    s_train_k1 = [m_["square"] + m_["rect"] for m_ in (
+        counts["masks"]["flash_attention"],
+        counts["masks"]["flash_attention_bwd"])]
+    n_nc = (smcfg.encoder_layers + smcfg.num_layers) * TRAIN_STEPS
+    if s_train_k1 != [2 * n_nc, n_nc] or any(
+            m_["causal"] != f_ * smcfg.num_layers * TRAIN_STEPS
+            for m_, f_ in zip(counts["masks"].values(), (2, 1))):
+        fail(f"seamless training: K1 launches by mask {counts['masks']}, "
+             f"not {2 * n_nc} and {n_nc} non-causal beside the decoder's "
+             "causal")
+    mark("seamless_train")
+    na_ = 2 * smcfg.num_layers + smcfg.encoder_layers
+    state, fields, _ = traced_step(runner, state, TRAIN_STEPS, {
+        "k1_fwd": (is_k1_fwd, 2 * na_), "k1_bwd": (is_k1_bwd, 3 * na_)},
+        spans={"ce": CE_SPAN})
+    del runner, state
+    torch.cuda.empty_cache()
+    if float(fields["ce_ms"]) <= 0:
+        fail("the profiler saw no device time in the traced seamless step's "
+             f"CE span ({CE_SPAN})")
+    phase("seamless:train:profile",
+          layers=f"{smcfg.encoder_layers}+{smcfg.num_layers}", **fields,
+          vocab_phys=phys_vocab(smcfg.vocab_size))
+    mark("seamless_train_profile")
+
+    # -- 21. pixtral-12b serving at PX_SERVE_LAYERS of its 40 layers, full
+    # width: elastic text decode (K1 on split_decode at G = 4), the prefill
+    # over 256 patch embeddings + 256 text tokens (K1 on mma's block
+    # kernel), the card against the CPU at 2 layers ------------------------
+    pxs = dataclasses.replace(pxcfg, num_layers=PX_SERVE_LAYERS)
+    pxruns, px_dec_launches = serve_runs(pxs, "pixtral", pxs.num_layers)
+    mark("pixtral_path")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pxparams = M.init_params(pxs, torch.Generator(dev).manual_seed(0), dev)
+    pxprompts = torch.from_numpy(np.random.default_rng(0).integers(
+        0, pxs.vocab_size, (BATCH, PROMPT), dtype=np.int32)).to(dev)
+    pxpatches = rand((BATCH, pxs.frontend.tokens_per_sample,
+                      pxs.frontend.embed_dim))
+    px_prefill = prefill_launches(
+        pxs, pxparams, {"tokens": pxprompts, "patch_embeds": pxpatches},
+        "pixtral", {"flash_attention": dict(no_k1, mma=pxs.num_layers),
+                    "ssd_scan": {"fma": 0, "wgmma": 0}},
+        {"block": pxs.num_layers, "group": 0})["flash_attention"]
+    p2 = dataclasses.replace(pxs, num_layers=ZOO_CHECK_LAYERS,
+                             dtype="float32")
+    cut = dict(pxparams, layers=T.tree_map(
+        lambda t: t[:ZOO_CHECK_LAYERS].clone(), pxparams["layers"]))
+    del pxparams
+    zoo_cpu_check(p2, cut, {"tokens": pxprompts[:1, :4 * ZOO_CHECK_STEPS].cpu(),
+                            "patch_embeds": pxpatches[:1].cpu()}, "pixtral")
+    del cut, pxruns
+    phase("pixtral", layers=pxs.num_layers,
+          params_b=f"{sum(int(np.prod(d.shape)) for d in T.leaves(M.model_schema(pxs))) / 1e9:.3f}",
+          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+    torch.cuda.empty_cache()
+    mark("pixtral_serve")
+
+    # -- 22. pixtral-12b training at PX_TRAIN_LAYERS, full width: sequence
+    # 4096 = 256 patches + 3840 text tokens, the loss on the text only, 6
+    # static and 6 elastic steps ------------------------------------------
+    runner, state, counts = elastic_pair(
+        dataclasses.replace(pxcfg, num_layers=PX_TRAIN_LAYERS),
+        "pixtral:train")
+    px_train_k1 = (counts["flash_attention"], counts["flash_attention_bwd"])
+    del runner, state
+    torch.cuda.empty_cache()
+    mark("pixtral_train")
+
     # -- 15. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
@@ -3826,15 +4407,15 @@ def main() -> None:
     # phi4's rows, timed in phase 3c; their launches are the serving
     # fleet's (14d) and the 32-layer prefill's (14e)
     kernels.append(dict(
-        p_rows[0], launches=fleet_decode_launches,
+        p_rows["decode"], launches=fleet_decode_launches,
         launches_note=f"fleet:live, {FLEET_REPLICA_STEPS} replica-steps "
                       f"x {L} layers; fleet:inplace adds "
                       f"{n_in['flash_attention']}"))
-    kernels.append(dict(p_rows[1], launches=p_prefill,
+    kernels.append(dict(p_rows["prefill"], launches=p_prefill,
                         launches_note="one make_prefill_step at 32 layers"))
     # the MoE family's rows, timed in phase 3d; their launches are the
     # serving paths' (16, 18) and mixtral's 2-layer training run's (17)
-    for row, launches, note in zip(moe_rows, (
+    for row, launches, note in zip(moe_rows.values(), (
             x_dec_launches, x_prefill, q_dec_launches, q_prefill,
             *x_train_k1, 0), (
             f"one decode_demo run at {MOE_SERVE_LAYERS} layers",
@@ -3846,6 +4427,28 @@ def main() -> None:
             "no path of this script: the window bites only past 4096 "
             "tokens, and the training path runs 4096")):
         kernels.append(dict(row, launches=launches, launches_note=note))
+    # the encoder-decoder and vision-prefix families' rows, timed in phase
+    # 3e; their launches are the paths' (19-22), counted by mask
+    # (fa.mask_of) where K1 launches them
+    for key, launches, note in (
+            ("encoder prefill", s_prefill["square"],
+             "one make_prefill_step at 12 + 12 layers, its non-causal "
+             "Sq = Sk launches (the encoder's)"),
+            ("cross prefill", s_prefill["rect"],
+             "the same prefill's non-causal Sq != Sk launches (the "
+             "cross-attention's)"),
+            ("cross decode", s_dec_masks["rect"],
+             "one decode_demo run at 12 decoder layers, its launches with "
+             "neither kv_len nor mask (the cross-attention's)"),
+            ("train fwd", s_train_k1[0],
+             f"seamless's {TRAIN_STEPS}-step static training run at 12 + 12 "
+             "layers, its non-causal launches (the encoder's and the "
+             "cross-attention's)"),
+            ("train bwd", s_train_k1[1], "the same run's"),
+            ("pixtral prefill", px_prefill,
+             f"one make_prefill_step at {PX_SERVE_LAYERS} layers")):
+        kernels.append(dict(zoo_rows[key], launches=launches,
+                            launches_note=note))
     mark("kernels")
     phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))

@@ -1,6 +1,7 @@
-"""Config registry of the port: the architectures it runs so far (the
+"""Config registry of the port: every architecture of the JAX package (the
 dense family's granite, phi4-mini, qwen2.5 and internlm2, the MoE family's
-mixtral and qwen3-moe, the SSM and the hybrid families), plus their
+mixtral and qwen3-moe, the SSM and the hybrid families, the
+encoder-decoder seamless-m4t and the vision-prefix pixtral), plus their
 reduced ``-smoke`` variants."""
 from __future__ import annotations
 
@@ -20,6 +21,8 @@ _ARCH_MODULES = {
     "internlm2-20b": "internlm2_20b",
     "mixtral-8x7b": "mixtral_8x7b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
+    "pixtral-12b": "pixtral_12b",
 }
 
 

@@ -16,7 +16,8 @@ else ``mma`` for bfloat16 and ``fma`` for float32.  The wrapper makes that
 choice (:func:`select_path`, and :func:`decode_splits` for the split path's
 launch), pure functions of the shapes, and passes it to the entry point,
 which refuses a path whose kernels cannot take the call;
-``flash_attention.path_launches`` counts calls by path, and
+``flash_attention.path_launches`` counts calls by path,
+``flash_attention.mask_launches`` by mask (:func:`mask_of`), and
 :func:`mma_kernel_launches` the mma path's launches by kernel (block or
 group), as the entry point chooses and counts them.
 
@@ -26,7 +27,8 @@ with its row log-sum-exp output (fma or mma path) and whose backward is
 the kernel of ``csrc/flash_attention_bwd.cu`` (:func:`flash_attention_bwd`,
 counted in ``flash_attention_bwd.launches``).  The backward has two
 device paths, ``wgmma`` for bfloat16 and ``fma`` for float32, chosen by
-:func:`select_bwd_path` and counted in ``flash_attention_bwd.path_launches``.
+:func:`select_bwd_path` and counted in ``flash_attention_bwd.path_launches``
+(and by mask in ``flash_attention_bwd.mask_launches``).
 CPU tensors take the plain version both ways: autograd differentiates
 ``attention_reference``.
 """
@@ -50,6 +52,8 @@ PATHS = ("fma", "mma", "split_decode")
 MMA_KERNELS = ("block", "group")
 #: the backward's path names, indexed by the id its C entry point takes
 BWD_PATHS = ("fma", "wgmma")
+#: the masks a call is counted under (:func:`mask_of`)
+MASKS = ("causal", "kv_len", "square", "rect")
 DECODE_ROWS = 16            # kDecodeRows: query rows per KV head, at most
 TILE_K = 64                 # kTileK: keys per shared-memory tile
 #: a split CTA's 4 warps take at most this many K/V tiles (two each)
@@ -68,6 +72,19 @@ def select_path(dtype: torch.dtype, rows: int) -> str:
     if rows <= DECODE_ROWS:
         return "split_decode"
     return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def mask_of(causal: bool, kv_len, sq: int, sk: int) -> str:
+    """The mask a call is counted under: ``causal`` (with or without a
+    window), ``kv_len`` (the first kv_len keys: a decode step over its
+    cache), else every key, ``square`` when Sq = Sk (an encoder's
+    self-attention; cross-attention over as many frames as tokens) and
+    ``rect`` when not (cross-attention, its decode step included)."""
+    if causal:
+        return "causal"
+    if kv_len is not None:
+        return "kv_len"
+    return "square" if sq == sk else "rect"
 
 
 def select_bwd_path(dtype: torch.dtype) -> str:
@@ -181,6 +198,7 @@ def _launch_fwd(q, k, v, causal, window, kv_len, with_lse):
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
     flash_attention.path_launches[path] += 1
+    flash_attention.mask_launches[mask_of(causal, kv_len, Sq, Sk)] += 1
     return out, lse
 
 
@@ -256,13 +274,15 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.path_launches[path] += 1
+    flash_attention_bwd.mask_launches[mask_of(causal, None, Sq, Sk)] += 1
     return dq, dk, dv
 
 
 #: backward calls since the last reset (each one launches three kernels),
-#: in all and by path
+#: in all, by path and by mask
 flash_attention_bwd.launches = 0
 flash_attention_bwd.path_launches = dict.fromkeys(BWD_PATHS, 0)
+flash_attention_bwd.mask_launches = dict.fromkeys(MASKS, 0)
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
@@ -318,6 +338,8 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 #: kernel launches since the last reset (CPU calls are not launches), in
-#: all and by path (one count per call, whatever the path launches)
+#: all, by path and by mask (one count per call, whatever the path
+#: launches)
 flash_attention.launches = 0
 flash_attention.path_launches = dict.fromkeys(PATHS, 0)
+flash_attention.mask_launches = dict.fromkeys(MASKS, 0)

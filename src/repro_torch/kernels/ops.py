@@ -6,7 +6,8 @@ their plain PyTorch version on CPU tensors
 and their CUDA kernel on tensors on a card; a build or launch failure
 raises.  ``launch_counts`` / ``reset_counts`` read and
 zero the per-wrapper counters that show a run really went through the
-kernels (and each one's ``path_launches``, by path); ``reset_counts``
+kernels (and each one's ``path_launches``, by path, and K1's
+``mask_launches``, by mask); ``reset_counts``
 also zeroes K1's count of its mma kernels
 (``flash_attention.mma_kernel_launches``).
 """
@@ -39,6 +40,8 @@ def reset_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
         fn.path_launches = dict.fromkeys(fn.path_launches, 0)
+        if hasattr(fn, "mask_launches"):
+            fn.mask_launches = dict.fromkeys(fn.mask_launches, 0)
     _fa.mma_kernel_launches(reset=True)
 
 

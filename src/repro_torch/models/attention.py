@@ -2,8 +2,12 @@
 path).  Both call sites run the flash-attention kernel
 (``repro_torch.kernels.ops.flash_attention``): ``attn_apply`` in place of
 the JAX package's pure-jnp ``chunked_attention``, and ``decode_attn_apply``
-in place of its einsum softmax over the cache.  The sequence-parallel
-``shard_map`` path waits for the multi-process slice.
+in place of its einsum softmax over the cache.  Each also takes the
+encoder-decoder family's cross-attention: ``attn_apply(kv_x=)`` reads keys
+and values of the encoder's output (Sq != Sk, no causal mask), and
+``decode_attn_apply(cross=True)`` reads a cross cache whose every slot is
+valid.  The sequence-parallel ``shard_map`` path waits for the
+multi-process slice.
 """
 from __future__ import annotations
 
@@ -49,21 +53,34 @@ def _heads(x, w, dt):
     return (x @ w.to(dt).reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _project_qkv(params, x, cfg: ArchConfig, positions, rope: bool = True):
+def _project_q(params, x, cfg: ArchConfig, positions, rope: bool = True):
     dt = torch_dtype(cfg.dtype)
     q = _heads(x, params["wq"], dt)
-    k = _heads(x, params["wk"], dt)
-    v = _heads(x, params["wv"], dt)
     if cfg.qkv_bias:
         q = q + params["bq"].to(dt)
+    if cfg.qk_norm:
+        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
+    return apply_rope(q, positions, cfg.rope_theta) if rope else q
+
+
+def _project_qkv(params, x, cfg: ArchConfig, positions, kv_x=None,
+                 rope: bool = True):
+    """q from ``x``; k and v from ``kv_x`` when given (cross-attention),
+    else from ``x``.  With rope, k takes its own positions ``0..Sk-1``
+    when it comes from ``kv_x``."""
+    dt = torch_dtype(cfg.dtype)
+    kv_in = x if kv_x is None else kv_x
+    q = _project_q(params, x, cfg, positions, rope=rope)
+    k = _heads(kv_in, params["wk"], dt)
+    v = _heads(kv_in, params["wv"], dt)
+    if cfg.qkv_bias:
         k = k + params["bk"].to(dt)
         v = v + params["bv"].to(dt)
     if cfg.qk_norm:
-        q = rmsnorm({"scale": params["q_norm"]}, q, cfg.norm_eps)
         k = rmsnorm({"scale": params["k_norm"]}, k, cfg.norm_eps)
     if rope:
-        q = apply_rope(q, positions, cfg.rope_theta)
-        k = apply_rope(k, positions, cfg.rope_theta)
+        k = apply_rope(k, positions if kv_x is None else torch.arange(
+            kv_in.shape[1], device=kv_in.device)[None, :], cfg.rope_theta)
     return q, k, v
 
 
@@ -77,11 +94,13 @@ def _out_proj(o, params, dt):
 # Full layer applications
 # ----------------------------------------------------------------------
 
-def attn_apply(params, x, cfg: ArchConfig, *, positions, causal: bool = True,
-               rope: bool = True):
-    """Self-attention over a full sequence (prefill / train forward)."""
+def attn_apply(params, x, cfg: ArchConfig, *, positions, kv_x=None,
+               causal: bool = True, rope: bool = True):
+    """Self- or cross-attention over a full sequence (prefill / train
+    forward); cross-attention (``kv_x``, the encoder's output) passes its
+    Sk = S_enc keys to K1 beside the Sq queries of ``x``."""
     dt = torch_dtype(cfg.dtype)
-    q, k, v = _project_qkv(params, x, cfg, positions, rope=rope)
+    q, k, v = _project_qkv(params, x, cfg, positions, kv_x=kv_x, rope=rope)
     window = cfg.window if cfg.attention == "swa" else 0
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window)
@@ -89,7 +108,7 @@ def attn_apply(params, x, cfg: ArchConfig, *, positions, causal: bool = True,
 
 
 def decode_attn_apply(params, x, cfg: ArchConfig, cache, *, cache_index,
-                      kv_len=None):
+                      kv_len=None, cross: bool = False):
     """One-token decode against a KV cache.
 
     cache: {"k","v"}: (B, S_cache, Hkv, hd), updated IN PLACE at the new
@@ -99,10 +118,21 @@ def decode_attn_apply(params, x, cfg: ArchConfig, cache, *, cache_index,
     cache's device; ``kv_len`` (= cache_index + 1, computed once per step by
     the caller) is the number of filled slots the kernel reads.  For SWA the
     cache is a rolling buffer of ``window`` slots, all live.
+
+    ``cross``: the cache holds the encoder's keys and values (the
+    reference's cross cache); q is projected without rope, nothing is
+    written, and the kernel reads every slot, unmasked.  The reference
+    projects k and v of the new token too and drops them: the port skips
+    those two products.
     """
     dt = torch_dtype(cfg.dtype)
     B = x.shape[0]
     pos = cache_index.reshape(1, 1).expand(B, 1)
+    if cross:
+        q = _project_q(params, x, cfg, pos, rope=False)
+        o = flash_attention(q.transpose(1, 2), cache["k"].transpose(1, 2),
+                            cache["v"].transpose(1, 2), causal=False)
+        return _out_proj(o.transpose(1, 2), params, dt), cache
     q, k_new, v_new = _project_qkv(params, x, cfg, pos)
     S = cache["k"].shape[1]
     if cfg.attention == "swa":

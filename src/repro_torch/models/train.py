@@ -50,24 +50,38 @@ def init_state(cfg: ArchConfig, optimizer: AdamW, seed: int = 0,
 LOSS_CHUNK = 1024   # sequence chunk for the CE loss (0 => unchunked)
 
 
+#: the profiler span each CE chunk's forward runs in (its recomputation in
+#: the backward too); the autograd records of its backward carry its
+#: operators' sequence numbers
+CE_SPAN = "chunked_ce"
+
+
 def _ce_chunk(embed_params, x_c, labels_c, mask_c, cfg: ArchConfig):
     """Cross-entropy over one sequence chunk; logits never leave the chunk.
     ``logz`` runs over the physical (padded) vocab, as the reference's."""
-    logits = unembed(embed_params, x_c, cfg).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
-    return torch.sum((logz - ll) * mask_c)
+    with torch.profiler.record_function(CE_SPAN):
+        logits = unembed(embed_params, x_c, cfg).float()
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
+        return torch.sum((logz - ll) * mask_c)
 
 
 def chunked_ce(embed_params, x, labels, mask, cfg: ArchConfig,
                chunk: int = LOSS_CHUNK):
     """Sum of masked CE without materializing (B, S, V) logits: the
-    (B, chunk, V) logits of each chunk are recomputed in the backward
-    (``torch.utils.checkpoint``), chunk sums added in order from 0."""
+    (B, c, V) logits of each chunk are recomputed in the backward
+    (``torch.utils.checkpoint``), chunk sums added in order from 0.
+
+    ``c`` is the largest divisor of S up to ``chunk``.  The reference
+    takes ``chunk`` when it divides S and the whole sequence otherwise;
+    the two agree whenever ``chunk`` divides S (every sequence but a
+    vision model's text span: pixtral's 3840 of 4096 would otherwise put
+    its (8, 3840, 131072) fp32 logits, 16 GB, on the card at once) and
+    otherwise differ only in the order of the fp32 chunk sums."""
     S = x.shape[1]
     c = min(chunk, S) if chunk else S
-    if S % c != 0:
-        c = S
+    while S % c:
+        c -= 1
     if S // c <= 1:
         return _ce_chunk(embed_params, x, labels, mask, cfg)
     tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -82,6 +96,9 @@ def chunked_ce(embed_params, x, labels, mask, cfg: ArchConfig,
 def loss_fn(params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]):
     x, aux = M.forward_hidden(params, cfg, batch)
     labels, mask = batch["labels"], batch["mask"]
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        # hidden covers [patch prefix + text]; loss only on the text span
+        x = x[:, cfg.frontend.tokens_per_sample:, :]
     denom = torch.clamp(mask.sum(), min=1.0)
     loss = chunked_ce(params["embed"], x, labels, mask, cfg) / denom
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}

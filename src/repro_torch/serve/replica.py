@@ -89,7 +89,9 @@ def make_decode_app(cfg, *, batch: int, cache_len: int, seed: int = 0,
     State tree: ``{"params", "cache", "tok", "pos"}``.  Params stay
     replicated (the ``{"params": "replicate"}`` pattern); cache leaves and
     ``tok`` are split along their batch axis over the whole mesh whenever
-    ``batch`` divides the worker count.  ``params`` (e.g. from
+    ``batch`` divides the worker count (an encoder-decoder model's cross
+    cache too: ``cache_len`` slots, zeros, as the reference's serving path
+    leaves it).  ``params`` (e.g. from
     ``repro_torch.interop.params_from_numpy``) replaces the seeded init.
     ``step(state, i, feed)`` consumes ``feed`` (a ``(batch,)`` int array of
     prompt tokens) when given — prefill-by-decode — and the previous step's
@@ -113,7 +115,8 @@ def make_decode_app(cfg, *, batch: int, cache_len: int, seed: int = 0,
 
         # the cache's real shapes, allocated nowhere (the counterpart of
         # the reference's jax.eval_shape)
-        cache_meta = M.init_cache(cfg, batch, cache_len, device="meta")
+        cache_meta = M.init_cache(cfg, batch, cache_len, device="meta",
+                                  enc_len=cache_len)
         return {
             "params": T.tree_map(lambda _: Placement(mesh),
                                  M.model_schema(cfg)),
@@ -131,7 +134,8 @@ def make_decode_app(cfg, *, batch: int, cache_len: int, seed: int = 0,
             gen = torch.Generator(device=dev).manual_seed(seed)
             p = M.init_params(cfg, gen, dev)
         return {"params": p,
-                "cache": M.init_cache(cfg, batch, cache_len, device=dev),
+                "cache": M.init_cache(cfg, batch, cache_len, device=dev,
+                                      enc_len=cache_len),
                 "tok": torch.zeros((batch, 1), dtype=torch.int32, device=dev),
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
 

@@ -58,6 +58,11 @@ PATH_CASES = [
     (3, 8, 1, 1, 333, False, 0, "bfloat16"),         # split_decode, G = 8
     (2, 4, 2, 3, 150, True, 0, "bfloat16"),          # split_decode, Sq = 3
     (2, 4, 2, 4, 150, True, 40, "float32"),          # split_decode, window
+    # non-causal with Sq != Sk (encoder-decoder cross-attention), at G = 1
+    (2, 4, 4, 100, 260, False, 0, "bfloat16"),       # mma, Sq < Sk
+    (2, 8, 2, 260, 100, False, 0, "bfloat16"),       # mma, Sq > Sk
+    (2, 4, 4, 70, 150, False, 0, "float32"),         # fma, Sq < Sk
+    (2, 8, 2, 150, 70, False, 0, "float32"),         # fma, Sq > Sk
 ]
 # (B, H, Hkv, Sq, Sk, causal, window), bf16: with B * Hkv >= 66 on a
 # 132-SM card the mma path runs its group kernel (one CTA per batch and KV
@@ -69,6 +74,8 @@ GROUP_CASES = [
     (16, 8, 8, 130, 130, False, 0),                  # Hkv = H, ragged
     (70, 4, 1, 64, 64, True, 0),                     # Hkv = 1
     (16, 24, 8, 256, 256, True, 0),                  # phi4-mini's prefill
+    (16, 16, 16, 200, 256, False, 0),                # cross, Sq < Sk, G = 1
+    (16, 16, 16, 256, 130, False, 0),                # cross, Sq > Sk, G = 1
 ]
 # K1 at head dim 128 with the GQA ratios of the dense configs (phi4-mini
 # G = 3, qwen2.5 G = 5, internlm2 G = 6), on each kernel: (B, Hkv, Sq, Sk,
@@ -89,6 +96,8 @@ BWD_CASES = [
     (1, 4, 4, 130, 130, False, 0),
     (1, 4, 2, 100, 160, True, 0),
     (1, 2, 2, 64, 64, False, 24),
+    (1, 4, 4, 100, 200, False, 0),                   # cross, Sq < Sk, G = 1
+    (2, 8, 2, 190, 70, False, 0),                    # cross, Sq > Sk
 ]
 #: the backward against its plain version: both fp32 from the same inputs
 #: and lse, differing in summation order over up to G * Sq products per
@@ -1433,5 +1442,89 @@ def test_mixtral_train_step_on_card_matches_cpu(cuda):
         assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k]), k
     assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
     assert any("/moe/" in k for k in grads["cpu"])
+    for k, exp in grads["cpu"].items():
+        assert _rel_err(grads["cuda"][k], exp) <= 1e-4, k
+
+
+# -- the encoder-decoder and vision-prefix families ------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("Sk", [512, 300])
+def test_flash_cross_decode_on_card(cuda, Sk, dtype):
+    """A decode step's cross-attention: one query row per head (G = 1, D =
+    64, seamless-m4t's heads) against a cross cache whose every slot is
+    valid, no ``kv_len`` and no mask, on split_decode, read in the cache's
+    (B, S, Hkv, D) layout."""
+    g = torch.Generator(cuda).manual_seed(11)
+    dt = getattr(torch, dtype)
+    q = torch.randn(16, 1, 16, 64, generator=g, device=cuda).to(dt)
+    k, v = (torch.randn(16, Sk, 16, 64, generator=g, device=cuda).to(dt)
+            for _ in range(2))
+    args = (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    before = dict(fa.flash_attention.path_launches)
+    masks = dict(fa.flash_attention.mask_launches)
+    out = ops.flash_attention(*args, causal=False)
+    torch.cuda.synchronize()
+    after = fa.flash_attention.path_launches
+    assert {p: after[p] - before[p] for p in after} == \
+        {p: int(p == "split_decode") for p in after}
+    assert {m: n - masks[m] for m, n in
+            fa.flash_attention.mask_launches.items()} == \
+        {m: int(m == "rect") for m in fa.MASKS}
+    torch.testing.assert_close(
+        out.float(), attention_reference(*args, causal=False).float(),
+        atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium-smoke",
+                                  "pixtral-12b-smoke"])
+def test_zoo_train_step_on_card_matches_cpu(cuda, arch):
+    """One fp32 training step of the encoder-decoder and the vision-prefix
+    smoke models on the card (K1 on the fma path: seamless's encoder
+    self-attention, decoder self- and cross-attention; pixtral's causal
+    prefix + text; the backward on fma) gives the CPU's loss and gradient
+    norm, and every leaf's gradient within 1e-4 of its largest entry.
+    Counted by mask, the causal launches are the decoder's self-attention
+    and the rest the encoder's and the cross-attention's."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import train as TT
+    from repro_torch.optim import AdamW
+    cfg = get_config(arch)
+    opt = AdamW(learning_rate=1e-3)
+    batch = SyntheticDataset(cfg, ShapeConfig("t", "train", 64, 8)
+                             ).batch_at(0)
+    out, grads = {}, {}
+    for dev in ("cpu", cuda):
+        tbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        ops.reset_counts()
+        _, m = TT.make_train_step(cfg, opt)(state, tbatch)
+        out[str(dev)] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
+                         ops.launch_counts(),
+                         dict(fa.flash_attention.path_launches),
+                         dict(fa.flash_attention_bwd.path_launches),
+                         [dict(f.mask_launches) for f in
+                          (fa.flash_attention, fa.flash_attention_bwd)])
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        g_ = TT._value_and_grad(state.params, cfg, tbatch)[2]
+        grads[str(dev)] = {k: t.cpu() for (k, _), t in
+                           zip(T.flatten(state.params), g_)}
+    (mc, nc, _, _, _), (mg, ng, pg, pbg, masks) = out["cpu"], out["cuda"]
+    n = cfg.num_layers * (2 if cfg.is_encdec else 1) + cfg.encoder_layers
+    for m_ in masks:
+        assert m_["causal"] == cfg.num_layers and m_["kv_len"] == 0
+        assert m_["square"] + m_["rect"] == n - cfg.num_layers
+    assert nc["flash_attention"] == nc["flash_attention_bwd"] == 0
+    assert ng["flash_attention"] == ng["flash_attention_bwd"] == n
+    assert pg == {"fma": n, "mma": 0, "split_decode": 0}
+    assert pbg == {"fma": n, "wgmma": 0}
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-5 * abs(mc["loss"])
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
+    assert "frontend_proj" in grads["cpu"]
     for k, exp in grads["cpu"].items():
         assert _rel_err(grads["cuda"][k], exp) <= 1e-4, k

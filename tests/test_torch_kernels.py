@@ -191,6 +191,36 @@ def test_flash_path_choice(dtype, rows, path):
     assert fa.select_path(dtype, rows) == path
 
 
+@pytest.mark.parametrize("causal,kv_len,sq,sk,mask", [
+    (True, None, 256, 256, "causal"),      # a decoder's prefill
+    (True, None, 100, 256, "causal"),
+    (False, 384, 1, 512, "kv_len"),        # a decode step over its cache
+    (False, torch.tensor(384, dtype=torch.int32), 1, 512, "kv_len"),
+    (False, None, 512, 512, "square"),     # an encoder's self-attention
+    (False, None, 256, 512, "rect"),       # cross-attention prefill
+    (False, None, 1, 512, "rect"),         # a cross decode step
+])
+def test_flash_mask_count_key(causal, kv_len, sq, sk, mask):
+    """The mask a K1 call is counted under, forward and backward: the
+    encoder-decoder's encoder, cross-attention and decode calls each have
+    their own, so a run's launches split by role without a config's
+    layer counts."""
+    assert fa.mask_of(causal, kv_len, sq, sk) == mask
+    assert mask in fa.MASKS
+
+
+def test_flash_cpu_calls_count_no_launch():
+    """On CPU tensors K1 takes its plain version, which is no launch: no
+    count moves, by path or by mask."""
+    ops.reset_counts()
+    q = torch.zeros(1, 2, 4, 16)
+    k = torch.zeros(1, 2, 8, 16)
+    ops.flash_attention(q, k, k, causal=False)
+    assert fa.flash_attention.mask_launches == dict.fromkeys(fa.MASKS, 0)
+    assert fa.flash_attention.path_launches == dict.fromkeys(fa.PATHS, 0)
+    assert ops.launch_counts()["flash_attention"] == 0
+
+
 @pytest.mark.parametrize("arch,decode,prefill", [
     ("granite-3-2b", "split_decode", "mma"),
     ("zamba2-2.7b", "split_decode", "mma"),      # G = 1, D = 80

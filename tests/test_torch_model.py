@@ -154,10 +154,11 @@ def test_prefill_step(setup):
 
 @pytest.mark.parametrize("family", ["moe", "encdec"])
 def test_other_families_raise(family):
-    """The encoder-decoder family raises.  Experts are admitted in a
-    decoder-only model, whose schema's leaves and shapes are then JAX's
-    ``model_schema``'s (a ``moe`` block where the dense ``mlp`` was), and
-    still raise in an SSM model."""
+    """Experts and an encoder are admitted in a decoder-only model, whose
+    schema's leaves and shapes are then JAX's ``model_schema``'s (a ``moe``
+    block where the dense ``mlp`` was; the encoder stack, ``ln_enc`` and
+    each decoder block's ``ln_x`` and ``cross``), and still raise in an
+    SSM model."""
     from dataclasses import replace
 
     from repro.configs.base import MoEConfig as JMoEConfig
@@ -166,17 +167,25 @@ def test_other_families_raise(family):
     if family == "moe":
         cfg = replace(get_config(ARCH), moe=MoEConfig(4, 2, 64))
         jcfg = replace(jget_config(ARCH), moe=JMoEConfig(4, 2, 64))
-        exp = [("/".join(str(getattr(e, "key", e)) for e in path), d.shape)
-               for path, d in jax.tree_util.tree_flatten_with_path(
-                   JM.model_schema(jcfg), is_leaf=jparams.is_def)[0]]
-        assert [(k, d.shape) for k, d in T.flatten(TM.model_schema(cfg))] \
-            == exp
+    else:   # seamless's shape: an encoder stack and cross-attention
+        cfg = replace(get_config(ARCH), encoder_layers=2)
+        jcfg = replace(jget_config(ARCH), encoder_layers=2)
+        assert cfg.is_encdec
+    exp = [("/".join(str(getattr(e, "key", e)) for e in path), d.shape)
+           for path, d in jax.tree_util.tree_flatten_with_path(
+               JM.model_schema(jcfg), is_leaf=jparams.is_def)[0]]
+    assert [(k, d.shape) for k, d in T.flatten(TM.model_schema(cfg))] \
+        == exp
+    if family == "moe":
         assert "layers/moe/wi_gate" in dict(exp)
         assert not any("/mlp/" in k for k, _ in exp)
         cfg = replace(get_config("mamba2-370m-smoke"), moe=MoEConfig(4, 2, 64))
-    else:   # seamless's shape: an encoder stack and cross-attention
-        cfg = replace(get_config(ARCH), encoder_layers=2)
-        assert cfg.is_encdec
+    else:
+        assert {"enc_layers/attn/wq", "ln_enc/scale", "layers/cross/wq",
+                "layers/ln_x/scale"} <= set(dict(exp))
+        cache = TM.init_cache(cfg, 2, 8, enc_len=6)
+        assert tuple(cache["cross"]["k"].shape) == (2, 2, 6, 2, 16)
+        cfg = replace(get_config("mamba2-370m-smoke"), encoder_layers=2)
     with pytest.raises(NotImplementedError):
         TM.model_schema(cfg)
     with pytest.raises(NotImplementedError):

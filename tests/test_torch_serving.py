@@ -1,10 +1,13 @@
 """The port's serving slice against the JAX package's: elastic decode of
 ``granite-3-2b-smoke`` (a KV cache), ``mamba2-370m-smoke`` (an SSM state
 and conv tails), ``zamba2-2.7b-smoke`` (both: the SSM cache and one KV
-cache per group, ``shared_kv``) and ``mixtral-8x7b-smoke`` (experts routed
+cache per group, ``shared_kv``), ``mixtral-8x7b-smoke`` (experts routed
 over the batch's tokens each step, a rolling window cache; JAX serving
-runs the MoE layer's global formulation, as the port does) on the CPU,
-from the same parameters.
+runs the MoE layer's global formulation, as the port does),
+``seamless-m4t-medium-smoke`` (a cross cache beside the KV cache, zeros
+as the reference's serving path leaves it, moved along its batch axis on
+a resize) and ``pixtral-12b-smoke`` (text-only decode) on the CPU, from
+the same parameters.
 
 Greedy tokens must be equal (float32 logits on both sides; argmax picks
 the first maximum in both), unchanged by a 4 -> 8 -> 2 resize, and every
@@ -28,7 +31,8 @@ from repro_torch.serve import decode_demo
 from tests.util import run_devices
 
 ARCHS = ["granite-3-2b-smoke", "mamba2-370m-smoke", "zamba2-2.7b-smoke",
-         "mixtral-8x7b-smoke"]
+         "mixtral-8x7b-smoke", "seamless-m4t-medium-smoke",
+         "pixtral-12b-smoke"]
 RUN = dict(batch=8, prompt_len=8, decode_steps=8, cache_len=64)
 SCHEDULE = {10: 8, 13: 2}
 

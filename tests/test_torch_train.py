@@ -323,7 +323,8 @@ class _Mesh:
 
 @pytest.mark.parametrize("arch", ["granite-3-2b", "granite-3-2b-smoke",
                                   "mixtral-8x7b", "mixtral-8x7b-smoke",
-                                  "qwen3-moe-235b-a22b-smoke"])
+                                  "qwen3-moe-235b-a22b-smoke",
+                                  "seamless-m4t-medium", "pixtral-12b"])
 @pytest.mark.parametrize("n", [1, 2, 4, 8])
 def test_state_placements_match_jax_specs(arch, n):
     """Every parameter's mesh-axis entries equal the JAX package's
