@@ -11,7 +11,8 @@ seed -- ``granite-3-2b`` (dense, K1; 10 of its 40 layers, see
 ``GRANITE_LAYERS``; training also at all 40), ``mamba2-370m`` (SSM, K3;
 serving at 12 of its 48 layers, ``MAMBA_SERVE_LAYERS``, training at all
 48), ``zamba2-2.7b`` (hybrid, K3 and K1
-at G = 1, D = 80; all 54 layers, elastic training at 12) -- and checks
+at G = 1, D = 80; serving at 24 of its 54 layers, ``Z_SERVE_LAYERS``,
+training at all 54, elastic training at 12) -- and checks
 that each really ran through its kernels; then the paper's live
 multi-tenant cluster (``dmr.Cluster``) on eight workers of the card, with
 toy tenants and with six full-width ``mamba2-370m`` training tenants; then
@@ -25,7 +26,10 @@ then the encoder-decoder ``seamless-m4t-medium`` at full width and all
 12 + 12 layers (K1 non-causal: the encoder's self-attention and the
 decoder's cross-attention, in prefill, decode and training) and the
 vision-prefix ``pixtral-12b`` at full width (serving at 8 of its 40
-layers, training at 1; K1 causal over 256 patches + the text).
+layers, training at 1; K1 causal over 256 patches + the text); then
+training of the dense configs ``phi4-mini-3.8b``, ``qwen2.5-32b`` and
+``internlm2-20b`` at full width and layer cuts that the port's dry run
+sizes on meta, each step scored against the analytic model FLOPs (MFU).
 Phases:
 
 1. device: ``nvidia-smi`` name and power limit, ``torch.cuda`` name;
@@ -59,7 +63,17 @@ Phases:
    16 rows), causal prefill at S=256 on mma's group kernel (4 key tiles,
    the most it holds at D = 128; counted by the C entry point); device
    times warm and L2-cold, SDPA
-   beside each, the bounds (phase 15's two phi4 rows);
+   beside each, the bounds (phase 15's two phi4 rows); then dense:K1, K1 at
+   the dense training configs' shapes (bf16, D=128, S=4096, causal, with
+   the lse): phi4-mini's (B=8, H=24: G = 3), qwen2.5-32b's (B=2, a
+   microbatch of 8 in 4; H=40: G = 5) and internlm2-20b's (B=4; H=48: G =
+   6), before any of their model phases: the forward on mma's block
+   kernel and the backward on wgmma, twice bit for bit, each batch row
+   against the plain versions within TOL and within ``K1_ULPS`` of each
+   half of the sequence's largest entry (a causal output's first rows are
+   far larger than its last), a dropped middle key tile planted at row 0
+   that the second half's bound must reject; device times, SDPA's forward
+   and backward beside each, the bounds (phase 15's six dense rows);
 3d. moe:K1: K1 at the MoE family's shapes (bf16, D = 128), before any MoE
    model phase: mixtral's (B=16, H=32, Hkv=8: G = 4) and qwen3-moe's
    (H=64, Hkv=4: G = 16, all 16 rows of a split_decode tile) decode over a
@@ -168,18 +182,18 @@ Phases:
 13d. one traced 48-layer step of the static run: device busy time, idle
     share, K3's forward and backward device time and share, the largest
     device operators;
-13e. the zamba2 serving path at ``Z_SERVE_LAYERS`` (all 54): granite's
+13e. the zamba2 serving path at ``Z_SERVE_LAYERS`` (24 of 54): granite's
     ``decode_demo`` schedule; tokens must agree, and each run launches K1
-    once per group per step (9 x 384), all on split_decode, and no K3;
+    once per group per step (4 x 384), all on split_decode, and no K3;
 13f. zamba2 prefill vs decode: ``make_prefill_step`` at B=16, S=1024 must
-    launch K3 once per layer (54, wgmma) and K1 once per group (9, mma);
+    launch K3 once per layer (24, wgmma) and K1 once per group (4, mma);
     then, at ``Z_CHECK_LAYERS`` (the first 12 layers of the same weights),
     fp32 full-sequence logits at every position against the fp32
     token-by-token decode, bf16 prefill and decode against fp32 (largest
     and rms gap, beside the fp32 model with bf16-rounded weights), faults
     planted in each decode's last step (``state_faults``: a state
     advanced twice; in fp32 also a KV slot one back and two KV heads
-    swapped) that the bounds must reject; one traced 54-layer prefill:
+    swapped) that the bounds must reject; one traced 24-layer prefill:
     K3's and K1's shares, the top device kernels;
 13g. zamba2 training: the smoke step at two groups (4 layers, fp32) on
     the card against the CPU's, for loss, gradient norm and every leaf's
@@ -210,13 +224,14 @@ Phases:
 14b. real tenants: the ``steady`` workload of six jobs of six steps on the
     eight workers of the card (``device_count=8``), ``algorithm2``,
     moldable, each tenant ``lm_train_app`` of ``mamba2-370m`` at full
-    width and all 48 layers (global batch 8 of 1024 tokens, ``train_4k``'s
+    width and ``CLUSTER_LAYERS`` (24) of its 48 layers (global batch 8
+    of 1024 tokens, ``train_4k``'s
     4096 cut for the script's time; bf16 over fp32 master weights; AdamW
     1e-3; seeded by its jid), its TrainState on the card and moved by
     ``default`` on every resize; both engines, sanitized: every job
     finishes, the engines agree on ``summary()``, records and trail, the
     most resized tenant's losses are within 1e-4 of the same job run
-    alone, and K3 launches exactly 96 forward and 48 backward kernels per
+    alone, and K3 launches exactly 48 forward and 24 backward kernels per
     tenant step (steps counted from the trail), all on ``wgmma``; wall
     seconds, the median seconds per tenant step, each resize's bytes and
     seconds, the peak of co-resident tenants and of
@@ -296,6 +311,31 @@ Phases:
 22. pixtral training at ``PX_TRAIN_LAYERS`` (1): 4096 = 256 patches + 3840
     text tokens, the loss on the text only, 6 static and 6 elastic steps
     whose losses agree to 1e-4;
+23. phi4-mini training (Listing 2) at full width: the smoke config at
+    phi4's head dim, G and microbatches, one fp32 step on the card
+    against the CPU's; ``P_ELASTIC_LAYERS`` (8) at granite's training
+    settings, ``P_ELASTIC_STEPS`` static and elastic steps whose losses
+    must be equal bit for bit; then a static depth run (a warm step and
+    a timed one) at the first of ``P_STATIC_CUTS`` (32, 24, 16 layers)
+    whose dry-run argument and gradient bytes (``launch/dryrun.py``, on
+    meta) and the other temporaries measured at 8 layers fit in
+    ``DENSE_FIT_GB``; one traced step: K1's forward and backward shares
+    and the chunked CE's (``span_fields``);
+24. qwen2.5-32b training at ``Q_TRAIN_LAYERS`` (2): its smoke step on the
+    card against the CPU's (the QKV bias; 4 microbatches), a static run
+    in 4 microbatches of 2, a traced step (K1 at G = 5);
+25. internlm2-20b training at ``I_TRAIN_LAYERS`` (4) the same way (2
+    microbatches of 4; K1 at G = 6);
+26. the dry run against the card, for each cut of 23-25: the dry run's
+    argument, state and gradient GB (meta) beside what the card holds
+    after ``init_state`` (its state's bytes must equal the dry run's, and
+    the allocator's within ``ALLOC_SLACK_PER_LEAF`` a leaf) and the
+    measured peak; the model
+    FLOPs (``launch/roofline.py``'s ``model_flops``), the counted FLOPs
+    (``launch/flopcount.py``: products, K1 over its causal pairs),
+    ``useful_ratio``, s/step, tokens/s and MFU (model FLOPs over s/step
+    at the bf16 dense peak, 989.4 TFLOP/s), and where the traced step's
+    time went;
 15. one JSON line ``{"kernels": [...]}`` with each kernel's launches, error
     and times at the path's shapes: ``ms`` (CUDA events around 50
     back-to-back calls, host dispatch included), ``device_ms`` (the
@@ -328,7 +368,10 @@ Phases:
     seamless's encoder prefill, cross prefill, cross decode, training
     forward and backward (their launches phases 19's and 20's, counted by
     mask where K1 launches them: ``flash_attention.mask_launches``), and
-    pixtral's prefill (21's).  Then the contract line ``{"ok": true,
+    pixtral's prefill (21's).  The dense training configs add six (phase
+    3c): K1's forward and backward at phi4-mini's, qwen2.5's and
+    internlm2's training shapes (their launches 23's to 25's static depth
+    runs', counted by mask).  Then the contract line ``{"ok": true,
     ...}``.
 
 Any failure exits non-zero before the last line; no phase is caught and
@@ -487,10 +530,14 @@ LIVE_GRID = [("static/rigid", "algorithm2", "rigid", False, "policy"),
 #: malleability wins could not hold
 LIVE_JOBS, LIVE_STEPS, LIVE_DEVICE_COUNT, LIVE_SPAN = 6, 10, 4, 10
 #: phase 14b: six steady jobs of six steps, limits scaled to the whole
-#: pool, each a full-width 48-layer mamba2-370m training job at
-#: TRAIN_BATCH x CLUSTER_SEQ tokens a step (train_4k's 4096 cut to 1024
-#: for the script's time)
-CLUSTER_JOBS, CLUSTER_STEPS, CLUSTER_SEQ = 6, 6, 1024
+#: pool, each a full-width mamba2-370m training job at CLUSTER_LAYERS of its
+#: 48 layers and TRAIN_BATCH x CLUSTER_SEQ tokens a step (train_4k's 4096
+#: cut to 1024 for the script's time).  A depth cut of an earlier path
+#: since the dense training phases joined: its tenant steps are
+#: host-bound (the card idles 0.40-0.65 of them), both engines run the
+#: workload, and at 48 layers it took 86-90 s of a script that reached
+#: 1147-1162 s on slow hosts; every check counts from the config's layers
+CLUSTER_JOBS, CLUSTER_STEPS, CLUSTER_SEQ, CLUSTER_LAYERS = 6, 6, 1024, 24
 
 ZAMBA = "zamba2-2.7b"               # the hybrid family, at full width
 #: its shared attention is multi-head (H = Hkv = 32, G = 1) at head dim 80
@@ -505,15 +552,18 @@ Z_SSD_TRAIN = (TRAIN_BATCH, 80, 4096, 64, 64, 256)
 #: resize clones the whole state, 29.1 GB at 54 layers, which with the
 #: step's own peak does not fit the card; the static run takes all 54
 Z_ELASTIC_LAYERS = 12
-#: zamba2 serving and the prefill that counts its launches, in layers (all
-#: 54); the prefill-vs-decode logits checks run the first 12 (two groups)
-#: of the same weights: their two 1024-step decode loops are host-bound
-#: (75-175 ms a step at 54 layers on H100 hosts) and took 210 of the
-#: script's 590 s there, 100-138 s of 823-1032 at 24 layers, where the
-#: whole script, with the encoder-decoder and vision phases, took 963 s
-#: on a 109 ms host.  A depth cut of an earlier check: its bounds are set
-#: from 12-layer readings and shown to reject planted faults
-Z_SERVE_LAYERS, Z_CHECK_LAYERS = 54, 12
+#: zamba2 serving and the prefill that counts its launches run 24 of its
+#: 54 layers (four groups; all 54 until the dense training phases joined:
+#: its two 384-step decode loops are host-bound, 109-159 ms a step at 54
+#: layers on H100 hosts, and took 115 s of a 1162 s run on a 145-159 ms
+#: host, 38 s short of the limit); the prefill-vs-decode logits checks
+#: run the first 12 (two groups) of the same weights: their two 1024-step
+#: decode loops are host-bound too and took 100-138 s of 823-1032 at 24
+#: layers.  Depth cuts of earlier checks: the serving check compares
+#: tokens, caches and launch counts exactly at any depth, and the logits
+#: bounds are set from 12-layer readings and shown to reject planted
+#: faults; zamba2 training keeps all 54
+Z_SERVE_LAYERS, Z_CHECK_LAYERS = 24, 12
 #: zamba2 fp32 full-sequence logits vs the token-by-token decode at every
 #: one of the 1024 positions, at Z_CHECK_LAYERS, by the largest and the
 #: rms gap.  The same function in fp32 through the SSM layers and the
@@ -651,6 +701,37 @@ PX_SERVE_LAYERS, PX_TRAIN_LAYERS = 8, 1
 #: a seeded random cross cache for seamless) within 1e-4: the same
 #: function in fp32 on both (no TF32), differing in summation order only
 ZOO_CHECK_LAYERS, ZOO_FP32_ATOL, ZOO_CHECK_STEPS = 2, 1e-4, 8
+
+#: the dense training configs at full width (phases 3c, 23-26):
+#: phi4-mini-3.8b (32 layers, 24 query heads over 8 of 128: G = 3),
+#: qwen2.5-32b (64 layers, 40 over 8: G = 5, a QKV bias, 4 microbatches of
+#: the batch) and internlm2-20b (48 layers, 48 over 8: G = 6, 2
+#: microbatches); K1 at their training shapes B = 8, 2 and 4 a microbatch
+DENSE_TRAIN = {"phi4": PHI4, "qwen2.5": "qwen2.5-32b",
+               "internlm2": "internlm2-20b"}
+#: phi4's elastic and static pair at 8 layers (1.420 B parameters: a 17.0
+#: GB state that a resize clones); TRAIN_SCHEDULE's two resizes take 5
+#: steps.  Its static depth run takes the first of these cuts whose
+#: dry-run argument and gradient bytes, and the other temporaries
+#: measured at 8 layers (the peak less the argument and the gradients:
+#: activations, the CE's chunk logits over 200064 columns), fit in
+#: DENSE_FIT_GB of the card.  The gradients grow with the depth, so they
+#: come from the dry run at each cut: on an H100 80GB HBM3 (700 W) the
+#: 8-layer step peaked at 56.44 GB (17.04 of argument, 5.68 of gradients,
+#: 33.72 other), the 24-layer one at 78.99 (predicted 82.21; without the
+#: gradients' growth, 75.77), and 32 ran out of memory
+P_ELASTIC_LAYERS, P_ELASTIC_STEPS, P_STATIC_CUTS = 8, 5, (32, 24, 16)
+DENSE_FIT_GB = 76.0
+#: qwen2.5 static at 2 of its 64 layers (2.532 B parameters: a 30.4 GB
+#: state, 50.6 with its gradients and their microbatch sums), internlm2 at
+#: 4 of its 48 (2.697 B: 32.4 GB, 54.0); each static dense run a warm step
+#: and a timed one (two timed took the script to 1162 s on a slow host)
+Q_TRAIN_LAYERS, I_TRAIN_LAYERS, DENSE_STEPS = 2, 4, 2
+#: the card's caching allocator rounds each tensor up to 512 bytes and
+#: leaves a large one's block unsplit when less than 1 MiB would remain:
+#: what the card holds after init_state may pass the state's bytes by at
+#: most this much a leaf
+ALLOC_SLACK_PER_LEAF = 2 ** 20 + 512
 
 
 def fail(msg: str) -> None:
@@ -1161,7 +1242,9 @@ def main() -> None:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import blockcyclic as bc
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import meta as kmeta
     from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.launch import dryrun, flopcount, roofline
     from repro_torch.kernels.ref import (attention_backward_reference,
                                          attention_lse_reference,
                                          attention_reference,
@@ -1962,7 +2045,8 @@ def main() -> None:
     z_note = f"zamba2-2.7b's {DEPTH_STEPS}-step 54-layer training run"
     for name, path, note, err, fn, dms, plain, b_, lib, ldms, shape in (
         ("flash_attention_fwd (zamba2 decode, G=1, D=80)", "split_decode",
-         "one decode_demo run at 54 layers (9 groups)",
+         f"one decode_demo run at {Z_SERVE_LAYERS} layers "
+         f"({Z_SERVE_LAYERS // zcfg.shared_attention_every} groups)",
          z_err["decode"], zk1_dec, "Z K1 decode",
          (lambda: attention_reference(*zdargs, causal=False, kv_len=z_kv),
           20), zb_dec, zsdpa_dec, "Z SDPA decode",
@@ -2080,6 +2164,35 @@ def main() -> None:
                 for f_ in ("device_ms", "device_ms_cold", "library_device_ms",
                            "library_device_ms_cold", "bound_ms") if f_ in r_}
 
+    def ulp_check(out, exp, what) -> tuple:
+        """``out`` against its plain version ``exp``: the largest error
+        held to K1_ULPS bf16 units in the last place of exp's largest
+        magnitude.  Returns the error and the bound."""
+        top = exp.float().abs().max().item()
+        bound = K1_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
+        err = (out.float() - exp.float()).abs().max().item()
+        if err > bound:
+            fail(f"{what}: max abs error {err:.3e} over {K1_ULPS} bf16 ulps "
+                 f"of its largest entry {top:.3e} ({bound:.3e})")
+        return err, bound
+
+    def drop_tile(k, v):
+        """k and v without their middle 64-key tile, and its first key:
+        what a kernel that skipped that tile would read."""
+        t0 = k.shape[2] // fa.TILE_K // 2 * fa.TILE_K
+        keep = torch.cat([torch.arange(t0, device=k.device), torch.arange(
+            t0 + fa.TILE_K, k.shape[2], device=k.device)])
+        return k[:, :, keep], v[:, :, keep], t0
+
+    def caught(planted, exp, bound, what) -> float:
+        """A planted fault's gap from ``exp``, which ``bound`` must
+        reject."""
+        gap = (planted.float() - exp.float()).abs().max().item()
+        if gap <= bound:
+            fail(f"{what}: a planted one-tile drop moves it by {gap:.3e}, "
+                 f"within the bound {bound:.3e}")
+        return gap
+
     sdpa = F.scaled_dot_product_attention
     # -- 3c. phi4:K1 -- K1 at phi4-mini's shapes (G = 3, D = 128: shapes no
     # earlier phase ran), before any phi4 model phase: decode over its
@@ -2151,6 +2264,170 @@ def main() -> None:
           **row_fields(p_rows))
     del pkc, pvc, pdargs, ppargs
     torch.cuda.empty_cache()
+
+    def ulp_bands(out, exp, what) -> list:
+        """``ulp_check`` on each half of the sequence axis (dim 2: the
+        rows of o and dq, the keys of dk and dv), each against its own
+        largest entry: a causal output's first rows (row 0 is v's first
+        key itself) are far larger than its last, which average thousands
+        of keys.  Returns each half's (error, bound)."""
+        h_ = out.shape[2] // 2
+        return [ulp_check(out[:, :, sl], exp[:, :, sl], f"{what}, {nm}")
+                for nm, sl in (("first half", slice(0, h_)),
+                               ("second half", slice(h_, None)))]
+
+    def causal_tile_drop(q, k, v, do):
+        """o and dq of causal attention at one batch row, in fp32, with the
+        middle 64-key tile left out of every row's keys: what a kernel that
+        skipped that tile would give.  Returns them and the tile's first
+        key."""
+        S_ = k.shape[2]
+        t0 = S_ // fa.TILE_K // 2 * fa.TILE_K
+        qf = q.float().requires_grad_()
+        kf, vf = (t.float().repeat_interleave(q.shape[1] // k.shape[1], 1)
+                  for t in (k, v))
+        ii = torch.arange(S_, device=q.device)
+        keep = (ii[:, None] >= ii[None, :]) & ~(
+            (ii[None, :] >= t0) & (ii[None, :] < t0 + fa.TILE_K))
+        s_ = (qf @ kf.transpose(-1, -2)) * q.shape[-1] ** -0.5
+        o_ = torch.softmax(s_.masked_fill(~keep, float("-inf")), -1) @ vf
+        dq_, = torch.autograd.grad(o_, qf, do.float())
+        return o_.detach(), dq_, t0
+
+    # -- 3c, continued: dense:K1 -- K1 at the dense training configs'
+    # shapes (bf16, D = 128, S = 4096, causal, with the lse), before any of
+    # their model phases: phi4-mini's (B = 8, H = 24, Hkv = 8: G = 3),
+    # qwen2.5's (B = 2, a microbatch of 8 in 4; H = 40: G = 5) and
+    # internlm2's (B = 4, a microbatch in 2; H = 48: G = 6).  The forward
+    # on mma's block kernel, the backward on wgmma, twice bit for bit; each
+    # batch row against the plain versions within TOL (BWD_TOL) and within
+    # K1_ULPS of each half's largest entry (each output on its own), a
+    # dropped middle key tile planted at row 0 that the second half's
+    # bound must reject; device times warm and L2-cold (each call on its
+    # own copy of the inputs, SDPA's backward on its own graph's saved
+    # tensors), SDPA's forward and backward beside each, the bounds (phase
+    # 15's six dense rows)
+    dense_k1 = {}              # tag -> (rows, errors, tile-drop gaps)
+    for dn_tag, dn_name in DENSE_TRAIN.items():
+        dn_c = get_config(dn_name)
+        dB = TRAIN_BATCH // dn_c.train_microbatches
+        dH, dHkv, dD = dn_c.num_heads, dn_c.num_kv_heads, dn_c.head_dim
+        dq_, ddo_ = (rand((dB, tS, dH, dD), bf16).transpose(1, 2)
+                     for _ in range(2))
+        dk_, dv_ = (rand((dB, tS, dHkv, dD), bf16).transpose(1, 2)
+                    for _ in range(2))
+        fwd0 = dict(fa.flash_attention.path_launches)
+        bwd0 = dict(fa.flash_attention_bwd.path_launches)
+        mma0 = fa.mma_kernel_launches()
+        dn_set = (dq_, dk_, dv_, *fa.flash_attention_lse(dq_, dk_, dv_,
+                                                         causal=True))
+        dn_set = dn_set[:4] + (ddo_, dn_set[4])     # q, k, v, o, dO, lse
+        del dq_, dk_, dv_, ddo_
+        dn_g = [ops.flash_attention_bwd(*dn_set, causal=True)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        moved = ({p: n - fwd0[p] for p, n in
+                  fa.flash_attention.path_launches.items()},
+                 {p: n - bwd0[p] for p, n in
+                  fa.flash_attention_bwd.path_launches.items()},
+                 {k_: n_ - mma0[k_] for k_, n_ in
+                  fa.mma_kernel_launches().items()})
+        if moved != ({"fma": 0, "mma": 1, "split_decode": 0},
+                     {"fma": 0, "wgmma": 2}, {"block": 1, "group": 0}):
+            fail(f"K1 at {dn_tag}'s training shape took {moved}")
+        if not all(torch.equal(a, b) for a, b in zip(*dn_g)):
+            fail(f"K1 backward at {dn_tag}'s training shape: two runs "
+                 "differ")
+        t_names = ("o", "dq", "dk", "dv")
+        # per output: the TOL error, and each half's K1_ULPS error and
+        # least bound over the batch rows
+        dn_err = {n_: [0.0, [0.0, np.inf], [0.0, np.inf]] for n_ in t_names}
+        dn_drop, dn_lse = {}, 0.0
+        for b_ in range(dB):
+            a_ = [t[b_:b_ + 1] for t in dn_set]
+            dn_lse = max(dn_lse, check_close(
+                a_[5], attention_lse_reference(*a_[:2], causal=True),
+                "float32", f"K1 lse at {dn_tag}'s train shape, row {b_}",
+                BWD_TOL["float32"]))
+            got_ = dict(zip(t_names, (a_[3], *(g_[b_:b_ + 1]
+                                               for g_ in dn_g[0]))))
+            exp_ = dict(zip(t_names, (
+                attention_reference(*a_[:3], causal=True),
+                *attention_backward_reference(*a_, causal=True))))
+            bands = {}
+            for n_ in t_names:
+                e_ = check_close(got_[n_], exp_[n_], "bfloat16",
+                                 f"K1 at {dn_tag}'s train shape, {n_} of "
+                                 f"row {b_}", BWD_TOL["bfloat16"])
+                bands[n_] = ulp_bands(got_[n_], exp_[n_], f"K1 at {dn_tag}'s"
+                                      f" train shape, {n_} of row {b_}")
+                dn_err[n_] = [max(dn_err[n_][0], e_)] + [
+                    [max(h[0], u[0]), min(h[1], u[1])]
+                    for h, u in zip(dn_err[n_][1:], bands[n_])]
+            if b_ == 0:
+                od_, dqd_, t0 = causal_tile_drop(a_[0], a_[1], a_[2], a_[4])
+                planted = {"o": od_, "dq": dqd_}
+                for n_ in ("dk", "dv"):     # that tile's rows left unwritten
+                    planted[n_] = exp_[n_].clone()
+                    planted[n_][:, :, t0:t0 + fa.TILE_K] = 0
+                h_ = tS // 2                # the tile opens the second half
+                for n_ in t_names:
+                    dn_drop[n_] = caught(
+                        planted[n_][:, :, h_:], exp_[n_][:, :, h_:],
+                        bands[n_][1][1], f"K1 at {dn_tag}'s train shape, "
+                        f"{n_}")
+                del od_, dqd_, planted
+            del got_, exp_
+        del dn_g
+        dsq, dsk, dsv = (t.detach().requires_grad_() for t in dn_set[:3])
+        ds_out = sdpa(dsq, dsk, dsv, is_causal=True, enable_gqa=True)
+        dshape = (f"B={dB} H={dH} Hkv={dHkv} D={dD} S={tS} causal bf16 (a "
+                  f"microbatch of {TRAIN_BATCH} in "
+                  f"{dn_c.train_microbatches})")
+        f_w = kmeta.attention_work(dB, dH, dHkv, tS, tS, dD, 2, True,
+                                   with_lse=True)
+        b_w = kmeta.attention_work(dB, dH, dHkv, tS, tS, dD, 2, True,
+                                   backward=True)
+        dn_rows = {
+            "train fwd": k1_row(
+                f"flash_attention_fwd ({dn_tag} train, G={dH // dHkv}, "
+                f"D={dD}, with lse)", dn_set[:3],
+                lambda q_, k_, v_: fa.flash_attention_lse(q_, k_, v_,
+                                                          causal=True),
+                lambda q_, k_, v_: sdpa(q_, k_, v_, is_causal=True,
+                                        enable_gqa=True),
+                (per_row(attention_reference, dn_set[:3]), 2),
+                bound_ms(f_w[1], f_w[0], "bfloat16"), "mma",
+                dn_err["o"][0], dshape + ", the block kernel", iters=8),
+            "train bwd": k1_row(
+                f"flash_attention_bwd ({dn_tag} train, G={dH // dHkv}, "
+                f"D={dD})", dn_set,
+                lambda *a_: ops.flash_attention_bwd(*a_, causal=True),
+                lambda *a_, o_=ds_out, l_=(dsq, dsk, dsv): torch.autograd
+                .grad(o_, l_, a_[4], retain_graph=True),
+                (per_row(attention_backward_reference, dn_set), 2),
+                bound_ms(b_w[1], b_w[0], "bfloat16"), "wgmma",
+                max(dn_err[n_][0] for n_ in t_names[1:]), dshape, iters=4,
+                source=attn_bwd_src)}
+        halves = lambda e_: {"first_half": e_[1], "second_half": e_[2]}
+        dn_rows["train fwd"]["max_abs_err_ulps"] = halves(dn_err["o"])
+        dn_rows["train bwd"]["max_abs_err_by_gradient"] = {
+            n_: dict(max_abs_err=e_[0], ulps=halves(e_))
+            for n_, e_ in dn_err.items() if n_ != "o"}
+        dense_k1[dn_tag] = (dn_rows, dn_err, dn_drop)
+        phase(f"dense:K1:{dn_tag}", shape=dshape.replace(" ", "_"),
+              paths="mma,wgmma", mma_kernel="block",
+              bwd_bitwise_repeatable=True, lse_err=f"{dn_lse:.3e}",
+              tol=TOL["bfloat16"], ulps=K1_ULPS,
+              err=json.dumps({n_: [f"{e_[0]:.3e}"] + [
+                  f"{h[0]:.3e}/{h[1]:.3e}" for h in e_[1:]]
+                  for n_, e_ in dn_err.items()}, separators=(",", ":")),
+              tile_drop_gap=json.dumps({k_: f"{v_:.3e}"
+                                        for k_, v_ in dn_drop.items()},
+                                       separators=(",", ":")),
+              **row_fields(dn_rows))
+        del dn_set, ds_out, dsq, dsk, dsv
+        torch.cuda.empty_cache()
     mark("phi4_K1")
 
     # -- 3d. moe:K1 -- K1 at the MoE family's shapes (D = 128), before any
@@ -2329,35 +2606,6 @@ def main() -> None:
     del xbwd_set, xs_out, xsq, xsk, xsv, wargs, wlib, band
     torch.cuda.empty_cache()
     mark("moe_K1")
-
-    def ulp_check(out, exp, what) -> tuple:
-        """``out`` against its plain version ``exp``: the largest error
-        held to K1_ULPS bf16 units in the last place of exp's largest
-        magnitude.  Returns the error and the bound."""
-        top = exp.float().abs().max().item()
-        bound = K1_ULPS * 2.0 ** (np.floor(np.log2(top)) - 7)
-        err = (out.float() - exp.float()).abs().max().item()
-        if err > bound:
-            fail(f"{what}: max abs error {err:.3e} over {K1_ULPS} bf16 ulps "
-                 f"of its largest entry {top:.3e} ({bound:.3e})")
-        return err, bound
-
-    def drop_tile(k, v):
-        """k and v without their middle 64-key tile, and its first key:
-        what a kernel that skipped that tile would read."""
-        t0 = k.shape[2] // fa.TILE_K // 2 * fa.TILE_K
-        keep = torch.cat([torch.arange(t0, device=k.device), torch.arange(
-            t0 + fa.TILE_K, k.shape[2], device=k.device)])
-        return k[:, :, keep], v[:, :, keep], t0
-
-    def caught(planted, exp, bound, what) -> float:
-        """A planted fault's gap from ``exp``, which ``bound`` must
-        reject."""
-        gap = (planted.float() - exp.float()).abs().max().item()
-        if gap <= bound:
-            fail(f"{what}: a planted one-tile drop moves it by {gap:.3e}, "
-                 f"within the bound {bound:.3e}")
-        return gap
 
     # -- 3e. zoo:K1 -- K1 at the encoder-decoder (seamless-m4t: H = Hkv =
     # 16, G = 1, D = 64) and the vision-prefix (pixtral: 32 heads over 8 of
@@ -3066,12 +3314,18 @@ def main() -> None:
         path and by mask too)."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         app = lm_train_app(c, tshape, AdamW(learning_rate=1e-3), seed=0)
         runner = dmr.MalleableRunner(
             app, dmr.MalleabilityParams(*TRAIN_PARAMS),
             dmr.ScriptedRMS(schedule), devices=logical_workers(WORKERS, dev))
         state = runner.init()
         torch.cuda.synchronize()
+        # what the card holds of the run (its state, after init) and
+        # beside it before: phase 26 holds the dry run's bytes to these
+        runner.base_bytes = base
+        runner.init_bytes = torch.cuda.memory_allocated() - base
+        runner.state_bytes = sum(t.nbytes for t in T.leaves(state))
         ops.reset_counts()
         losses, secs = [], []
         runner.moe_losses = []
@@ -3121,27 +3375,32 @@ def main() -> None:
                  f"{want} on the paths {want_paths}")
         if not all(np.isfinite(losses)):
             fail(f"{L}-layer training losses {losses}")
+        runner.secs = secs
+        runner.peak_bytes = torch.cuda.max_memory_allocated()
         return runner, state, losses, secs, counts
 
     def step_s(secs):
         """Median seconds per step, the first (warm-up) step left out."""
         return float(np.median(secs[1:]))
 
-    def elastic_pair(c, tag):
-        """``TRAIN_STEPS`` static and elastic (``TRAIN_SCHEDULE``) steps of
-        ``c``, whose losses must agree to ``TRAIN_LOSS_TOL``.  Returns the
-        static run's runner, state and kernel counts."""
+    def elastic_pair(c, tag, steps=TRAIN_STEPS, exact=False,
+                     keep_state=True):
+        """``steps`` static and elastic (``TRAIN_SCHEDULE``) steps of
+        ``c``, whose losses must agree to ``TRAIN_LOSS_TOL`` (bit for bit
+        when ``exact``).  Returns the static run's runner, state (freed
+        before the elastic run, and None, unless ``keep_state``) and
+        kernel counts."""
         out = {}
         for label, schedule in (("static", {}), ("elastic", TRAIN_SCHEDULE)):
             runner, state, losses, secs, counts = train_run(c, schedule,
-                                                            TRAIN_STEPS)
+                                                            steps)
             phase(f"{tag}:{label}", layers=c.num_layers,
                   batch=TRAIN_BATCH, seq=tshape.seq_len,
                   losses=",".join(f"{x:.6f}" for x in losses),
                   step_s=",".join(f"{x:.3f}" for x in secs),
                   s_per_step=f"{step_s(secs):.4f}",
                   tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
-                  per_step=json.dumps({k_: counts[k_] / TRAIN_STEPS for k_ in
+                  per_step=json.dumps({k_: counts[k_] / steps for k_ in
                                        counts["paths"]},
                                       separators=(",", ":")),
                   paths=json.dumps(counts["paths"], separators=(",", ":")),
@@ -3159,23 +3418,27 @@ def main() -> None:
                       sizes=f"{ev.from_procs}->{ev.to_procs}",
                       bytes_moved=ev.transfer.bytes_moved,
                       seconds=f"{ev.transfer.seconds:.4f}")
-            out[label] = (runner, state if label == "static" else None,
-                          losses, counts)
+            out[label] = (runner, state if label == "static" and
+                          keep_state else None, losses, counts)
             del state
         static_l, elastic_l = out["static"][2], out["elastic"][2]
         gap_ = max(abs(a - b) for a, b in zip(static_l, elastic_l))
         actions = [e.action for e in out["elastic"][0].events]
-        if gap_ > TRAIN_LOSS_TOL or actions != ["expand", "shrink"]:
+        if gap_ > (0.0 if exact else TRAIN_LOSS_TOL) or \
+                actions != ["expand", "shrink"]:
             fail(f"{tag} elastic training: losses {elastic_l} vs static "
                  f"{static_l} (gap {gap_:.3e} > {TRAIN_LOSS_TOL}?), actions "
                  f"{actions}")
         runner, state, _, counts = out["static"]
         phase(tag, elastic_vs_static_max_gap=f"{gap_:.3e}",
-              tol=TRAIN_LOSS_TOL, actions=",".join(actions),
-              state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}")
+              tol=0.0 if exact else TRAIN_LOSS_TOL,
+              actions=",".join(actions),
+              **({"state_gb": f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}"}
+                 if state is not None else {}))
         return runner, state, counts
 
-    def traced_step(runner, state, step, want, groups=None, spans=None):
+    def traced_step(runner, state, step, want, groups=None, spans=None,
+                    required=True):
         """One traced ``runner.step``, taken again (four times at most)
         while the profiler dropped a record: ``want`` maps a name to a test
         on a device record's key and the records a step launches;
@@ -3202,6 +3465,8 @@ def main() -> None:
             print(f"chip_smoke: traced train step: the profiler kept {got} "
                   "records: taken again", file=sys.stderr, flush=True)
         else:
+            if not required:            # a measurement the caller may lack
+                return state, None, None
             fail(f"the profiler dropped records of {list(want)} in four "
                  "traced train steps")
         busy = sum(device_us(e) for e in evs) / 1e3
@@ -3553,7 +3818,7 @@ def main() -> None:
     mark("cluster_grid")
 
     # -- 14b. real tenants: full-width mamba2-370m training in the cluster --
-    ccfg = get_config(MAMBA)
+    ccfg = dataclasses.replace(get_config(MAMBA), num_layers=CLUSTER_LAYERS)
     cshape = dataclasses.replace(get_shape(TRAIN_SHAPE),
                                  global_batch=TRAIN_BATCH,
                                  seq_len=CLUSTER_SEQ)
@@ -4158,6 +4423,203 @@ def main() -> None:
     torch.cuda.empty_cache()
     mark("pixtral_train")
 
+    # -- 23-25. dense training (Listing 2) of phi4-mini-3.8b, qwen2.5-32b
+    # and internlm2-20b at full width; each cut sized first by the dry run
+    # on meta (launch/dryrun.py: argument and gradient bytes, the step's
+    # counted FLOPs) ------------------------------------------------------
+    def dense_smoke(name, tag):
+        """``name``'s smoke config at its full config's head dim, GQA ratio
+        and microbatches: one fp32 step on the card (K1 and its backward
+        on fma, once a layer and microbatch) against the CPU's, loss within
+        1e-5 and gradient norm within 1e-4 relative (phase 11's bounds)."""
+        full = get_config(name)
+        c = dataclasses.replace(
+            get_config(f"{name}-smoke"), head_dim=full.head_dim,
+            num_kv_heads=2, num_heads=2 * full.num_heads // full.num_kv_heads,
+            train_microbatches=full.train_microbatches)
+        batch = lm_train_app(c, dataclasses.replace(
+            get_shape("smoke"), global_batch=8)).dataset.batch_at(0)
+        got = {}
+        for d in ("cpu", dev):
+            st = T.tree_map(lambda t: t.to(d), init_state(c, sopt, 0))
+            ops.reset_counts()
+            _, m = make_train_step(c, sopt)(
+                st, {k_: torch.from_numpy(v_).to(d)
+                     for k_, v_ in batch.items()})
+            got[str(d)] = (float(m["loss"]), float(m["grad_norm"]),
+                           kernel_launches())
+        (l_c, g_c, _), (l_g, g_g, n_g) = got["cpu"], got[str(dev)]
+        n_ = c.num_layers * c.train_microbatches
+        if n_g["flash_attention"] != n_ or \
+                n_g["flash_attention_bwd"] != n_ or \
+                n_g["paths"] != {"fma": n_, "mma": 0, "split_decode": 0}:
+            fail(f"{tag} smoke train step launched {n_g}")
+        if abs(l_g - l_c) > 1e-5 * abs(l_c) or \
+                abs(g_g - g_c) > 1e-4 * abs(g_c):
+            fail(f"{tag} smoke train step: card loss {l_g} / grad norm "
+                 f"{g_g} vs CPU {l_c} / {g_c}")
+        phase(f"{tag}:train:smoke", heads=f"{c.num_heads}/{c.num_kv_heads}",
+              head_dim=c.head_dim, microbatches=c.train_microbatches,
+              loss_card=f"{l_g:.7f}", loss_cpu=f"{l_c:.7f}",
+              grad_norm_card=f"{g_g:.6f}", grad_norm_cpu=f"{g_c:.6f}")
+
+    def dense_cut(c):
+        """The dry run of ``c`` at the training shape, on meta: the state's
+        and the batch's bytes, the gradients', one step's count and its
+        model FLOPs."""
+        step_, args_ = dryrun.abstract_args(c, tshape)
+        arg_ = dryrun.argument_bytes(c, tshape, args_)
+        return dict(state=arg_["state"], argument=sum(arg_.values()),
+                    grads=dryrun.grad_bytes(c, tshape, args_["state"]),
+                    leaves=len(T.leaves(args_["state"])),
+                    count=flopcount.count(step_, *args_.values()),
+                    model_flops=roofline.model_flops(c, tshape))
+
+    def dense_record(runner, cut):
+        """A cut's dry run beside what the card measured in its run."""
+        s_ = step_s(runner.secs)
+        return dict(cut, s_per_step=s_, peak=runner.peak_bytes -
+                    runner.base_bytes, init=runner.init_bytes,
+                    card_state=runner.state_bytes,
+                    mfu=roofline.measured_mfu(cut["model_flops"], s_))
+
+    def dense_profile(c, runner, state, tag):
+        """One traced step of ``runner``: K1's forward and backward shares
+        and the chunked CE's (``span_fields``); None, with a line that
+        says so, when the profiler dropped records in four attempts (late
+        in this long process it does: phase 26 needs one of the three)."""
+        nl = c.num_layers * c.train_microbatches   # layer passes a step
+        state, fields, _ = traced_step(runner, state, DENSE_STEPS, {
+            "k1_fwd": (is_k1_fwd, 2 * nl), "k1_bwd": (is_k1_bwd, 3 * nl)},
+            spans={"ce": CE_SPAN}, required=False)
+        if fields is None:
+            phase(f"{tag}:train:profile", layers=c.num_layers,
+                  not_measured="the profiler dropped records in four "
+                               "traced steps")
+            return None
+        if float(fields["ce_ms"]) <= 0:
+            fail(f"the profiler saw no device time in the traced {tag} "
+                 f"step's CE span ({CE_SPAN})")
+        phase(f"{tag}:train:profile", layers=c.num_layers, **fields)
+        return fields
+
+    def dense_static(c, tag):
+        """``DENSE_STEPS`` static steps of ``c``: s/step, tokens/s, peak;
+        then one traced step.  Returns its record and kernel counts."""
+        cut = dense_cut(c)
+        runner, state, losses, secs, counts = train_run(c, {}, DENSE_STEPS)
+        rec = dense_record(runner, cut)
+        phase(f"{tag}:train:depth", layers=c.num_layers,
+              microbatches=c.train_microbatches,
+              losses=",".join(f"{x:.6f}" for x in losses),
+              step_s=",".join(f"{x:.3f}" for x in secs),
+              s_per_step=f"{rec['s_per_step']:.4f}",
+              tokens_per_s=f"{tokens_per_step / rec['s_per_step']:.0f}",
+              per_step=json.dumps({k_: counts[k_] / DENSE_STEPS for k_ in
+                                   counts["paths"]}, separators=(",", ":")),
+              state_gb=f"{cut['state'] / 1e9:.2f}",
+              peak_gb=f"{rec['peak'] / 1e9:.2f}")
+        prof = dense_profile(c, runner, state, tag)
+        if prof is not None:
+            rec["profile"] = prof
+        del runner, state
+        torch.cuda.empty_cache()
+        return rec, counts
+
+    dense_runs, dense_counts = {}, {}
+    # -- 23. phi4-mini: the smoke step against the CPU; elastic and static
+    # training at P_ELASTIC_LAYERS, bit for bit; the static depth run at
+    # the largest cut the dry run and the 8-layer temporaries fit
+    pfull = get_config(PHI4)
+    dense_smoke(PHI4, "phi4")
+    p8 = dataclasses.replace(pfull, num_layers=P_ELASTIC_LAYERS)
+    p8_cut = dense_cut(p8)
+    # the static run's state is freed before the elastic run: both beside
+    # the step's 33 GB of other temporaries do not fit the card
+    runner, _, counts = elastic_pair(p8, "phi4:train", steps=P_ELASTIC_STEPS,
+                                     exact=True, keep_state=False)
+    dense_runs[f"phi4:{P_ELASTIC_LAYERS}"] = dense_record(runner, p8_cut)
+    # the 8-layer step's temporaries besides its gradients
+    p_other = dense_runs[f"phi4:{P_ELASTIC_LAYERS}"]["peak"] - \
+        p8_cut["argument"] - p8_cut["grads"]
+    del runner
+    torch.cuda.empty_cache()
+    mark("phi4_train")
+    p_fit = {}
+    for L_ in P_STATIC_CUTS:
+        c_ = dense_cut(dataclasses.replace(pfull, num_layers=L_))
+        p_fit[L_] = c_["argument"] + c_["grads"] + p_other
+        if p_fit[L_] <= DENSE_FIT_GB * 1e9:
+            break
+    else:
+        fail(f"no phi4 static cut of {P_STATIC_CUTS} fits {DENSE_FIT_GB} "
+             f"GB: {p_fit}")
+    phase("phi4:train:fit", other_temps_gb_at_8=f"{p_other / 1e9:.2f}",
+          predicted_peak_gb=json.dumps({k_: round(v_ / 1e9, 2) for k_, v_
+                                        in p_fit.items()},
+                                       separators=(",", ":")),
+          limit_gb=DENSE_FIT_GB, cut=L_)
+    pL = dataclasses.replace(pfull, num_layers=L_)
+    dense_runs[f"phi4:{L_}"], dense_counts["phi4"] = dense_static(pL, "phi4")
+    dense_runs[f"phi4:{L_}"]["predicted_peak"] = p_fit[L_]
+    mark("phi4_train_depth")
+
+    # -- 24. qwen2.5-32b: its QKV bias, 4 microbatches of 2; K1 at G = 5 --
+    qfull = get_config(DENSE_TRAIN["qwen2.5"])
+    dense_smoke(qfull.name, "qwen2.5")
+    dense_runs[f"qwen2.5:{Q_TRAIN_LAYERS}"], dense_counts["qwen2.5"] = \
+        dense_static(dataclasses.replace(qfull, num_layers=Q_TRAIN_LAYERS),
+                     "qwen2.5")
+    mark("qwen2_5_train")
+
+    # -- 25. internlm2-20b: 2 microbatches of 4; K1 at G = 6 --------------
+    ifull = get_config(DENSE_TRAIN["internlm2"])
+    dense_smoke(ifull.name, "internlm2")
+    dense_runs[f"internlm2:{I_TRAIN_LAYERS}"], dense_counts["internlm2"] = \
+        dense_static(dataclasses.replace(ifull, num_layers=I_TRAIN_LAYERS),
+                     "internlm2")
+    mark("internlm2_train")
+
+    # -- 26. the dry run against the card: for each cut the dry run's
+    # bytes (meta) beside the card's (after init_state, and the peak), the
+    # counted and model FLOPs, s/step, tokens/s, MFU at the bf16 peak
+    for key, r_ in dense_runs.items():
+        slack = ALLOC_SLACK_PER_LEAF * r_["leaves"]
+        if r_["card_state"] != r_["state"] or \
+                not 0 <= r_["init"] - r_["state"] <= slack:
+            fail(f"dense:dryrun {key}: the card's state is "
+                 f"{r_['card_state']} bytes and the allocator holds "
+                 f"{r_['init']} after init_state; the dry run's state is "
+                 f"{r_['state']} (allocator slack {slack})")
+        cnt = r_["count"]
+        phase(f"dense:dryrun:{key}",
+              argument_gb=f"{r_['argument'] / 1e9:.3f}",
+              state_gb=f"{r_['state'] / 1e9:.3f}",
+              card_state_equal=True,
+              card_init_gb=f"{r_['init'] / 1e9:.3f}",
+              init_minus_state_bytes=r_["init"] - r_["state"],
+              slack_bytes=slack,
+              grads_gb=f"{r_['grads'] / 1e9:.3f}",
+              measured_peak_gb=f"{r_['peak'] / 1e9:.2f}",
+              temp_gb=f"{(r_['peak'] - r_['argument']) / 1e9:.2f}",
+              **({"predicted_peak_gb": f"{r_['predicted_peak'] / 1e9:.2f}"}
+                 if "predicted_peak" in r_ else {}),
+              model_flops=f"{r_['model_flops']:.4e}",
+              counted_flops=f"{cnt.flops:.4e}",
+              k1_flops=f"{cnt.kernel_flops.get('flash_attention', 0) + cnt.kernel_flops.get('flash_attention_bwd', 0):.4e}",
+              useful_ratio=f"{r_['model_flops'] / cnt.flops:.4f}",
+              s_per_step=f"{r_['s_per_step']:.4f}",
+              tokens_per_s=f"{tokens_per_step / r_['s_per_step']:.0f}",
+              mfu=f"{r_['mfu']:.4f}",
+              roofline_s=f"{max(cnt.flops / roofline.PEAK_FLOPS, cnt.hbm_bytes / roofline.HBM_BW):.4f}",
+              **({f_: r_["profile"][f_] for f_ in (
+                  "device_busy_ms", "idle_share", "k1_fwd_share",
+                  "k1_bwd_share", "ce_ms", "ce_share")}
+                 if "profile" in r_ else {}))
+    if not any("profile" in r_ for r_ in dense_runs.values()):
+        fail("dense:dryrun: no dense training step could be traced")
+    mark("dense_dryrun")
+
     # -- 15. kernels line: times at the path's shapes -----------------------
     kernels = []
     # K1 decode: the last step of the path (kv_len = 384 of a 512 cache)
@@ -4310,8 +4772,9 @@ def main() -> None:
         "path": "wgmma",
         "launches": m_train_fwd_launches,
         "launches_cluster": cluster_k3[0],
-        "launches_cluster_note": "phase 14b: six 48-layer mamba2-370m "
-                                 "tenants under dmr.Cluster, S=1024",
+        "launches_cluster_note": f"phase 14b: six {CLUSTER_LAYERS}-layer "
+                                 "mamba2-370m tenants under dmr.Cluster, "
+                                 "S=1024",
         "max_abs_err": train_fwd_err["bfloat16"],
         "ms": time_ms(k3_tfwd, iters=10, warmup=2),
         "device_ms": dev_ms["K3 train fwd"],
@@ -4449,6 +4912,16 @@ def main() -> None:
              f"one make_prefill_step at {PX_SERVE_LAYERS} layers")):
         kernels.append(dict(zoo_rows[key], launches=launches,
                             launches_note=note))
+    # the dense training rows, timed in phase 3c; their launches are the
+    # static depth runs' (23-25), counted by mask (all causal)
+    for dn_tag, (dn_rows, _, dn_drop) in dense_k1.items():
+        for key, k_name in (("train fwd", "flash_attention"),
+                             ("train bwd", "flash_attention_bwd")):
+            kernels.append(dict(
+                dn_rows[key], tile_drop_gap=dn_drop,
+                launches=dense_counts[dn_tag]["masks"][k_name]["causal"],
+                launches_note=f"{dn_tag}'s {DENSE_STEPS}-step static depth "
+                              "run, its causal launches"))
     mark("kernels")
     phase("timing", **{k: f"{v:.1f}" for k, v in marks.items()})
     print(json.dumps({"kernels": kernels, "card": smi_line}))

@@ -6,11 +6,12 @@ reduced ``-smoke`` variants."""
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
-from repro_torch.configs.base import (SHAPES_BY_NAME, SMOKE_DECODE,
+from repro_torch.configs.base import (SHAPES, SHAPES_BY_NAME, SMOKE_DECODE,
                                      SMOKE_PREFILL, SMOKE_SHAPE, ArchConfig,
-                                     ShapeConfig, phys_vocab, reduced)
+                                     ShapeConfig, phys_vocab, reduced,
+                                     shape_applicable)
 
 _ARCH_MODULES = {
     "granite-3-2b": "granite_3_2b",
@@ -40,6 +41,11 @@ def get_config(name: str) -> ArchConfig:
     return mod.CONFIG
 
 
+def all_configs() -> Dict[str, ArchConfig]:
+    """Every architecture's full config, by name."""
+    return {n: get_config(n) for n in _ARCH_MODULES}
+
+
 def get_shape(name: str) -> ShapeConfig:
     """A named input shape (``train_4k``, ..., or a smoke shape)."""
     if name in SHAPES_BY_NAME:
@@ -50,5 +56,6 @@ def get_shape(name: str) -> ShapeConfig:
     raise KeyError(f"unknown shape {name!r}")
 
 
-__all__ = ["ArchConfig", "ShapeConfig", "phys_vocab", "reduced",
-           "list_archs", "get_config", "get_shape"]
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "phys_vocab", "reduced",
+           "shape_applicable", "list_archs", "get_config", "all_configs",
+           "get_shape"]

@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 
@@ -76,3 +77,30 @@ class SyntheticDataset:
 def make_batch(cfg: ArchConfig, shape: ShapeConfig, cursor: int = 0,
                seed: int = 0) -> Dict[str, np.ndarray]:
     return SyntheticDataset(cfg, shape, seed).batch_at(cursor)
+
+
+# ----------------------------------------------------------------------
+# input_specs -- meta stand-ins for the dry run (no allocation)
+# ----------------------------------------------------------------------
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig) -> Dict[str, torch.Tensor]:
+    """A step's inputs for (arch, shape) as meta tensors: the batch of a
+    train or prefill step, with the vision family's patch embeddings and
+    the encoder-decoder family's frames; a decode step's cache comes from
+    ``model.init_cache`` on meta."""
+    B, S = shape.global_batch, shape.seq_len
+    spec = lambda *s, dt=torch.float32: torch.empty(s, dtype=dt,
+                                                    device="meta")
+    S_text = S
+    specs: Dict[str, torch.Tensor] = {}
+    if cfg.frontend is not None and cfg.frontend.kind == "vision":
+        P, E = cfg.frontend.tokens_per_sample, cfg.frontend.embed_dim
+        S_text = S - P
+        specs["patch_embeds"] = spec(B, P, E)
+    if cfg.is_encdec:
+        specs["frames"] = spec(B, S, cfg.frontend.embed_dim)
+    specs["tokens"] = spec(B, S_text, dt=torch.int32)
+    if shape.kind == "train":
+        specs["labels"] = spec(B, S_text, dt=torch.int32)
+        specs["mask"] = spec(B, S_text)
+    return specs

@@ -8,7 +8,8 @@ Two device paths (see the source): ``bulk`` (a ring of TMA bulk copies)
 when the blocks and both base pointers are 16-byte aligned, else
 ``bytes``; ``repack.path_launches`` counts calls by path.  The indices
 are range-checked on the host, then uploaded from pinned memory without
-synchronising the stream.
+synchronising the stream.  A meta ``src`` (a dry run) gives the output's
+shape and reports the gather's bytes (``kernels/meta.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels.ref import repack_reference
 
 #: path names, indexed by the flag the C entry point takes
@@ -31,18 +33,25 @@ def select_path(block_bytes: int, src_ptr: int, out_ptr: int) -> str:
     return "bulk" if aligned else "bytes"
 
 
-def upload_index(idx, nblocks: int, device) -> torch.Tensor:
-    """``idx`` (host data: a sequence, numpy array or CPU tensor) as int32
-    on ``device``, after every index is checked against ``nblocks``.  The
-    copy is asynchronous from pinned memory (:func:`_copy_async`), so the
-    stream is not synchronised; PyTorch's caching host allocator keeps the
-    pinned buffer until the copy has run."""
+def _checked_index(idx, nblocks: int) -> np.ndarray:
+    """``idx`` (host data) as int64, every index checked against
+    ``nblocks``."""
     if isinstance(idx, torch.Tensor) and idx.device.type != "cpu":
         raise ValueError("repack: idx must be host data (it is validated "
                          "before upload)")
     host = np.asarray(idx, dtype=np.int64).reshape(-1)
     if host.size and (host.min() < 0 or host.max() >= nblocks):
         raise IndexError(f"repack: index out of range [0, {nblocks})")
+    return host
+
+
+def upload_index(idx, nblocks: int, device) -> torch.Tensor:
+    """``idx`` (host data: a sequence, numpy array or CPU tensor) as int32
+    on ``device``, after every index is checked against ``nblocks``.  The
+    copy is asynchronous from pinned memory (:func:`_copy_async`), so the
+    stream is not synchronised; PyTorch's caching host allocator keeps the
+    pinned buffer until the copy has run."""
+    host = _checked_index(idx, nblocks)
     pinned = torch.from_numpy(host.astype(np.int32)).pin_memory()
     return _copy_async(pinned, torch.device(device))
 
@@ -75,6 +84,11 @@ def repack(src, idx):
     if src.device.type == "cpu":
         return repack_reference(src, torch.as_tensor(np.asarray(idx),
                                                      dtype=torch.long))
+    if src.device.type == "meta":
+        n = len(_checked_index(idx, src.shape[0]))
+        out = src.new_empty((n,) + tuple(src.shape[1:]))
+        _meta.record("repack", 0, 2 * out.numel() * out.element_size())
+        return out
     if src.device.type != "cuda":
         raise RuntimeError(f"repack: no kernel for {src.device}")
     if not src.is_contiguous():

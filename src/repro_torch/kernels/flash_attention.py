@@ -30,7 +30,9 @@ device paths, ``wgmma`` for bfloat16 and ``fma`` for float32, chosen by
 :func:`select_bwd_path` and counted in ``flash_attention_bwd.path_launches``
 (and by mask in ``flash_attention_bwd.mask_launches``).
 CPU tensors take the plain version both ways: autograd differentiates
-``attention_reference``.
+``attention_reference``.  Meta tensors (a dry run's step) take neither:
+each call returns its outputs' shapes and reports its work
+(``kernels/meta.py``).
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels._grad import needs_grad
 from repro_torch.kernels.ref import (attention_backward_reference,
                                      attention_lse_reference,
@@ -153,11 +156,20 @@ def _counter_block(device, stream: int, n: int) -> torch.Tensor:
 
 
 def _launch_fwd(q, k, v, causal, window, kv_len, with_lse):
-    """K1 on a card; returns (out, lse or None)."""
+    """K1 on a card; returns (out, lse or None).  On meta tensors: the
+    same outputs, empty, and the call's work reported, no launch."""
     global _fwd
     _check(q, k, v)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
+    if q.is_meta:
+        _meta.record("flash_attention", *_meta.attention_work(
+            B, H, Hkv, Sq, Sk, D, q.element_size(), causal, window,
+            kv_len if isinstance(kv_len, int) else None, with_lse))
+        out = torch.empty((B, Sq, H, D), dtype=q.dtype,
+                          device=q.device).permute(0, 2, 1, 3)
+        return out, (torch.empty((B, H, Sq), dtype=torch.float32,
+                                 device=q.device) if with_lse else None)
     kv_dev, kv_host = None, Sk
     if isinstance(kv_len, torch.Tensor):
         if kv_len.dtype != torch.int32 or kv_len.numel() != 1 or \
@@ -237,9 +249,18 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, o, do, lse,
                                             causal=causal, window=window)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"flash_attention_bwd: no kernel for {q.device}")
     _check(q, k, v)
+    if q.is_meta:
+        B, H, Sq, D = q.shape
+        Hkv, Sk = k.shape[1], k.shape[2]
+        _meta.record("flash_attention_bwd", *_meta.attention_work(
+            B, H, Hkv, Sq, Sk, D, q.element_size(), causal, window,
+            backward=True))
+        return tuple(torch.empty((B, s_, h_, D), dtype=q.dtype,
+                                 device=q.device).permute(0, 2, 1, 3)
+                     for s_, h_ in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
     o, do = _aligned(o), _aligned(do)
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or \
             do.dtype != q.dtype:
@@ -291,7 +312,7 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
     if q.device.type == "cpu":
         return (attention_reference(q, k, v, causal=causal, window=window),
                 attention_lse_reference(q, k, causal=causal, window=window))
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
     return _launch_fwd(q, k, v, causal, window, None, True)
 
@@ -327,7 +348,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
                                    kv_len=kv_len)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
     if needs_grad(q, k, v):
         if kv_len is not None:

@@ -23,13 +23,16 @@ the same kernel and whose backward is the kernel of
 ``wgmma`` for the bfloat16 shapes :func:`select_bwd_path` names, ``fma``
 otherwise (every float32 call), counted in ``ssd_scan_bwd.launches`` and
 ``.path_launches``.  CPU tensors take the plain version both ways:
-autograd differentiates ``ssd_chunked_reference``.
+autograd differentiates ``ssd_chunked_reference``.  Meta tensors (a dry
+run's step) take neither: each call returns its outputs' shapes and
+reports its work (``kernels/meta.py``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels._grad import needs_grad
 from repro_torch.kernels.ref import (ssd_chunked_backward_reference,
                                      ssd_chunked_reference)
@@ -112,11 +115,16 @@ def _check_card(xdt, bm, cm, who: str):
 
 
 def _launch_fwd(xdt, a, bm, cm, chunk: int):
-    """K3's forward on a card, on the path :func:`select_path` names."""
+    """K3's forward on a card, on the path :func:`select_path` names.  On
+    meta tensors: y, empty, and the call's work reported, no launch."""
     global _fwd
     B, S, H, P = xdt.shape
     N = bm.shape[-1]
     _check_card(xdt, bm, cm, "ssd_scan")
+    if xdt.is_meta:
+        _meta.record("ssd_scan", *_meta.ssd_work(B, S, H, P, N, chunk,
+                                                 xdt.element_size()))
+        return torch.empty((B, S, H, P), dtype=xdt.dtype, device=xdt.device)
     if B > 65535:
         raise ValueError(f"ssd_scan: batch {B} > 65535")
     path = select_path(xdt.dtype, P, N, chunk)
@@ -171,11 +179,16 @@ def ssd_scan_bwd(xdt, a, bm, cm, dy, *, chunk: int = 256):
                          f"must match xdt{tuple(xdt.shape)} {xdt.dtype}")
     if xdt.device.type == "cpu":
         return ssd_chunked_backward_reference(xdt, a, bm, cm, dy, chunk)
-    if xdt.device.type != "cuda":
+    if xdt.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"ssd_scan_bwd: no kernel for {xdt.device}")
     B, S, H, P = xdt.shape
     N = bm.shape[-1]
     _check_card(xdt, bm, cm, "ssd_scan_bwd")
+    if xdt.is_meta:
+        _meta.record("ssd_scan_bwd", *_meta.ssd_work(
+            B, S, H, P, N, chunk, xdt.element_size(), backward=True))
+        return (torch.empty_like(xdt), torch.empty_like(a),
+                torch.empty_like(bm), torch.empty_like(cm))
     if max(B, H, S // chunk) > 65535 or chunk > 4096:
         raise ValueError(f"ssd_scan_bwd: B={B}, H={H}, {S // chunk} chunks "
                          f"(at most 65535 each), chunk {chunk} (at most "
@@ -245,7 +258,7 @@ def ssd_scan(xdt, a, bm, cm, *, chunk: int = 256):
     _check(xdt, a, bm, cm, chunk)
     if xdt.device.type == "cpu":
         return ssd_chunked_reference(xdt, a, bm, cm, chunk)
-    if xdt.device.type != "cuda":
+    if xdt.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"ssd_scan: no kernel for {xdt.device}")
     if needs_grad(xdt, a, bm, cm):
         return SSDScanFn.apply(xdt, a, bm, cm, chunk)

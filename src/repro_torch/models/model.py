@@ -84,6 +84,11 @@ def init_params(cfg: ArchConfig, gen: torch.Generator, device="cpu"):
     return P.init(model_schema(cfg), gen, device)
 
 
+def abstract_params(cfg: ArchConfig):
+    """``init_params``'s tree as meta tensors (a dry run's parameters)."""
+    return P.abstract(model_schema(cfg))
+
+
 def layer(stacked, i: int):
     """Layer ``i``'s parameters (or cache) from an ``(L, ...)`` stack: views."""
     return T.tree_map(lambda t: t[i], stacked)

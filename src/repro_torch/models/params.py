@@ -62,6 +62,13 @@ def init(schema, gen: torch.Generator, device="cpu"):
     return T.unflatten(schema, [_init_leaf(d, gen, device) for _, d in flat])
 
 
+def abstract(schema):
+    """The parameter tree as meta tensors: ``init``'s shapes and dtypes,
+    nothing allocated."""
+    return T.tree_map(lambda d: torch.empty(d.shape, dtype=torch_dtype(
+        d.dtype), device="meta"), schema)
+
+
 def stack(schema, n: int, axis_name: Any = "layers"):
     """Prepend a layer axis of size ``n`` to every leaf."""
     return T.tree_map(

@@ -47,6 +47,23 @@ def init_state(cfg: ArchConfig, optimizer: AdamW, seed: int = 0,
                       data_cursor=zero.clone())
 
 
+def abstract_state(cfg: ArchConfig, optimizer: AdamW) -> TrainState:
+    """``init_state``'s tree as meta tensors, for the dry run: the same
+    paths, shapes and dtypes, the moments in ``optimizer.moment_dtype``;
+    nothing allocated.  (``rng`` is ``init_state``'s two uint32 words, as
+    ``jax.eval_shape`` of the reference's ``init_state`` gives them.)"""
+    params = M.abstract_params(cfg)
+    mdt = torch_dtype(optimizer.moment_dtype)
+    mom = lambda: T.tree_map(lambda p: torch.empty(p.shape, dtype=mdt,
+                                                   device="meta"), params)
+    scalar = lambda: torch.empty((), dtype=torch.int32, device="meta")
+    return TrainState(
+        params=params, opt=OptState(mu=mom(), nu=mom(), count=scalar()),
+        step=scalar(), rng=torch.empty((2,), dtype=torch.uint32,
+                                       device="meta"),
+        data_cursor=scalar())
+
+
 LOSS_CHUNK = 1024   # sequence chunk for the CE loss (0 => unchunked)
 
 

@@ -9,11 +9,18 @@ it is split over (a ``PartitionSpec``'s entries).  A resize changes
 placements and moves bytes through the redistribution patterns; the
 arithmetic of a step does not depend on the worker count (each operation
 runs once over the whole batch).
+
+The production meshes of the JAX package's dry run, ``(16, 16)`` and
+``(2, 16, 16)`` (a ``pod`` axis first), are job meshes of 256 and 512
+logical workers, on ``meta`` by default: nothing is allocated, and a
+placement on them gives the shape and bytes each worker would hold
+(:meth:`Placement.local_shape`, :meth:`Placement.local_bytes`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple, Union
+import math
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,11 +61,16 @@ def factor_mesh(n: int, max_model: int = 16) -> Tuple[int, int]:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class JobMesh:
-    """A job's workers as a ``(data, model)`` grid on one device."""
+    """A job's workers as a ``(data, model)`` grid on one device (or a
+    ``(pod, data, model)`` one: the multi-pod production mesh)."""
     devices: np.ndarray                      # (data, model) of Worker
+    #: the mesh axes, as the JAX package's meshes name them
+    axis_names: Tuple[str, ...] = ("data", "model")
 
-    #: the mesh axes, as the JAX package's job meshes name them
-    axis_names = ("data", "model")
+    def __post_init__(self):
+        if self.devices.ndim != len(self.axis_names):
+            raise ValueError(f"a {self.devices.shape} grid of workers for "
+                             f"the axes {self.axis_names}")
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -84,6 +96,33 @@ def make_job_mesh(workers: Sequence[Worker], *, max_model: int = 16) -> JobMesh:
     dev = np.empty(len(workers), dtype=object)
     dev[:] = list(workers)
     return JobMesh(dev.reshape(data, model))
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device="meta") -> JobMesh:
+    """The dry run's logical production mesh: ``(16, 16)`` over ``("data",
+    "model")``, or ``(2, 16, 16)`` over ``("pod", "data", "model")``, of
+    logical workers on ``device`` (``meta``: nothing is allocated)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    dev = torch.device(device)
+    workers = np.empty(math.prod(shape), dtype=object)
+    workers[:] = [Worker(i, dev) for i in range(workers.size)]
+    return JobMesh(workers.reshape(shape), axes)
+
+
+def host_devices(n: Optional[int] = None) -> List[torch.device]:
+    """This host's cards (``cuda:i``), the first ``n`` of them; raises
+    when there are fewer (the JAX package's asks for host devices)."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if have < (1 if n is None else n):
+        raise RuntimeError(f"need {n or 1} CUDA device(s), have {have}")
+    return [torch.device("cuda", i) for i in range(have if n is None else n)]
+
+
+def mesh_device_set(mesh: JobMesh):
+    """The ids of a mesh's workers."""
+    return set(w.id for w in mesh.devices.flat)
 
 
 #: one dimension's entry of a placement: not split (None), or split over
@@ -125,3 +164,22 @@ class Placement:
         while spec and spec[-1] is None:
             spec.pop()
         object.__setattr__(self, "spec", tuple(spec))
+
+    def local_shape(self, shape: Sequence[int]) -> Tuple[int, ...]:
+        """The shape of the part of a ``shape`` leaf each worker holds: a
+        split dimension cut into as many equal parts as its mesh axes'
+        sizes multiply to (the placement rules keep only exact
+        divisions)."""
+        shape, sizes = tuple(shape), self.mesh.shape
+        for i, e in enumerate(self.spec):
+            n = math.prod(sizes[a] for a in ((e,) if isinstance(e, str)
+                                             else e or ()))
+            if shape[i] % n:
+                raise ValueError(f"dim {i} of {shape} does not split into "
+                                 f"{n} parts")
+            shape = shape[:i] + (shape[i] // n,) + shape[i + 1:]
+        return shape
+
+    def local_bytes(self, leaf: torch.Tensor) -> int:
+        """Bytes of ``leaf`` (a tensor, meta or not) each worker holds."""
+        return math.prod(self.local_shape(leaf.shape)) * leaf.element_size()

@@ -3,11 +3,11 @@ of ``repro/parallel/sharding.py``, onto :class:`Placement`s).
 
 Every parameter in the model schema carries a tuple of logical axis names;
 ``rules_for(cfg)`` maps those to mesh axes, and ``state_shardings`` /
-``batch_shardings`` give full placement trees for a job mesh.  Rules
-degrade gracefully: a mesh without a given axis (no "pod" here) drops it.
-On one card a placement is the layout a resize accounts for; the
-arithmetic of a step does not depend on it.  Decode-cache shardings come
-with the serving slices that need them.
+``batch_shardings`` / ``cache_shardings`` give full placement trees for a
+mesh.  Rules degrade gracefully: a mesh without a given axis (a job mesh
+has no "pod") drops it.  On one card a placement is the layout a resize
+accounts for; the arithmetic of a step does not depend on it.  On the
+dry run's production meshes it gives each worker's bytes.
 """
 from __future__ import annotations
 
@@ -133,3 +133,52 @@ def batch_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh,
     spec1 = axes if len(axes) > 1 else (axes[0] if axes else None)
     return {k: Placement(mesh, (spec1,) + (None,) * (len(v.shape) - 1))
             for k, v in batch.items()}
+
+
+def cache_shardings(cfg: ArchConfig, shape: ShapeConfig, mesh, cache):
+    """Decode-cache placements, by leaf name (robust to stacking).
+
+    KV caches (``k``, ``v``: (L, B, S, Hkv, hd)): batch over (pod, data)
+    when divisible, and the sequence over "model" when it divides; at a
+    batch the mesh cannot split (``long_500k``'s 1) the sequence also over
+    "data" (sequence-parallel serving).  SSM states ((L, B, H, P, N)):
+    heads over "model"; conv tails ((L, B, W-1, C)): channels over
+    "model".  Every cache leaf has a leading layer (or group) axis, so the
+    batch is axis 1."""
+    axes = _batch_axes(mesh, shape.global_batch)
+    bspec = axes if len(axes) > 1 else (axes[0] if axes else None)
+    seq_par = not axes  # batch unshardable -> shard sequence/heads instead
+    model_n = mesh.shape.get("model", 1)
+    data_n = mesh.shape.get("data", 1)
+
+    def _seq_axes(s: int):
+        """Mesh axes for the cache's sequence dim: "model" whenever it
+        divides (a 32k KV cache at batch 128 is ~800 GB), and "data" first
+        when the batch is unshardable."""
+        out, n = [], 1
+        if seq_par and data_n > 1 and s > 1 and s % (n * data_n) == 0:
+            out.append("data")
+            n *= data_n
+        if model_n > 1 and s > 1 and s % (n * model_n) == 0:
+            out.append("model")
+        if not out:
+            return None
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def leaf(path, x):
+        name = path.rsplit("/", 1)[-1]
+        spec = [None] * x.dim()
+        if not seq_par:
+            spec[1] = bspec            # axis 0 is the stacked layer axis
+        if name in ("k", "v"):
+            spec[2] = _seq_axes(x.shape[2])
+        elif name == "state":
+            if x.shape[2] % model_n == 0 and model_n > 1:
+                spec[2] = "model"
+        elif name.startswith("conv"):
+            if x.shape[3] % model_n == 0 and model_n > 1:
+                spec[3] = "model"
+        return Placement(mesh, tuple(spec))
+
+    flat = T.flatten(cache)
+    return T.unflatten(cache, [leaf(p, x) for p, x in flat])

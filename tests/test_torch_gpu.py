@@ -1528,3 +1528,109 @@ def test_zoo_train_step_on_card_matches_cpu(cuda, arch):
     assert "frontend_proj" in grads["cpu"]
     for k, exp in grads["cpu"].items():
         assert _rel_err(grads["cuda"][k], exp) <= 1e-4, k
+
+
+# K1's forward and backward at the dense training configs' GQA ratios
+# (phi4-mini G = 3, qwen2.5 G = 5, internlm2 G = 6) and head dim 128, as
+# their training steps call it: causal, with the lse, Sq = Sk = 333 (not a
+# multiple of 64: a ragged last tile), two KV heads
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("G", GQA_RATIOS)
+def test_flash_dense_training_ratios_on_card(cuda, G, dtype):
+    """The forward with its lse and the backward (dK and dV summed over the
+    G query heads of each KV head) against their plain versions, each on
+    its dtype's path; autograd through ``flash_attention`` takes both."""
+    B, Hkv, S, D = 2, 2, 333, 128
+    q, k, v, do = _bwd_inputs(cuda, B, G * Hkv, Hkv, S, S, D, dtype,
+                              seed=G)
+    fwd0 = dict(fa.flash_attention.path_launches)
+    bwd0 = dict(fa.flash_attention_bwd.path_launches)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    torch.testing.assert_close(out.float(), attention_reference(
+        q, k, v, causal=True).float(), atol=TOL[dtype], rtol=TOL[dtype])
+    torch.testing.assert_close(lse, attention_lse_reference(q, k),
+                               atol=BWD_TOL["float32"],
+                               rtol=BWD_TOL["float32"])
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    torch.cuda.synchronize()
+    fpath = "fma" if dtype == "float32" else "mma"
+    bpath = "fma" if dtype == "float32" else "wgmma"
+    assert {p: n - fwd0[p] for p, n in
+            fa.flash_attention.path_launches.items()} == \
+        {p: int(p == fpath) for p in fa.PATHS}
+    assert {p: n - bwd0[p] for p, n in
+            fa.flash_attention_bwd.path_launches.items()} == \
+        {p: int(p == bpath) for p in fa.BWD_PATHS}
+    exp = attention_backward_reference(q, k, v, out, do, lse, causal=True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype], msg=name)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.flash_attention(*leaves, causal=True).backward(do)
+    for a, b in zip(leaves, got):
+        assert torch.equal(a.grad, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_is_bitwise_repeatable_at_g3_on_card(cuda, dtype):
+    """phi4-mini's ratio (G = 3, D = 128, causal, several key tiles per
+    CTA): two runs of the backward agree bit for bit."""
+    q, k, v, do = _bwd_inputs(cuda, 2, 6, 2, 333, 333, 128, dtype)
+    out, lse = fa.flash_attention_lse(q, k, v)
+    a = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    b = fa.flash_attention_bwd(q, k, v, out, do, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,heads", [
+    ("phi4-mini-3.8b", (6, 2)), ("qwen2.5-32b", (10, 2)),
+    ("internlm2-20b", (12, 2))])
+def test_dense_train_step_on_card_matches_cpu(cuda, name, heads):
+    """One fp32 training step of the dense smoke configs at head dim 128
+    and their full configs' G and microbatches (qwen2.5's QKV bias among
+    the leaves) on the card (K1 and its backward on fma, once a layer and
+    microbatch) gives the CPU's loss and gradient norm, and every leaf's
+    gradient within 1e-4 of its largest entry."""
+    import dataclasses
+
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticDataset
+    from repro_torch.models import train as TT
+    from repro_torch.optim import AdamW
+    mb = get_config(name).train_microbatches
+    cfg = dataclasses.replace(get_config(f"{name}-smoke"), num_heads=heads[0],
+                              num_kv_heads=heads[1], head_dim=128,
+                              train_microbatches=mb)
+    opt = AdamW(learning_rate=1e-3)
+    batch = SyntheticDataset(cfg, ShapeConfig("t", "train", 64, 8)
+                             ).batch_at(0)
+    out, grads = {}, {}
+    for dev in ("cpu", cuda):
+        tbatch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        ops.reset_counts()
+        _, m = TT.make_train_step(cfg, opt)(state, tbatch)
+        out[str(dev)] = ({k: float(m[k]) for k in ("loss", "grad_norm")},
+                         ops.launch_counts(),
+                         dict(fa.flash_attention.path_launches))
+        state = T.tree_map(lambda t: t.to(dev), TT.init_state(cfg, opt, 0))
+        g_ = TT._value_and_grad(state.params, cfg, tbatch)[2]
+        grads[str(dev)] = {k: t.cpu() for (k, _), t in
+                           zip(T.flatten(state.params), g_)}
+    (mc, nc, _), (mg, ng, pg) = out["cpu"], out["cuda"]
+    n = cfg.num_layers * mb
+    assert nc["flash_attention"] == nc["flash_attention_bwd"] == 0
+    assert ng["flash_attention"] == ng["flash_attention_bwd"] == n
+    assert pg == {"fma": n, "mma": 0, "split_decode": 0}
+    assert abs(mg["loss"] - mc["loss"]) <= 1e-5 * abs(mc["loss"])
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
+    assert ("layers/attn/bq" in grads["cpu"]) == (name == "qwen2.5-32b")
+    for k, exp in grads["cpu"].items():
+        assert _rel_err(grads["cuda"][k], exp) <= 1e-4, k

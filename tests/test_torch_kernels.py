@@ -308,16 +308,28 @@ def test_cpu_calls_are_not_launches():
                                                 "split_decode": 0}
 
 
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device with no kernel (neither the CPU, a
+    card, nor meta, whose calls return shapes only)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
 def test_no_silent_fallback_off_the_cpu():
     """A tensor that is not on the CPU launches the kernel or raises; it
-    never takes the plain version."""
-    q = torch.empty(1, 2, 4, 32, device="meta")
+    never takes the plain version (meta tensors, a dry run's, take no
+    arithmetic at all: tests/test_torch_launch.py)."""
+    def elsewhere(*shape):
+        return torch.zeros(*shape).as_subclass(_Elsewhere)
+
+    q = elsewhere(1, 2, 4, 32)
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.flash_attention(q, q, q)
     with pytest.raises(RuntimeError, match="no kernel"):
-        ops.repack(torch.empty(4, 2, 3, device="meta"), [0])
-    x, a, bc = (torch.empty(s, device="meta") for s in
-                [(1, 8, 2, 16), (1, 8, 2), (1, 8, 16)])
+        ops.repack(elsewhere(4, 2, 3), [0])
+    x, a, bc = (elsewhere(*s) for s in [(1, 8, 2, 16), (1, 8, 2), (1, 8, 16)])
     with pytest.raises(RuntimeError, match="no kernel"):
         ops.ssd_scan(x, a, bc, bc, chunk=4)
 

@@ -223,10 +223,25 @@ def test_ssd_scan_bwd_checks_its_inputs():
         ops.ssd_scan_bwd(xdt, a, bm, cm, dy.double(), chunk=32)
     with pytest.raises(ValueError, match="multiple of the chunk"):
         ops.ssd_scan_bwd(xdt, a, bm, cm, dy, chunk=48)
+    # a tensor on a device with no kernel raises; a meta one (a dry run's)
+    # gives the gradients' shapes and dtypes, computing nothing
+    elsewhere = [t.as_subclass(_Elsewhere) for t in (xdt, a, bm, cm, dy)]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        ops.ssd_scan_bwd(*elsewhere, chunk=32)
     meta = [torch.empty(t.shape, dtype=t.dtype, device="meta")
             for t in (xdt, a, bm, cm, dy)]
-    with pytest.raises(RuntimeError, match="no kernel"):
-        ops.ssd_scan_bwd(*meta, chunk=32)
+    got = ops.ssd_scan_bwd(*meta, chunk=32)
+    assert [(g.shape, g.dtype, g.is_meta) for g in got] == \
+        [(t.shape, t.dtype, True) for t in (dx, da, db, dc)]
+
+
+class _Elsewhere(torch.Tensor):
+    """A tensor that reports a device with no kernel (neither the CPU, a
+    card, nor meta)."""
+
+    @property
+    def device(self):
+        return torch.device("xpu")
 
 
 def test_ssd_scan_bwd_reads_strided_inputs_on_the_cpu():
