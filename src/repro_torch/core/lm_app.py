@@ -5,8 +5,14 @@ paper's Listing 2, an elastic training job.
 ``repro_torch.dmr`` App: the job resizes between any legal worker counts;
 the full TrainState (params, AdamW moments, step, RNG, data cursor) is
 redistributed in memory on every resize (no ``patterns``: every leaf
-moves by ``default``) and the per-mesh step closure is swapped.  The
-deprecated ``LMTrainApp`` class of the reference is not ported.
+moves by ``default``) and the per-mesh step closure is swapped.  As in
+the reference, ``init_state`` and every step run inside
+``sharding_context(mesh, rules_for(cfg))``: on a mesh of more than one
+worker the step's attention takes the sequence-parallel path where the
+head count does not split over ``model``, and a MoE layer routes each
+shard's tokens on their own (``models/attention.py``, ``models/moe.py``),
+so a step's numbers follow the worker count as the reference's do.
+The deprecated ``LMTrainApp`` class of the reference is not ported.
 """
 from __future__ import annotations
 
@@ -20,7 +26,8 @@ from repro_torch.data.pipeline import SyntheticDataset
 from repro_torch.dmr.app import App
 from repro_torch.models.train import TrainState, init_state, make_train_step
 from repro_torch.optim.adamw import AdamW
-from repro_torch.parallel.sharding import state_shardings
+from repro_torch.parallel.context import sharding_context
+from repro_torch.parallel.sharding import rules_for, state_shardings
 
 
 class _LMTrainImpl:
@@ -36,18 +43,21 @@ class _LMTrainImpl:
         self.seed = seed
         self.dataset = SyntheticDataset(cfg, shape, seed=seed,
                                         global_batch=global_batch)
+        self.rules = rules_for(cfg)
 
     # -- MalleableApp protocol -----------------------------------------
     def state_shardings(self, mesh):
         return state_shardings(self.cfg, mesh)
 
     def init_state(self, mesh) -> TrainState:
-        return init_state(self.cfg, self.optimizer, self.seed, mesh.device)
+        with sharding_context(mesh, self.rules):
+            return init_state(self.cfg, self.optimizer, self.seed,
+                              mesh.device)
 
     def make_step(self, mesh):
         ds = self.dataset
         train_step = make_train_step(self.cfg, self.optimizer)
-        dev = mesh.device
+        dev, rules = mesh.device, self.rules
 
         def fn(state: TrainState, step_i: int,
                batch: Optional[Dict[str, np.ndarray]] = None):
@@ -55,7 +65,8 @@ class _LMTrainImpl:
                 batch = ds.batch_at(step_i * ds.global_batch)
             batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
                      for k, v in batch.items()}
-            return train_step(state, batch)
+            with sharding_context(mesh, rules):
+                return train_step(state, batch)
 
         return fn
 

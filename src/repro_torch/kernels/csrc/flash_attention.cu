@@ -8,7 +8,10 @@
 // Contract kept from `_attn_kernel`: GQA (query head h reads KV head
 // h / (H/Hkv)), scale D^-0.5, optional causal mask aligned top-left (query
 // position i sees keys 0..i, also when Sq < Sk), optional sliding window
-// (i - j < window), masked scores are the finite -1e30, online softmax with
+// (i - j < window), both measured from position q_offset + i for query row
+// i when given a query offset (a sequence shard's queries over the whole
+// sequence's keys: the reference's chunked_attention(q_offset=)), masked
+// scores are the finite -1e30, online softmax with
 // fp32 m/l/acc, and out = acc / max(l, 1e-30) in the input dtype.  Two
 // additions: the kernels mask ragged edges themselves (no Sq % block or
 // Sk % block requirement), and they take the number of valid keys `kv_len`
@@ -102,6 +105,7 @@ struct Params {
   void* o;
   const int* kv_len_dev;                        // nullptr -> kv_len_host
   int B, H, Hkv, Sq, Sk, kv_len_host, causal, window;
+  int qoff;                                     // query row i at qoff + i
   long long sqb, sqh, sqs;                      // strides in elements; the
   long long skb, skh, sks;                      // last dim is contiguous
   long long svb, svh, svs;
@@ -151,11 +155,12 @@ __device__ __forceinline__ int read_kv_len(const Params& p) {
   return max(0, min(kvl, p.Sk));
 }
 
-// Keys [lo, hi) that query position i may see.
+// Keys [lo, hi) that query row i, at position qoff + i, may see.
 __device__ __forceinline__ void key_range(const Params& p, int i, int kvl,
                                           int* lo, int* hi) {
-  *hi = p.causal ? min(kvl, i + 1) : kvl;
-  *lo = p.window ? max(0, i - p.window + 1) : 0;
+  const int pos = p.qoff + i;
+  *hi = p.causal ? min(kvl, pos + 1) : kvl;
+  *lo = p.window ? max(0, pos - p.window + 1) : 0;
 }
 
 // =========================================================================
@@ -551,14 +556,15 @@ __global__ void __launch_bounds__(kThreads) attn_mma_kernel(const Params p) {
 
   const int G = p.H / p.Hkv, kvh = blockIdx.x;
   const long long b = blockIdx.y;
-  // The grid's last dimension runs from the longest causal rows down, so
-  // that the heaviest CTAs start first.
+  // The grid's last dimension runs from the longest causal rows down (a
+  // query offset shifts every row alike), so that the heaviest CTAs start
+  // first.
   const int i0 = (gridDim.z - 1 - blockIdx.z) * kMmaRows;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int kvl = read_kv_len(p);
   const int i_last = min(i0 + kMmaRows, p.Sq) - 1;
-  const int lo = p.window ? max(0, i0 - p.window + 1) : 0;
-  const int hi = p.causal ? min(kvl, i_last + 1) : kvl;
+  const int lo = p.window ? max(0, p.qoff + i0 - p.window + 1) : 0;
+  const int hi = p.causal ? min(kvl, p.qoff + i_last + 1) : kvl;
   const int ntiles = lo < hi ? (hi - lo + kTileK - 1) / kTileK : 0;
   const bool resident = ntiles <= kMmaStages;
   const int nitems = G * ntiles;
@@ -583,11 +589,15 @@ __global__ void __launch_bounds__(kThreads) attn_mma_kernel(const Params p) {
       cp_async16(vs + off, vbase + kp * p.svs + c * 8, ok);
     }
   };
-  // This thread's rows (query positions) and their key bounds.
+  // This thread's rows and their key bounds (row i at position qoff + i).
   const int w0 = i0 + warp * 16;
   const int ra = w0 + (lane >> 2), rb = ra + 8;
-  auto key_lo = [&](int i) { return p.window ? max(0, i - p.window + 1) : 0; };
-  auto key_hi = [&](int i) { return p.causal ? min(kvl, i + 1) : kvl; };
+  auto key_lo = [&](int i) {
+    return p.window ? max(0, p.qoff + i - p.window + 1) : 0;
+  };
+  auto key_hi = [&](int i) {
+    return p.causal ? min(kvl, p.qoff + i + 1) : kvl;
+  };
   const int lo_a = key_lo(ra), hi_a = key_hi(ra);
   const int lo_b = key_lo(rb), hi_b = key_hi(rb);
   // The keys all of the warp's rows see.
@@ -681,8 +691,8 @@ attn_mma_group_kernel(const Params p) {
   const int tid = threadIdx.x, wg = tid / kThreads;
   const int warp = tid % kThreads / 32, lane = tid % 32;
   const int kvl = read_kv_len(p);
-  const int hi = p.causal ? min(kvl, p.Sq) : kvl;     // keys any row sees
-  const int ntiles = (hi + kTileK - 1) / kTileK;      // from key 0
+  const int hi = p.causal ? min(kvl, p.qoff + p.Sq) : kvl;  // keys any
+  const int ntiles = (hi + kTileK - 1) / kTileK;      // row sees, from 0
 
   // Unit u: query block nqb - 1 - u / G (the longest causal rows first),
   // head u % G; warpgroup w takes units w, w + NWG, ...
@@ -717,8 +727,12 @@ attn_mma_group_kernel(const Params p) {
   fence_proxy_async();
   __syncthreads();
 
-  auto key_lo = [&](int i) { return p.window ? max(0, i - p.window + 1) : 0; };
-  auto key_hi = [&](int i) { return p.causal ? min(kvl, i + 1) : kvl; };
+  auto key_lo = [&](int i) {                    // row i at qoff + i
+    return p.window ? max(0, p.qoff + i - p.window + 1) : 0;
+  };
+  auto key_hi = [&](int i) {
+    return p.causal ? min(kvl, p.qoff + i + 1) : kvl;
+  };
   const float sl2 = p.scale * kLog2e;
   for (int u = wg; u < nunits; u += NWG) {
     if (u + NWG < nunits) q_rows(u + NWG, qn);  // in flight
@@ -1094,10 +1108,12 @@ attn_split_mma_kernel(const Params p, float* ws, int* counters, int nsplit,
     cp_async_commit();
   }
 
-  auto key_lo = [&](int i) {
-    return max(c_lo, p.window ? i - p.window + 1 : 0);
+  auto key_lo = [&](int i) {                    // row i at qoff + i
+    return max(c_lo, p.window ? p.qoff + i - p.window + 1 : 0);
   };
-  auto key_hi = [&](int i) { return min(c_hi, p.causal ? i + 1 : c_hi); };
+  auto key_hi = [&](int i) {
+    return min(c_hi, p.causal ? p.qoff + i + 1 : c_hi);
+  };
   const int pa = ra % p.Sq, pb = rb % p.Sq;
   const int lo_a = key_lo(pa), hi_a = key_hi(pa);
   const int lo_b = key_lo(pb), hi_b = key_hi(pb);
@@ -1230,7 +1246,7 @@ int sm_count() {                                // of the current device
 template <int D>
 int group_tiles(const Params& p) {
   const int kvl = p.kv_len_dev ? p.Sk : max(0, min(p.kv_len_host, p.Sk));
-  const int hi = p.causal ? min(kvl, p.Sq) : kvl;
+  const int hi = p.causal ? min(kvl, p.qoff + p.Sq) : kvl;
   const int tiles = max(1, (hi + kTileK - 1) / kTileK);
   return tiles <= kGroupMaxTiles<D> && 2 * p.B * p.Hkv >= sm_count()
              ? tiles : 0;
@@ -1316,16 +1332,18 @@ cudaError_t dispatch(int path, const Params& p, int dtype, int D, float* ws,
 // leaves zero; the other paths ignore the three.  `lse`, when not null,
 // receives each row's log-sum-exp m + log(max(l, 1e-30)) over the scaled
 // scores, (B, H, Sq) contiguous fp32, for the backward (training shapes:
-// the fma and mma paths; split_decode refuses it).
+// the fma and mma paths; split_decode refuses it).  `q_offset` >= 0: query
+// row i stands at position q_offset + i for the causal mask and the window
+// (a sequence shard's queries over the whole sequence's keys).
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out,
     const int* kv_len_dev, int path, int dtype, int B, int H, int Hkv,
     int Sq, int Sk, int D, long long sqb, long long sqh, long long sqs,
     long long skb, long long skh, long long sks, long long svb, long long svh,
     long long svs, long long sob, long long soh, long long sos,
-    int kv_len_host, int causal, int window, float scale, void* ws,
-    void* counters, int nsplit, float* lse, void* stream) {
-  if (B <= 0 || Sq <= 0 || Hkv <= 0 || H % Hkv != 0)
+    int kv_len_host, int causal, int window, int q_offset, float scale,
+    void* ws, void* counters, int nsplit, float* lse, void* stream) {
+  if (B <= 0 || Sq <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0)
     return B == 0 || Sq == 0 ? 0 : static_cast<int>(cudaErrorInvalidValue);
   const bool takes =
       path == kFma     ? dtype == 0
@@ -1338,7 +1356,7 @@ extern "C" int flash_attention_fwd(
                        : false;
   if (!takes) return static_cast<int>(cudaErrorInvalidValue);
   Params p{q, k, v, out, kv_len_dev, B, H, Hkv, Sq, Sk, kv_len_host, causal,
-           window, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
+           window, q_offset, sqb, sqh, sqs, skb, skh, sks, svb, svh, svs, sob, soh, sos,
            scale, lse};
   return static_cast<int>(dispatch(path, p, dtype, D, static_cast<float*>(ws),
                                    static_cast<int*>(counters), nsplit,

@@ -9,7 +9,8 @@
 // (B, H, Sq, D), any strides with a contiguous last dim and 16-byte rows;
 // GQA (query head h reads KV head h / (H / Hkv)); scale D^-0.5; optional
 // top-left causal mask (query i sees keys j <= i) and sliding window
-// (i - j < window); head dims 16, 32, 64, 80, 128; fp32 or bf16 inputs and
+// (i - j < window), both from position q_offset + i for query row i when
+// given a query offset (a sequence shard); head dims 16, 32, 64, 80, 128; fp32 or bf16 inputs and
 // outputs.  The forward saves lse = m + log(l), the row log-sum-exp of the
 // scaled scores, (B, H, Sq) fp32; from it P is recomputed exactly:
 //
@@ -113,6 +114,7 @@ struct Params {
   void* dk;
   void* dv;
   int B, H, Hkv, Sq, Sk, causal, window;
+  int qoff;                                     // query row i at qoff + i
   // strides in elements (b, head, row) of q, k, v, o, dO, dq, dk, dv
   long long st[8][3];
   float scale;
@@ -122,26 +124,28 @@ enum { kQ = 0, kK, kV, kO, kDO, kDQ, kDK, kDV };
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
+// Query row i (at position qoff + i) sees key j.
 __device__ __forceinline__ bool valid(const Params& p, int i, int j) {
-  return i < p.Sq && j < p.Sk && (!p.causal || j <= i) &&
-         (!p.window || i - j < p.window);
+  return i < p.Sq && j < p.Sk && (!p.causal || j <= p.qoff + i) &&
+         (!p.window || p.qoff + i - j < p.window);
 }
 
-// The query tiles whose rows see some key of [j0, j0 + 64): [*qt0, *qt1).
+// The query tiles whose rows see some key of [j0, j0 + 64): [*qt0, *qt1)
+// (empty when *qt0 >= *qt1).
 __device__ __forceinline__ void query_tiles(const Params& p, int j0,
                                             int* qt0, int* qt1) {
   const int nqt = (p.Sq + kTile - 1) / kTile;
-  *qt0 = p.causal ? j0 / kTile : 0;
-  *qt1 = p.window ? min(nqt, (j0 + kTile - 1 + p.window - 1) / kTile + 1)
-                  : nqt;
+  *qt0 = p.causal ? max(0, j0 - p.qoff) / kTile : 0;
+  const int last = j0 + kTile - 1 + p.window - 1 - p.qoff;  // the last row
+  *qt1 = p.window ? (last < 0 ? 0 : min(nqt, last / kTile + 1)) : nqt;
 }
 
 // The keys some row of [i0, i0 + 64) sees: [*lo, *hi).
 __device__ __forceinline__ void key_span(const Params& p, int i0, int* lo,
                                          int* hi) {
   const int i_last = min(i0 + kTile, p.Sq) - 1;
-  *lo = p.window ? max(0, i0 - p.window + 1) : 0;
-  *hi = p.causal ? min(p.Sk, i_last + 1) : p.Sk;
+  *lo = p.window ? max(0, p.qoff + i0 - p.window + 1) : 0;
+  *hi = p.causal ? min(p.Sk, p.qoff + i_last + 1) : p.Sk;
 }
 
 // (a) delta = rowsum(dO o O), fp32: a group of L lanes per (b, h, i) row,
@@ -492,8 +496,8 @@ __device__ __forceinline__ uint64_t desc_n(const bf16* t, int kk) {
 // Every (query i0 + x, key j0 + y) of the tile pair is valid.
 __device__ __forceinline__ bool tile_full(const Params& p, int i0, int j0) {
   return i0 + kTile <= p.Sq && j0 + kTile <= p.Sk &&
-         (!p.causal || j0 + kTile - 1 <= i0) &&
-         (!p.window || i0 + kTile - 1 - j0 < p.window);
+         (!p.causal || j0 + kTile - 1 <= p.qoff + i0) &&
+         (!p.window || p.qoff + i0 + kTile - 1 - j0 < p.window);
 }
 
 // P and dS of a warpgroup's 64 x 64 tile pair, from its fp32 accumulators
@@ -896,24 +900,25 @@ cudaError_t dispatch(int path, const Params& p, int D, cudaStream_t s) {
 // wgmma (bf16 only); dtype: 0 = fp32, 1 = bf16 (q, k, v, o, dO and the
 // three gradients alike); a path that does not take the dtype is refused.
 // lse: the forward's (B, H, Sq) contiguous fp32 row log-sum-exp; delta:
-// (B, H, Sq) fp32 scratch.  strides: 24 host int64s, (b, head, row)
+// (B, H, Sq) fp32 scratch.  q_offset >= 0: the forward's (query row i at
+// position q_offset + i).  strides: 24 host int64s, (b, head, row)
 // strides in elements of q, k, v, o, dO, dq, dk, dv in that order (the last
 // dim of each is contiguous).  B is at most 65535 (a grid dimension).
 extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
     void* dv, int path, int dtype, int B, int H, int Hkv, int Sq, int Sk,
-    int D, const long long* strides, int causal, int window, float scale,
-    void* stream) {
+    int D, const long long* strides, int causal, int window, int q_offset,
+    float scale, void* stream) {
   const bool takes = path == kFma     ? dtype == 0
                      : path == kWgmma ? dtype == 1
                                       : false;
   if (!takes || B < 0 || B > 65535 || Sq < 0 || Sk < 0 || Hkv <= 0 ||
-      H % Hkv != 0 || !lse || !delta || !strides)
+      H % Hkv != 0 || q_offset < 0 || !lse || !delta || !strides)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || Sq == 0 || Sk == 0) return 0;
   Params p{q, k, v, o, dout, lse, delta, dq, dk, dv,
-           B, H, Hkv, Sq, Sk, causal, window, {}, scale};
+           B, H, Hkv, Sq, Sk, causal, window, q_offset, {}, scale};
   for (int t = 0; t < 8; ++t)
     for (int u = 0; u < 3; ++u) p.st[t][u] = strides[3 * t + u];
   return static_cast<int>(

@@ -5,14 +5,17 @@ Replaces the Pallas TPU kernel ``flash_attention_fwd``
 (``repro/kernels/flash_attention.py``).  Contract: q ``(B, H, Sq, D)``,
 k/v ``(B, Hkv, Sk, D)`` (any strides with a contiguous last dim), GQA
 head ``h`` reading KV head ``h // (H / Hkv)``, scale ``D ** -0.5``,
-optional top-left-aligned causal mask and sliding window, optional
-``kv_len`` valid keys; returns ``(B, H, Sq, D)`` in q's dtype, laid out in
+optional causal mask and sliding window, top-left aligned or, with
+``q_offset``, with query ``i`` at position ``q_offset + i`` (a sequence
+shard's queries over the whole sequence's keys), optional ``kv_len``
+valid keys; returns ``(B, H, Sq, D)`` in q's dtype, laid out in
 memory as ``(B, Sq, H, D)`` so that the model's ``transpose(1, 2)`` back
 to its layout is free.
 
 One C entry point, three device paths (see the source for their design):
-``split_decode`` when ``(H / Hkv) * Sq <= DECODE_ROWS`` (either dtype),
-else ``mma`` for bfloat16 and ``fma`` for float32.  The wrapper makes that
+``split_decode`` when ``(H / Hkv) * Sq <= DECODE_ROWS`` (either dtype)
+and no gradient is to be taken, else ``mma`` for bfloat16 and ``fma``
+for float32.  The wrapper makes that
 choice (:func:`select_path`, and :func:`decode_splits` for the split path's
 launch), pure functions of the shapes, and passes it to the entry point,
 which refuses a path whose kernels cannot take the call;
@@ -56,7 +59,7 @@ MMA_KERNELS = ("block", "group")
 #: the backward's path names, indexed by the id its C entry point takes
 BWD_PATHS = ("fma", "wgmma")
 #: the masks a call is counted under (:func:`mask_of`)
-MASKS = ("causal", "kv_len", "square", "rect")
+MASKS = ("causal", "kv_len", "square", "rect", "offset")
 DECODE_ROWS = 16            # kDecodeRows: query rows per KV head, at most
 TILE_K = 64                 # kTileK: keys per shared-memory tile
 #: a split CTA's 4 warps take at most this many K/V tiles (two each)
@@ -70,19 +73,26 @@ _sm_counts = {}
 _counters = {}
 
 
-def select_path(dtype: torch.dtype, rows: int) -> str:
-    """The path for ``rows = (H / Hkv) * Sq`` query rows per KV head."""
-    if rows <= DECODE_ROWS:
+def select_path(dtype: torch.dtype, rows: int, with_lse: bool = False) -> str:
+    """The path for ``rows = (H / Hkv) * Sq`` query rows per KV head; a
+    call that needs the row log-sum-exp (training) never takes
+    split_decode, which writes none: a sequence shard of a few rows runs
+    on mma or fma."""
+    if rows <= DECODE_ROWS and not with_lse:
         return "split_decode"
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
-def mask_of(causal: bool, kv_len, sq: int, sk: int) -> str:
-    """The mask a call is counted under: ``causal`` (with or without a
-    window), ``kv_len`` (the first kv_len keys: a decode step over its
-    cache), else every key, ``square`` when Sq = Sk (an encoder's
-    self-attention; cross-attention over as many frames as tokens) and
-    ``rect`` when not (cross-attention, its decode step included)."""
+def mask_of(causal: bool, kv_len, sq: int, sk: int, q_offset=None) -> str:
+    """The mask a call is counted under: ``offset`` (a query offset given:
+    a sequence shard of sequence-parallel attention, its first shard's 0
+    included), ``causal`` (with or without a window), ``kv_len`` (the
+    first kv_len keys: a decode step over its cache), else every key,
+    ``square`` when Sq = Sk (an encoder's self-attention; cross-attention
+    over as many frames as tokens) and ``rect`` when not (cross-attention,
+    its decode step included)."""
+    if q_offset is not None:
+        return "offset"
     if causal:
         return "causal"
     if kv_len is not None:
@@ -155,17 +165,30 @@ def _counter_block(device, stream: int, n: int) -> torch.Tensor:
     return c
 
 
-def _launch_fwd(q, k, v, causal, window, kv_len, with_lse):
+def _offset(q_offset) -> int:
+    """``q_offset`` as the kernels take it (None: 0); a non-negative int."""
+    if q_offset is None:
+        return 0
+    if isinstance(q_offset, bool) or int(q_offset) != q_offset or \
+            q_offset < 0:
+        raise ValueError(f"flash_attention: q_offset {q_offset!r} is not a "
+                         "non-negative int")
+    return int(q_offset)
+
+
+def _launch_fwd(q, k, v, causal, window, kv_len, with_lse, q_offset=None):
     """K1 on a card; returns (out, lse or None).  On meta tensors: the
     same outputs, empty, and the call's work reported, no launch."""
     global _fwd
     _check(q, k, v)
+    off = _offset(q_offset)
     B, H, Sq, D = q.shape
     Hkv, Sk = k.shape[1], k.shape[2]
     if q.is_meta:
         _meta.record("flash_attention", *_meta.attention_work(
             B, H, Hkv, Sq, Sk, D, q.element_size(), causal, window,
-            kv_len if isinstance(kv_len, int) else None, with_lse))
+            kv_len if isinstance(kv_len, int) else None, with_lse,
+            q_offset=off))
         out = torch.empty((B, Sq, H, D), dtype=q.dtype,
                           device=q.device).permute(0, 2, 1, 3)
         return out, (torch.empty((B, H, Sq), dtype=torch.float32,
@@ -182,10 +205,7 @@ def _launch_fwd(q, k, v, causal, window, kv_len, with_lse):
     out = torch.empty((B, Sq, H, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     rows = H // Hkv * Sq
-    path = select_path(q.dtype, rows)
-    if with_lse and path == "split_decode":
-        raise ValueError(f"flash_attention: no gradient through the decode "
-                         f"path ({rows} query rows per KV head)")
+    path = select_path(q.dtype, rows, with_lse)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -203,14 +223,15 @@ def _launch_fwd(q, k, v, causal, window, kv_len, with_lse):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), kv_dev,
         PATHS.index(path), _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        kv_host, int(bool(causal)), int(window), float(D ** -0.5),
+        kv_host, int(bool(causal)), int(window), off, float(D ** -0.5),
         None if ws is None else ws.data_ptr(),
         None if counters is None else counters.data_ptr(), nsplit,
         None if lse is None else lse.data_ptr(), stream)
     _build.check(err, "flash_attention_fwd")
     flash_attention.launches += 1
     flash_attention.path_launches[path] += 1
-    flash_attention.mask_launches[mask_of(causal, kv_len, Sq, Sk)] += 1
+    flash_attention.mask_launches[mask_of(causal, kv_len, Sq, Sk,
+                                          q_offset)] += 1
     return out, lse
 
 
@@ -238,17 +259,20 @@ def _aligned(t):
 
 
 def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
-                        window: int = 0):
+                        window: int = 0, q_offset=None):
     """Gradients (dq, dk, dv) of :func:`flash_attention` from the forward's
     output ``o`` and row log-sum-exp ``lse`` (B, H, Sq) fp32; CPU tensors
     take the plain version (``attention_backward_reference``).  On a card:
     the three launches of ``csrc/flash_attention_bwd.cu`` on the path
     :func:`select_bwd_path` names, one call counted; dq comes laid out as
-    (B, Sq, H, D), dk / dv as (B, Sk, Hkv, D)."""
+    (B, Sq, H, D), dk / dv as (B, Sk, Hkv, D).  ``q_offset``: the
+    forward's."""
     global _bwd
+    off = _offset(q_offset)
     if q.device.type == "cpu":
         return attention_backward_reference(q, k, v, o, do, lse,
-                                            causal=causal, window=window)
+                                            causal=causal, window=window,
+                                            q_offset=off)
     if q.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"flash_attention_bwd: no kernel for {q.device}")
     _check(q, k, v)
@@ -257,7 +281,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
         Hkv, Sk = k.shape[1], k.shape[2]
         _meta.record("flash_attention_bwd", *_meta.attention_work(
             B, H, Hkv, Sq, Sk, D, q.element_size(), causal, window,
-            backward=True))
+            backward=True, q_offset=off))
         return tuple(torch.empty((B, s_, h_, D), dtype=q.dtype,
                                  device=q.device).permute(0, 2, 1, 3)
                      for s_, h_ in ((Sq, H), (Sk, Hkv), (Sk, Hkv)))
@@ -290,12 +314,14 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                BWD_PATHS.index(path), _DTYPES[q.dtype], B, H, Hkv, Sq, Sk, D,
-               strides, int(bool(causal)), int(window), float(D ** -0.5),
+               strides, int(bool(causal)), int(window), off,
+               float(D ** -0.5),
                torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
     flash_attention_bwd.path_launches[path] += 1
-    flash_attention_bwd.mask_launches[mask_of(causal, None, Sq, Sk)] += 1
+    flash_attention_bwd.mask_launches[mask_of(causal, None, Sq, Sk,
+                                              q_offset)] += 1
     return dq, dk, dv
 
 
@@ -306,15 +332,19 @@ flash_attention_bwd.path_launches = dict.fromkeys(BWD_PATHS, 0)
 flash_attention_bwd.mask_launches = dict.fromkeys(MASKS, 0)
 
 
-def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0):
+def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
+                        q_offset=None):
     """(out, lse): K1's output and its row log-sum-exp (B, H, Sq) fp32,
     what the backward is given; CPU tensors take the plain versions."""
     if q.device.type == "cpu":
-        return (attention_reference(q, k, v, causal=causal, window=window),
-                attention_lse_reference(q, k, causal=causal, window=window))
+        off = _offset(q_offset)
+        return (attention_reference(q, k, v, causal=causal, window=window,
+                                    q_offset=off),
+                attention_lse_reference(q, k, causal=causal, window=window,
+                                        q_offset=off))
     if q.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
-    return _launch_fwd(q, k, v, causal, window, None, True)
+    return _launch_fwd(q, k, v, causal, window, None, True, q_offset)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -322,10 +352,10 @@ class FlashAttentionFn(torch.autograd.Function):
     and the backward kernel, for tensors on a card."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window):
-        out, lse = _launch_fwd(q, k, v, causal, window, None, True)
+    def forward(ctx, q, k, v, causal, window, q_offset=None):
+        out, lse = _launch_fwd(q, k, v, causal, window, None, True, q_offset)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.window = causal, window
+        ctx.causal, ctx.window, ctx.q_offset = causal, window, q_offset
         return out
 
     @staticmethod
@@ -333,29 +363,33 @@ class FlashAttentionFn(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse,
                                          causal=ctx.causal,
-                                         window=ctx.window)
-        return dq, dk, dv, None, None
+                                         window=ctx.window,
+                                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_len=None):
+                    kv_len=None, q_offset=None):
     """GQA softmax attention; CPU tensors take the plain version.
 
     ``kv_len``: None (all ``Sk`` keys), an int, or a 0-d int32 tensor on
     q's device (read by the kernel on the device: no host sync).  With a
     gradient to compute (training), :class:`FlashAttentionFn`; ``kv_len``
-    is then refused: the backward kernel is for training shapes."""
+    is then refused: the backward kernel is for training shapes.
+    ``q_offset``: a non-negative int, query ``i``'s position less ``i``
+    (the contract of the reference's ``chunked_attention(q_offset=)``);
+    a call given one is counted under the ``offset`` mask."""
     if q.device.type == "cpu":
         return attention_reference(q, k, v, causal=causal, window=window,
-                                   kv_len=kv_len)
+                                   kv_len=kv_len, q_offset=_offset(q_offset))
     if q.device.type not in ("cuda", "meta"):
         raise RuntimeError(f"flash_attention: no kernel for {q.device}")
     if needs_grad(q, k, v):
         if kv_len is not None:
             raise ValueError("flash_attention: no gradient with kv_len (the "
                              "backward kernel is for training shapes)")
-        return FlashAttentionFn.apply(q, k, v, causal, window)
-    return _launch_fwd(q, k, v, causal, window, kv_len, False)[0]
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset)
+    return _launch_fwd(q, k, v, causal, window, kv_len, False, q_offset)[0]
 
 
 #: kernel launches since the last reset (CPU calls are not launches), in

@@ -44,27 +44,40 @@ def record(kernel: str, flops: float, nbytes: float) -> None:
 
 
 def attention_pairs(sq: int, sk: int, causal: bool, window: int = 0,
-                    kv_len: Optional[int] = None) -> int:
+                    kv_len: Optional[int] = None, q_offset: int = 0) -> int:
     """(query, key) pairs one head of K1 visits: every row over the first
-    ``kv_len`` (else all ``sk``) keys, or, causal (top-left aligned), row
-    ``i`` over keys ``max(0, i - window + 1) .. i``."""
+    ``kv_len`` (else all ``sk``) keys, or, causal, the row at position
+    ``p = q_offset + i`` over keys ``max(0, p - window + 1) .. p`` of
+    those (top-left aligned when ``q_offset`` is 0)."""
     n = sk if kv_len is None else min(int(kv_len), sk)
     if not causal:
         return sq * n
-    cap = min(n, window) if window else n
-    if sq <= cap:
-        return sq * (sq + 1) // 2
-    return cap * (cap + 1) // 2 + (sq - cap) * cap
+
+    def row(p):                           # keys the row at position p sees
+        return max(0, min(n, p + 1) - (max(0, p - window + 1) if window
+                                       else 0))
+
+    # row(p) is linear between the breakpoints: sum each piece as an
+    # arithmetic series
+    a, b = q_offset, q_offset + sq
+    cuts = sorted({a, b} | {c for c in (n, window, n + window - 1)
+                            if window or c == n} - {0})
+    cuts = [c for c in [a] + cuts if a <= c <= b]
+    total = 0
+    for s0, s1 in zip(cuts, cuts[1:]):
+        if s1 > s0:
+            total += (row(s0) + row(s1 - 1)) * (s1 - s0) // 2
+    return total
 
 
 def attention_work(B, H, Hkv, sq, sk, D, itemsize, causal, window=0,
-                   kv_len=None, with_lse=False, backward=False):
+                   kv_len=None, with_lse=False, backward=False, q_offset=0):
     """(flops, bytes) of one K1 call: QK^T and PV (2 D each a pair) in the
     forward, the backward's five products (S again, dP, dV, dQ, dK);
     q, k, v (the keys it reads) and the output once, the fp32 lse beside
     them; the backward reads q, k, v, o, dO and the lse and writes dq, dk,
-    dv."""
-    pairs = B * H * attention_pairs(sq, sk, causal, window, kv_len)
+    dv.  ``q_offset``: a sequence shard's (``attention_pairs``)."""
+    pairs = B * H * attention_pairs(sq, sk, causal, window, kv_len, q_offset)
     keys = sk if kv_len is None else min(int(kv_len), sk)
     q_bytes, kv_bytes = B * H * sq * D * itemsize, B * Hkv * keys * D * itemsize
     lse = 4 * B * H * sq

@@ -8,9 +8,10 @@ import torch
 NEG_INF = -1e30
 
 
-def _attention_mask(Sq, Sk, *, causal, window, kv_len, device):
-    """(Sq, Sk) bool: key j is valid for query i (top-left causal)."""
-    qpos = torch.arange(Sq, device=device)[:, None]
+def _attention_mask(Sq, Sk, *, causal, window, kv_len, device, q_offset=0):
+    """(Sq, Sk) bool: key j is valid for query i, at position
+    ``q_offset + i`` (causal: top-left aligned when ``q_offset`` is 0)."""
+    qpos = q_offset + torch.arange(Sq, device=device)[:, None]
     kpos = torch.arange(Sk, device=device)[None, :]
     mask = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -22,52 +23,61 @@ def _attention_mask(Sq, Sk, *, causal, window, kv_len, device):
     return mask
 
 
-def _attention_scores(q, k, *, causal, window, kv_len=None):
+def _attention_scores(q, k, *, causal, window, kv_len=None, q_offset=0):
     """fp32 scaled scores (B, H, Sq, Sk), masked entries -1e30, and the
     mask; k is repeated over the G query heads of each KV head."""
     D = q.shape[-1]
     k = k.repeat_interleave(q.shape[1] // k.shape[1], dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
     mask = _attention_mask(q.shape[2], k.shape[2], causal=causal,
-                           window=window, kv_len=kv_len, device=q.device)
+                           window=window, kv_len=kv_len, device=q.device,
+                           q_offset=q_offset)
     return torch.where(mask[None, None], s, torch.full_like(s, NEG_INF)), mask
 
 
 def attention_reference(q, k, v, *, causal: bool = True, window: int = 0,
-                        kv_len=None):
+                        kv_len=None, q_offset: int = 0):
     """Naive softmax attention.  q: (B,H,Sq,D); k,v: (B,Hkv,Sk,D).
 
     ``kv_len`` (an int or a 0-d integer tensor) masks keys at positions
-    ``>= kv_len`` as well, the decode step's filled cache prefix."""
+    ``>= kv_len`` as well, the decode step's filled cache prefix.
+    ``q_offset``: query ``i`` stands at position ``q_offset + i`` (a
+    sequence shard's queries over the whole sequence's keys): causal, it
+    sees keys ``j <= q_offset + i``, and the window is measured from
+    there (``chunked_attention(q_offset=)``'s contract)."""
     s, _ = _attention_scores(q, k, causal=causal, window=window,
-                             kv_len=kv_len)
+                             kv_len=kv_len, q_offset=q_offset)
     p = torch.softmax(s, dim=-1)
     v = v.repeat_interleave(q.shape[1] // v.shape[1], dim=1)
     out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
     return out.to(q.dtype)
 
 
-def attention_lse_reference(q, k, *, causal: bool = True, window: int = 0):
+def attention_lse_reference(q, k, *, causal: bool = True, window: int = 0,
+                            q_offset: int = 0):
     """The row log-sum-exp of the scaled, masked scores, (B, H, Sq) fp32:
     what the forward kernel writes beside its output for the backward."""
-    s, _ = _attention_scores(q, k, causal=causal, window=window)
+    s, _ = _attention_scores(q, k, causal=causal, window=window,
+                             q_offset=q_offset)
     return torch.logsumexp(s, dim=-1)
 
 
 def attention_backward_reference(q, k, v, o, do, lse, *, causal: bool = True,
-                                 window: int = 0):
+                                 window: int = 0, q_offset: int = 0):
     """Plain attention backward from the saved row log-sum-exp.
 
     P = exp(S - lse) on the valid keys (0 elsewhere), with S the scaled
     scores; dV = P^T dO; dS = P o (dO V^T - rowsum(dO o O)); dQ = dS K
     scale; dK = dS^T Q scale; dK and dV summed over the G query heads of
     each KV head.  fp32 throughout; returns (dq, dk, dv) in the inputs'
-    dtypes.  A row with no valid key gets zero gradients."""
+    dtypes.  A row with no valid key gets zero gradients.  ``q_offset``:
+    :func:`attention_reference`'s."""
     B, H, Sq, D = q.shape
     Hkv = k.shape[1]
     g = H // Hkv
     scale = D ** -0.5
-    s, mask = _attention_scores(q, k, causal=causal, window=window)
+    s, mask = _attention_scores(q, k, causal=causal, window=window,
+                                q_offset=q_offset)
     p = torch.exp(s - lse.float()[..., None]) * mask[None, None]
     do32, o32 = do.float(), o.float()
     kr = k.float().repeat_interleave(g, dim=1)

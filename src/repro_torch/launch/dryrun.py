@@ -12,7 +12,12 @@ Per cell it records:
     (``--mesh card``), where it adds the gradients (one per parameter) and
     the state a resize clones (every leaf, by the ``default`` pattern);
   * one step's FLOPs and HBM bytes counted on meta (``launch/flopcount.py``)
-    and the roofline terms (``launch/roofline.py``);
+    and the roofline terms (``launch/roofline.py``).  On a production mesh
+    the step runs inside ``sharding_context(mesh, rules_for(cfg))``, as
+    the reference's lowering does, so its attention and MoE layers go
+    through their sharded bodies (``parallel/spmd.py``) over the mesh's
+    logical workers: K1 once per sequence shard, counted by its offset
+    pairs; each shard's expert products;
   * ``fits_card``.
 
 The JAX package reads a compiled step's temporaries from XLA's memory
@@ -52,9 +57,11 @@ from repro_torch.models import model as M
 from repro_torch.models.train import (abstract_state, make_prefill_step,
                                       make_serve_step, make_train_step)
 from repro_torch.optim import AdamW
+from repro_torch.parallel.context import sharding_context
 from repro_torch.parallel.mesh import default_device
 from repro_torch.parallel.sharding import (batch_shardings, cache_shardings,
-                                           param_shardings, state_shardings)
+                                           param_shardings, rules_for,
+                                           state_shardings)
 
 MESHES = {"single": "pod16x16", "multi": "pod2x16x16", "card": "card"}
 GB = 1e9
@@ -135,9 +142,13 @@ def grad_bytes(cfg, shape, state, mesh=None) -> int:
     return params + params * m0.element_size() // p0.element_size()
 
 
-def count_cell(step, args):
-    """The step's count on meta, or the reason it cannot be counted."""
+def count_cell(step, args, cfg=None, mesh=None):
+    """The step's count on meta, or the reason it cannot be counted; with
+    a ``mesh``, inside ``cfg``'s sharding context on it."""
     try:
+        if mesh is not None:
+            with sharding_context(mesh, rules_for(cfg)):
+                return flopcount.count(step, *args.values()), None
         return flopcount.count(step, *args.values()), None
     except (RuntimeError, NotImplementedError, TypeError) as e:
         return None, f"not countable on meta: {type(e).__name__}: {e}"
@@ -194,7 +205,7 @@ def run_cell(arch: str, shape_name: str, mesh: str = "card", layers=None,
             make_production_mesh(multi_pod=mesh == "multi")
         chips = 1 if pmesh is None else pmesh.size
         arg = argument_bytes(cfg, shape, args, pmesh)
-        counted, why = count_cell(step, args)
+        counted, why = count_cell(step, args, cfg, pmesh)
     except Exception as e:                       # a failure here is a bug
         rec.update(status="FAILED", error=f"{type(e).__name__}: {e}",
                    traceback=traceback.format_exc()[-2000:])

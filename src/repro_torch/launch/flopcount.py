@@ -11,7 +11,9 @@ counts what it dispatches:
     recomputation included: it runs again);
   * kernels -- K1 and K3 by the work their kernels do
     (``kernels/meta.py``): K1 over the causal or windowed pairs each head
-    visits, forward and backward, K3 over its chunk products.  Their
+    visits, forward and backward (a sequence shard's by its query offset:
+    the shards' pairs sum to the whole sequence's), K3 over its chunk
+    products.  Their
     plain versions' dense products never run here (K1's plain version
     does twice the causal work);
   * HBM bytes -- as ``hloanalysis`` counts top-level operators: the bytes

@@ -6,8 +6,18 @@ in place of its einsum softmax over the cache.  Each also takes the
 encoder-decoder family's cross-attention: ``attn_apply(kv_x=)`` reads keys
 and values of the encoder's output (Sq != Sk, no causal mask), and
 ``decode_attn_apply(cross=True)`` reads a cross cache whose every slot is
-valid.  The sequence-parallel ``shard_map`` path waits for the
-multi-process slice.
+valid.
+
+Under a sharding context (``parallel/context.py``) whose mesh's ``model``
+axis does not divide the head count but divides the sequence (phi4-mini's
+24 heads or qwen2.5's 40 on 16 workers; every smoke config's 4 on 8),
+``attn_apply`` runs the reference's sequence-parallel path as a
+``shard_map`` body (``parallel/spmd.py``): each worker projects q, k and
+v for its slice of the sequence, the workers all-gather K and V over
+``model``, and each launches K1 for its queries over the whole sequence's
+keys with a causal query offset (``q_offset``: its slice's first
+position).  The weights are gathered over ``data`` where they are split
+over it.
 """
 from __future__ import annotations
 
@@ -17,6 +27,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ops import flash_attention
 from repro_torch.models.layers import apply_rope, rmsnorm
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.parallel import sharding as shd
+from repro_torch.parallel import spmd
+from repro_torch.parallel.context import constrain, get_context
 
 
 # ----------------------------------------------------------------------
@@ -98,13 +111,76 @@ def attn_apply(params, x, cfg: ArchConfig, *, positions, kv_x=None,
                causal: bool = True, rope: bool = True):
     """Self- or cross-attention over a full sequence (prefill / train
     forward); cross-attention (``kv_x``, the encoder's output) passes its
-    Sk = S_enc keys to K1 beside the Sq queries of ``x``."""
+    Sk = S_enc keys to K1 beside the Sq queries of ``x``.  Under a
+    sharding context, self-attention takes the sequence-parallel path
+    where the reference does (the module's docstring)."""
+    ctx = get_context()
+    if ctx is not None and kv_x is None:
+        mesh, rules = ctx
+        model_n = mesh.shape.get("model", 1)
+        S = x.shape[1]
+        if (model_n > 1 and cfg.num_heads % model_n != 0
+                and S % model_n == 0 and S >= model_n):
+            return _attn_apply_seq_shardmap(params, x, cfg, mesh, rules,
+                                            causal=causal, rope=rope)
     dt = torch_dtype(cfg.dtype)
+    x = constrain(x, "act_batch", "act_seq", "act_embed")
+    if kv_x is not None:
+        kv_x = constrain(kv_x, "act_batch", "act_seq", "act_embed")
     q, k, v = _project_qkv(params, x, cfg, positions, kv_x=kv_x, rope=rope)
     window = cfg.window if cfg.attention == "swa" else 0
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window)
     return _out_proj(out.transpose(1, 2), params, dt)
+
+
+def _attn_apply_seq_shardmap(params, x, cfg: ArchConfig, mesh, rules, *,
+                             causal: bool, rope: bool):
+    """Sequence-parallel self-attention (the reference's
+    ``_attn_apply_seq_shardmap``).
+
+    x arrives split over the sequence by ``model`` (the block-boundary
+    residual layout) and over the batch by ``data``; each worker projects
+    q/k/v for its S / model positions, K and V are all-gathered over
+    ``model`` (one tensor per group, shared by its workers), and each
+    worker runs K1 on its queries with the causal query offset of its
+    slice.  Weights split over ``data`` are gathered over it first."""
+    dt = torch_dtype(cfg.dtype)
+    B, S, D = x.shape
+    S_loc = S // mesh.shape["model"]
+    x_spec = shd.spec_for_axes(("act_batch", "act_seq_blk", "act_embed"),
+                               rules, mesh, x.shape)
+    schema = attention_schema(cfg)
+    names = list(schema)
+    specs = [shd.spec_for_axes(schema[n].axes, rules, mesh, params[n].shape)
+             for n in names]
+    window = cfg.window if cfg.attention == "swa" else 0
+
+    def body(*args):
+        *ws, xb = args
+        p = {n: spmd.gather_split(w, spec, "data")
+             for n, w, spec in zip(names, ws, specs)}
+        offsets = [i * S_loc for i in spmd.axis_index("model")]
+
+        def project(xw, off, *wl):
+            pos = (off + torch.arange(S_loc, device=xw.device))[None, :]
+            return _project_qkv(dict(zip(names, wl)), xw, cfg, pos,
+                                rope=rope)
+
+        q, k, v = spmd.each(project, xb, offsets, *(p[n] for n in names))
+        k = spmd.all_gather(k, "model", axis=1, tiled=True)
+        v = spmd.all_gather(v, "model", axis=1, tiled=True)
+
+        def attend(qw, kw, vw, off, wo):
+            o = flash_attention(qw.transpose(1, 2), kw.transpose(1, 2),
+                                vw.transpose(1, 2), causal=causal,
+                                window=window, q_offset=off)
+            return _out_proj(o.transpose(1, 2), {"wo": wo}, dt)
+
+        return spmd.each(attend, q, k, v, offsets, p["wo"])
+
+    return spmd.shard_map(body, mesh, specs + [x_spec], x_spec)(
+        *[params[n] for n in names], x)
 
 
 def decode_attn_apply(params, x, cfg: ArchConfig, cache, *, cache_index,

@@ -32,6 +32,7 @@ from repro_torch.models import blocks, params as P, ssm as ssm_mod
 from repro_torch.models.layers import (embed, embed_schema, rmsnorm,
                                        rmsnorm_schema, unembed)
 from repro_torch.models.params import ParamDef, torch_dtype
+from repro_torch.parallel.context import bind
 
 
 def _require_supported(cfg: ArchConfig):
@@ -100,9 +101,12 @@ def layer(stacked, i: int):
 
 def _run(cfg: ArchConfig, fn, *args):
     """``fn(*args)``, under ``torch.utils.checkpoint`` (non-reentrant)
-    with ``cfg.remat`` while a gradient is being recorded."""
+    with ``cfg.remat`` while a gradient is being recorded; the
+    recomputation runs under the sharding context of the forward
+    (``parallel.context.bind``: autograd may recompute on another
+    thread)."""
     if cfg.remat and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(bind(fn), *args, use_reentrant=False)
     return fn(*args)
 
 

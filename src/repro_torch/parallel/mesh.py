@@ -6,9 +6,13 @@ A job mesh arranges a worker set as ``(data, model)`` exactly as the JAX
 package's ``make_job_mesh`` arranges devices, and a :class:`Placement` says
 how one state leaf is laid out over it: for each dimension, the mesh axes
 it is split over (a ``PartitionSpec``'s entries).  A resize changes
-placements and moves bytes through the redistribution patterns; the
-arithmetic of a step does not depend on the worker count (each operation
-runs once over the whole batch).
+placements and moves bytes through the redistribution patterns.  The
+worker count changes a step's arithmetic only where the reference's does:
+under a training job's sharding context (``parallel/context.py``) the
+attention and MoE layers run ``shard_map`` bodies over the mesh's workers
+in lockstep (``parallel/spmd.py``: per-worker values on the one device,
+collectives built from ``cat`` and ``sum``); every other operation runs
+once over the whole batch.
 
 The production meshes of the JAX package's dry run, ``(16, 16)`` and
 ``(2, 16, 16)`` (a ``pod`` axis first), are job meshes of 256 and 512

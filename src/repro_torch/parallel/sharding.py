@@ -6,8 +6,9 @@ Every parameter in the model schema carries a tuple of logical axis names;
 ``batch_shardings`` / ``cache_shardings`` give full placement trees for a
 mesh.  Rules degrade gracefully: a mesh without a given axis (a job mesh
 has no "pod") drops it.  On one card a placement is the layout a resize
-accounts for; the arithmetic of a step does not depend on it.  On the
-dry run's production meshes it gives each worker's bytes.
+accounts for, and the split a ``shard_map`` body's inputs take
+(``parallel/spmd.py``).  On the dry run's production meshes it gives each
+worker's bytes.
 """
 from __future__ import annotations
 

@@ -362,14 +362,14 @@ def test_flash_at_zamba2s_training_shape_on_card(cuda):
 def test_flash_bwd_entry_point_refuses_a_path_that_cannot_take_the_call(
         cuda):
     """The wrapper chooses the backward's path; the C entry point returns
-    cudaErrorInvalidValue (1) for wgmma on fp32, fma on bf16 and a path id
-    it does not know, and launches nothing."""
+    cudaErrorInvalidValue (1) for wgmma on fp32, fma on bf16, a path id
+    it does not know and a negative query offset, and launches nothing."""
     ops.build()
     bwd = _build.load()["flash_attention_bwd"].flash_attention_bwd
     stream = torch.cuda.current_stream(cuda).cuda_stream
     fma, wgmma = (fa.BWD_PATHS.index(p) for p in ("fma", "wgmma"))
 
-    def call(path, dtype):
+    def call(path, dtype, q_offset=0):
         q = torch.zeros(1, 4, 64, 64, device=cuda, dtype=dtype)
         kv = torch.zeros(1, 2, 64, 64, device=cuda, dtype=dtype)
         lse, delta = (torch.zeros(1, 4, 64, device=cuda) for _ in range(2))
@@ -379,13 +379,15 @@ def test_flash_bwd_entry_point_refuses_a_path_that_cannot_take_the_call(
         return bwd(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), q.data_ptr(),
                    q.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                    *(g.data_ptr() for g in grads), path, fa._DTYPES[dtype],
-                   1, 4, 2, 64, 64, 64, strides, 1, 0, 0.125, stream)
+                   1, 4, 2, 64, 64, 64, strides, 1, 0, q_offset, 0.125,
+                   stream)
 
     f32, bf16 = torch.float32, torch.bfloat16
     assert call(wgmma, f32) == 1                 # wgmma: bf16 only
     assert call(fma, bf16) == 1                  # fma: fp32 only
     assert call(len(fa.BWD_PATHS), bf16) == 1
     assert call(-1, f32) == 1
+    assert call(wgmma, bf16, q_offset=-1) == 1
     assert call(wgmma, bf16) == 0                # the paths it would choose
     assert call(fma, f32) == 0
     torch.cuda.synchronize()
@@ -393,16 +395,25 @@ def test_flash_bwd_entry_point_refuses_a_path_that_cannot_take_the_call(
 
 @pytest.mark.gpu
 def test_flash_bwd_refusals_on_card(cuda):
-    """No gradient through kv_len or through the decode path: the backward
-    kernel is for training shapes, and split_decode writes no lse."""
+    """No gradient through kv_len: the backward kernel is for training
+    shapes.  A call of decode-sized rows that needs a gradient (a short
+    sequence shard) takes the mma path, which writes the lse, and not
+    split_decode, which writes none."""
     q, k, v, _ = _bwd_inputs(cuda, 1, 4, 2, 64, 64, 64, "bfloat16")
     q.requires_grad_()
     with pytest.raises(ValueError, match="kv_len"):
         ops.flash_attention(q, k, v, causal=False, kv_len=32)
-    with pytest.raises(ValueError, match="decode path"):
-        ops.flash_attention(q[:, :, :1], k, v, causal=False)
+    paths = dict(fa.flash_attention.path_launches)
+    out = ops.flash_attention(q[:, :, :1], k, v, causal=False)
+    assert fa.flash_attention.path_launches["mma"] == paths["mma"] + 1
+    out.sum().backward()
+    torch.testing.assert_close(out.float(), attention_reference(
+        q[:, :, :1].detach(), k, v, causal=False).float(),
+        atol=TOL["bfloat16"], rtol=TOL["bfloat16"])
     with torch.no_grad():                        # serving: no lse, no refusal
         ops.flash_attention(q[:, :, :1], k, v, causal=False, kv_len=32)
+    assert fa.flash_attention.path_launches["split_decode"] == \
+        paths["split_decode"] + 1
 
 
 def _split_edges(S, nsplit):
@@ -448,22 +459,22 @@ def test_flash_decode_at_every_split_edge_on_card(cuda, dtype, as_tensor, B):
 def test_flash_entry_point_refuses_a_path_that_cannot_take_the_call(cuda):
     """The wrapper chooses the path; the C entry point returns
     cudaErrorInvalidValue (1) for a path whose kernels cannot take the
-    call, and launches nothing."""
+    call or a negative query offset, and launches nothing."""
     ops.build()
     fwd = _build.load()["flash_attention"].flash_attention_fwd
     stream = torch.cuda.current_stream(cuda).cuda_stream
     fma, mma, split = (fa.PATHS.index(p) for p in ("fma", "mma",
                                                    "split_decode"))
 
-    def call(path, dtype, H, Sq, nsplit=1, lse=None):
+    def call(path, dtype, H, Sq, nsplit=1, lse=None, q_offset=0):
         q = torch.zeros(1, H, Sq, 64, device=cuda, dtype=dtype)
         kv = torch.zeros(1, 1, 64, 64, device=cuda, dtype=dtype)
         out = torch.empty_like(q)
         return fwd(q.data_ptr(), kv.data_ptr(), kv.data_ptr(), out.data_ptr(),
                    None, path, fa._DTYPES[dtype], 1, H, 1, Sq, 64, 64,
                    *q.stride()[:3], *kv.stride()[:3], *kv.stride()[:3],
-                   *out.stride()[:3], 64, 1, 0, 0.125, None, None, nsplit,
-                   lse, stream)
+                   *out.stride()[:3], 64, 1, 0, q_offset, 0.125, None, None,
+                   nsplit, lse, stream)
 
     f32, bf16 = torch.float32, torch.bfloat16
     assert call(mma, f32, 4, 64) == 1            # mma: bf16 only
@@ -475,7 +486,9 @@ def test_flash_entry_point_refuses_a_path_that_cannot_take_the_call(cuda):
     assert call(len(fa.PATHS), bf16, 4, 64) == 1
     lse = torch.empty(4 * 64, device=cuda)       # (B, H, Sq) of the mma call
     assert call(split, bf16, 4, 1, lse=lse.data_ptr()) == 1  # no lse here
+    assert call(mma, bf16, 4, 64, q_offset=-1) == 1
     assert call(split, bf16, 4, 1) == 0          # the path it would choose
+    assert call(mma, bf16, 4, 64, q_offset=32) == 0
     assert call(mma, bf16, 4, 64, lse=lse.data_ptr()) == 0
     assert call(mma, bf16, 4, 64) == 0
     torch.cuda.synchronize()
@@ -1634,3 +1647,154 @@ def test_dense_train_step_on_card_matches_cpu(cuda, name, heads):
     assert ("layers/attn/bq" in grads["cpu"]) == (name == "qwen2.5-32b")
     for k, exp in grads["cpu"].items():
         assert _rel_err(grads["cuda"][k], exp) <= 1e-4, k
+
+
+# -- K1 with a causal query offset (sequence-parallel attention) -----------
+
+# (B, H, Hkv, Sq, Sk, q_offset, window, dtype): each path, the mma path's
+# block and group kernels (B * Hkv >= 66 on a 132-SM card), ragged shards,
+# windows measured from the offset row
+OFFSET_CASES = [
+    (2, 8, 2, 64, 256, 128, 0, "float32"),           # fma
+    (2, 8, 2, 77, 300, 150, 40, "float32"),          # fma, window, ragged
+    (1, 8, 2, 64, 256, 192, 0, "bfloat16"),          # mma block
+    (2, 8, 2, 100, 300, 160, 64, "bfloat16"),        # mma block, window
+    (16, 24, 8, 64, 256, 64, 0, "bfloat16"),         # mma group
+    (16, 16, 8, 64, 256, 0, 0, "bfloat16"),          # mma group, offset 0
+    (3, 8, 2, 2, 200, 150, 0, "bfloat16"),           # split_decode
+    (3, 8, 2, 2, 200, 150, 30, "float32"),           # split_decode, window
+]
+# (B, H, Hkv, Sq, Sk, q_offset, window): the backward on its dtype's path
+OFFSET_BWD_CASES = [
+    (2, 4, 2, 64, 256, 128, 0),
+    (1, 4, 2, 100, 300, 150, 40),
+    (2, 8, 2, 77, 256, 0, 0),
+    (1, 6, 2, 64, 128, 64, 0),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,q_offset,window,dtype", OFFSET_CASES)
+def test_flash_with_query_offset_on_card(cuda, B, H, Hkv, Sq, Sk, q_offset,
+                                         window, dtype, D):
+    """K1 with a causal query offset against its plain version, counted
+    under the ``offset`` mask on the path ``select_path`` names."""
+    q, k, v, _ = _bwd_inputs(cuda, B, H, Hkv, Sq, Sk, D, dtype)
+    masks = dict(fa.flash_attention.mask_launches)
+    paths = dict(fa.flash_attention.path_launches)
+    out = fa.flash_attention(q, k, v, causal=True, window=window,
+                             q_offset=q_offset)
+    torch.cuda.synchronize()
+    path = fa.select_path(q.dtype, H // Hkv * Sq)
+    assert {p: n - paths[p] for p, n in
+            fa.flash_attention.path_launches.items()} == \
+        {p: int(p == path) for p in fa.PATHS}
+    assert {m: n - masks[m] for m, n in
+            fa.flash_attention.mask_launches.items()} == \
+        {m: int(m == "offset") for m in fa.MASKS}
+    exp = attention_reference(q, k, v, causal=True, window=window,
+                              q_offset=q_offset)
+    torch.testing.assert_close(out.float(), exp.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,Hkv,Sq,Sk,q_offset,window", OFFSET_BWD_CASES)
+def test_flash_bwd_with_query_offset_on_card(cuda, B, H, Hkv, Sq, Sk,
+                                             q_offset, window, dtype):
+    """K1's forward (with its lse) and backward with a query offset against
+    the plain versions; keys past the shard's last position get zero dk
+    and dv."""
+    q, k, v, do = _bwd_inputs(cuda, B, H, Hkv, Sq, Sk, 128, dtype)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True, window=window,
+                                      q_offset=q_offset)
+    torch.testing.assert_close(
+        lse, attention_lse_reference(q, k, causal=True, window=window,
+                                     q_offset=q_offset),
+        atol=TOL[dtype], rtol=TOL[dtype])
+    masks = dict(fa.flash_attention_bwd.mask_launches)
+    got = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True,
+                                 window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.mask_launches["offset"] == \
+        masks["offset"] + 1
+    exp = attention_backward_reference(q, k, v, out, do, lse, causal=True,
+                                       window=window, q_offset=q_offset)
+    for name, a, b in zip(("dq", "dk", "dv"), got, exp):
+        torch.testing.assert_close(a.float(), b.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype], msg=name)
+    last = q_offset + Sq
+    if last < Sk:
+        assert not got[1][:, :, last:].any() and not got[2][:, :, last:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_offset_shards_tile_the_full_call_on_card(cuda, dtype):
+    """Eight query shards of a causal S = 1024 call, each with its offset
+    over the whole sequence's keys: their outputs, concatenated, and their
+    gradients (dk, dv summed over the shards) against one full call."""
+    S, n = 1024, 8
+    q, k, v, do = _bwd_inputs(cuda, 2, 12, 4, S, S, 128, dtype)
+    out, lse = fa.flash_attention_lse(q, k, v, causal=True)
+    full = fa.flash_attention_bwd(q, k, v, out, do, lse, causal=True)
+    outs, dq, dk, dv = [], [], 0, 0
+    for r in range(n):
+        sl = slice(r * S // n, (r + 1) * S // n)
+        o_r, l_r = fa.flash_attention_lse(q[:, :, sl], k, v, causal=True,
+                                          q_offset=sl.start)
+        g = fa.flash_attention_bwd(q[:, :, sl], k, v, o_r, do[:, :, sl], l_r,
+                                   causal=True, q_offset=sl.start)
+        outs.append(o_r)
+        dq.append(g[0])
+        dk, dv = dk + g[1].float(), dv + g[2].float()
+    tol = TOL[dtype]
+    torch.testing.assert_close(torch.cat(outs, 2).float(), out.float(),
+                               atol=tol, rtol=tol)
+    for name, a, b in (("dq", torch.cat(dq, 2), full[0]), ("dk", dk, full[1]),
+                       ("dv", dv, full[2])):
+        torch.testing.assert_close(a.float(), b.float(), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype], msg=name)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,n", [("qwen2.5-32b-smoke", 8),
+                                    ("qwen3-moe-235b-a22b-smoke", 4),
+                                    ("mixtral-8x7b-smoke", 8)])
+def test_sharded_smoke_step_on_card_matches_cpu(cuda, arch, n):
+    """One ``lm_train_app`` step on a job mesh of ``n`` card workers from
+    the CPU's initial state: qwen2.5-smoke's 4 heads on 8 workers take the
+    sequence path (K1 once per worker and layer with its offset, forward
+    and backward), qwen3-moe-smoke's MoE on 4 routes each shard's tokens
+    (EP), mixtral-smoke's on 8 runs TP with F whole.  Loss, aux loss and
+    gradient norm equal the CPU workers' within 1e-5 / 1e-4 relative."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.lm_app import lm_train_app
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.mesh import logical_workers, make_job_mesh
+    cfg = get_config(arch)
+    app = lm_train_app(cfg, ShapeConfig("t", "train", 64, 8),
+                       AdamW(learning_rate=1e-3), seed=0)
+    state0 = app.init_state(make_job_mesh(logical_workers(n, "cpu")))
+    out = {}
+    for dev in ("cpu", cuda):
+        mesh = make_job_mesh(logical_workers(n, dev))
+        state = T.tree_map(lambda t: t.to(dev, copy=True), state0)
+        ops.reset_counts()
+        _, m = app.make_step(mesh)(state, 0)
+        out[str(dev)] = ({k: float(m[k]) for k in m if k != "step"},
+                         dict(fa.flash_attention.mask_launches),
+                         dict(fa.flash_attention_bwd.mask_launches))
+    (mc, _, _), (mg, fwd, bwd) = out["cpu"], out["cuda"]
+    seq = cfg.num_heads % n != 0
+    L = cfg.num_layers
+    assert fwd["offset"] == bwd["offset"] == (L * n if seq else 0)
+    assert fwd["causal"] == bwd["causal"] == (0 if seq else L)
+    for k in ("loss", "ce_loss", "aux_loss"):
+        if k in mc:
+            assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k]) + 1e-7, k
+    assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]

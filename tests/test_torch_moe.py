@@ -330,8 +330,16 @@ def test_bf16_master_weights_take_the_reference_adamw():
 # -- the port alone --------------------------------------------------------
 
 def test_elastic_training_equals_static():
-    """mixtral-smoke under the runner, 4 -> 8 -> 2 workers: the losses
-    (and so every MoE routing) equal the static run's, bit for bit."""
+    """mixtral-smoke under the runner, 4 -> 8 -> 2 workers, against the
+    static run at 4.  Each step runs under its mesh's sharding context, so
+    the MoE layer's numbers follow the worker count as the reference's
+    do: at 4 and 2 workers each shard routes its own tokens (EP), its aux
+    loss the shards' mean estimator; at 8 (4 experts do not split over 8)
+    every worker routes all tokens (TP, F not split: the global
+    formulation).  So the losses equal the static run's bit for bit up to
+    the first resize, and after it agree within ``tests/test_elastic.py``'s
+    1e-4 while the aux losses differ (``tests/test_torch_elastic_shard.py``
+    holds such a run against JAX's)."""
     from repro_torch import dmr
     from repro_torch.parallel.mesh import logical_workers
 
@@ -354,8 +362,12 @@ def test_elastic_training_equals_static():
             runs.append((losses, [e.action for e in runner.events]))
     finally:
         torch.use_deterministic_algorithms(before)
-    assert runs[0][0] == runs[1][0]
-    assert runs[1][1] == ["expand", "shrink"]
+    (static, _), (elastic, actions) = runs
+    assert static[:2] == elastic[:2]
+    np.testing.assert_allclose(np.asarray(elastic), np.asarray(static),
+                               atol=1e-4, rtol=0)
+    assert static[2][1] != elastic[2][1]
+    assert actions == ["expand", "shrink"]
 
 
 def test_clis_run_mixtral_smoke(capsys):
