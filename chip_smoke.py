@@ -56,7 +56,12 @@ Phases:
    S=4096, D=64, bf16), run twice and equal bit for bit, and K1's forward
    output there against ``attention_reference``; the lse against the plain
    forward's; then zamba2's training shape (B=1, H = Hkv = 32, S=4096,
-   D=80, bf16) the same way, twice, bit for bit;
+   D=80, bf16) the same way, twice, bit for bit; then the quickstart's
+   own K1 calls (phase 14f): fp32 on fma, causal, the eight query shards
+   of its 8-worker sequence path (B=8, H=4, Hkv=2, 8 queries of 64 at
+   offsets 0..56, D=16), forward output, lse and backward each against
+   its plain version, the ``offset`` mask counted once a shard and
+   direction;
 3c. phi4:K1: K1 at phi4-mini's shapes, before any phi4 model phase (bf16,
    B=16, H=24, Hkv=8: G = 3, D=128): decode over its 512-slot cache at
    seven kv_lens (384 the serving path's last) on split_decode (3 of its
@@ -268,6 +273,31 @@ Phases:
     seconds, the median seconds per tenant step, each resize's bytes and
     seconds, the peak of co-resident tenants and of
     ``torch.cuda.max_memory_allocated``;
+14f. examples (run right after 14b): the paper's §4.3 applications
+    (``repro_torch.examples``: quickstart, CG, Jacobi, N-body, the aligner
+    pipeline) through each ``main()`` on the card, at the reference's
+    sizes: each example's own check passes, each resize's (step, action,
+    from, to, bytes_moved, per-pattern bytes) equals the same example's
+    run on the CPU in this process, and the final states agree (CG and
+    Jacobi x within ``EX_X_TOL``; N-body one step's velocities within
+    ``EX_NBODY_STEP_RTOL``, the 20-step energy within
+    ``EX_NBODY_ENERGY_RTOL`` and positions within ``EX_NBODY_POS_ATOL``;
+    the aligner's counters; the quickstart's two runs start from one
+    state, the CPU workers' initial state copied to each run's device, and
+    its losses agree at every step within ``EX_QUICKSTART_LOSS_RTOL``
+    relative, besides falling);
+    K1, K2 and K3 launch counts of each run: the quickstart's K1 forward
+    and backward exactly as its 14 steps at 4 -> 8 -> 2 workers need
+    (``ex_k1_want``), every other app none.  Then CG at full width
+    (``EX_CG_N`` = 32768: A is 4.29 GB fp32) on the same schedule: the
+    fp64 true relative residual below ``cg_solver.REL_RESIDUAL_TOL``, the
+    ms per iteration (CUDA events over ``EX_CG_TIMED`` more iterations)
+    beside one read of A at the card's bandwidth, each resize's seconds
+    and bytes, the peak memory; a planted fault (a resize whose moved x
+    loses its last row block, planted in the app ``main()`` builds) must
+    fail that check.  Last, phase 14's
+    trails, written with the port's ``dump_trail``, through
+    ``python -m repro_torch.analysis audit``'s ``main``: every one clean;
 14c. fleet:inplace: ``tests/test_serving.py``'s in-place script at full
     width: one live phi4-mini replica (batch 16, cache 512, 2 of 4
     workers) grown in place to 4 workers at tick 3 and shrunk to 2 at
@@ -419,12 +449,14 @@ exits 1 and prints no result.
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from unittest import mock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
@@ -579,6 +611,25 @@ LIVE_JOBS, LIVE_STEPS, LIVE_DEVICE_COUNT, LIVE_SPAN = 6, 10, 4, 10
 #: phases at ~960 s (826 s before them), on course for ~1,100 s: so 12.
 #: Every check counts from the config's layers
 CLUSTER_JOBS, CLUSTER_STEPS, CLUSTER_SEQ, CLUSTER_LAYERS = 6, 6, 1024, 12
+
+#: phase 14f, the §4.3 examples on the card against the same run on the CPU
+#: (the tolerances of tests/test_torch_examples.py, which holds the CPU
+#: runs to the JAX examples): x of CG and Jacobi; N-body's velocities after
+#: one step (relative to the largest), its 20-step energy (relative) and
+#: positions (its velocities are not compared after 20 steps: the 1e-2
+#: softening lets close encounters amplify rounding)
+EX_X_TOL = 1e-6
+EX_NBODY_STEP_RTOL = 1e-4
+EX_NBODY_ENERGY_RTOL = 1e-5
+EX_NBODY_POS_ATOL = 5e-3
+#: the quickstart's losses, card against CPU from one initial state, at
+#: each of its 14 steps (relative; one step of the sharded smoke models
+#: agrees within 1e-5 in tests/test_torch_gpu.py)
+EX_QUICKSTART_LOSS_RTOL = 1e-5
+#: CG at full width: n x n fp32 (4.29 GB), and the iterations timed after
+#: the example's 40
+EX_CG_N = 32768
+EX_CG_TIMED = 50
 
 ZAMBA = "zamba2-2.7b"               # the hybrid family, at full width
 #: its shared attention is multi-head (H = Hkv = 32, G = 1) at head dim 80
@@ -1330,6 +1381,10 @@ def main() -> None:
 
     from repro_torch import tree as T
     from repro_torch import dmr
+    from repro_torch.analysis import dump_trail
+    from repro_torch.analysis.__main__ import main as analysis_cli
+    from repro_torch.examples import (aligner_pipeline, cg_solver, jacobi,
+                                      nbody, quickstart)
     from repro_torch.configs import get_config, get_shape, phys_vocab
     from repro_torch.core.lm_app import lm_train_app
     from repro_torch.core.redistribute import blockcyclic_split
@@ -1572,16 +1627,20 @@ def main() -> None:
     bwd_paths = dict.fromkeys(fa.BWD_PATHS, 0)
     bwd_path_of = {f32: "fma", bf16: "wgmma"}    # what each dtype must take
 
-    def k1_bwd_case(B, H_, Hkv_, Sq, Sk, D_, causal, window, dt, what):
+    def k1_bwd_case(B, H_, Hkv_, Sq, Sk, D_, causal, window, dt, what,
+                    q_offset=None):
         """K1 forward with its lse, then the backward kernel (which must
-        take and count its dtype's path), each against its plain version;
-        returns the inputs, the forward and the gradients."""
+        take and count its dtype's path), each against its plain version
+        (``q_offset``: a sequence shard's causal query offset); returns
+        the inputs, the forward and the gradients."""
         nonlocal lse_err
         name = str(dt).split(".")[1]
         q, k, v = rand((B, H_, Sq, D_), dt), rand((B, Hkv_, Sk, D_), dt), \
             rand((B, Hkv_, Sk, D_), dt)
         do = rand((B, H_, Sq, D_), dt)
         kw = dict(causal=causal, window=window)
+        if q_offset is not None:
+            kw["q_offset"] = q_offset
         out, lse = fa.flash_attention_lse(q, k, v, **kw)
         lse_err = max(lse_err, check_close(
             lse, attention_lse_reference(q, k, **kw), "float32",
@@ -1635,7 +1694,41 @@ def main() -> None:
         zargs_1[3], attention_reference(*zargs_1[:3], causal=True),
         "bfloat16", f"K1 forward at zamba2's train shape {Z_BWD_TRAIN}")
     del zargs_1, zgot
-    phase("K1:bwd", cases=len(bwd_cases) + 2,
+    # the quickstart's K1 calls (phase 14f): fp32 on fma, causal, on its
+    # 8-worker mesh's sequence path (granite-3-2b-smoke's 4 heads do not
+    # divide 8): each worker's S / 8 queries at its offset over K and V
+    # whole, the batch whole (one data worker)
+    qk_c, qk_n = get_config(quickstart.ARCH), 8
+    qk_S = quickstart.SHAPE.seq_len
+    qk_B = quickstart.SHAPE.global_batch // max(1, qk_c.train_microbatches)
+    qk_msk0 = [dict(f_.mask_launches) for f_ in (fa.flash_attention,
+                                                 fa.flash_attention_bwd)]
+    qk_fwd0 = dict(fa.flash_attention.path_launches)
+    bwd_err["float32"], qk_fwd_err = 0.0, 0.0
+    for r_ in range(qk_n):
+        off_ = r_ * qk_S // qk_n
+        qk_what = f"K1 on the quickstart's sequence shard {r_} (offset {off_})"
+        (q_, k_, v_, o_, _, _), _ = k1_bwd_case(
+            qk_B, qk_c.num_heads, qk_c.num_kv_heads, qk_S // qk_n, qk_S,
+            qk_c.head_dim, True, 0, f32, qk_what, q_offset=off_)
+        qk_fwd_err = max(qk_fwd_err, check_close(
+            o_, attention_reference(q_, k_, v_, causal=True, q_offset=off_),
+            "float32", f"{qk_what}, forward"))
+    qk_moved = ({p_: n_ - qk_fwd0[p_]
+                 for p_, n_ in fa.flash_attention.path_launches.items()},
+                [{m_: n_ - m0[m_] for m_, n_ in f_.mask_launches.items()}
+                 for m0, f_ in zip(qk_msk0, (fa.flash_attention,
+                                             fa.flash_attention_bwd))])
+    if qk_moved != ({"fma": qk_n, "mma": 0, "split_decode": 0},
+                    [dict(dict.fromkeys(fa.MASKS, 0), offset=qk_n)] * 2):
+        fail(f"K1 on the quickstart's sequence shards took {qk_moved}")
+    phase("K1:quickstart_shards", shards=qk_n,
+          shape=str((qk_B, qk_c.num_heads, qk_c.num_kv_heads, qk_S // qk_n,
+                     qk_S, qk_c.head_dim)).replace(" ", ""),
+          dtype="float32", fwd_path="fma", bwd_path="fma",
+          fwd_err=f"{qk_fwd_err:.3e}", fwd_tol=TOL["float32"],
+          bwd_err=f"{bwd_err['float32']:.3e}", bwd_tol=BWD_TOL["float32"])
+    phase("K1:bwd", cases=len(bwd_cases) + 2 + qk_n,
           paths=json.dumps(bwd_paths, separators=(",", ":")),
           max_err_f32=f"{small_err['float32']:.3e}",
           max_err_bf16=f"{max(small_err['bfloat16'], err_bwd_train):.3e}",
@@ -4392,13 +4485,15 @@ def main() -> None:
     # -- 14. the paper's live grid on toy tenants ---------------------------
     from repro_torch.rms import materialize_live
 
-    def live_grid(device):
+    def live_grid(device, trail_dir=None):
         """Phase 14's grid on WORKERS workers of ``device``, each
         configuration under both engines with the sanitizer on; the engines
         must agree.  Returns, by label, what both packages' tests compare
         (summary but ``wall_s``, records, resize events, trail), the event
         engine's wall seconds and every tenant's final state (``x`` on the
-        CPU, ``i``), which must have taken each of the job's steps."""
+        CPU, ``i``), which must have taken each of the job's steps.  With
+        ``trail_dir``, the event engine's trail of each configuration is
+        written there (``dump_trail``: phase 14f audits them)."""
         homes = set()
 
         def factory_into(finals):
@@ -4437,6 +4532,9 @@ def main() -> None:
                 res = cl.run()
                 if decisions == "cosim":
                     cl.crosscheck(res)              # raises on divergence
+                if trail_dir is not None and engine is dmr.Cluster:
+                    dump_trail(cl, os.path.join(
+                        trail_dir, f"trail_{label.replace('/', '_')}.json"))
                 s = res.summary()
                 wall = s.pop("wall_s")
                 states = {j: (st["x"].cpu(), int(st["i"]))
@@ -4475,7 +4573,9 @@ def main() -> None:
             torch.equal(a[j][0], b[j][0]) and a[j][1] == b[j][1] for j in a)
 
     ops.reset_counts()
-    grid_card = live_grid(dev)
+    trail_dir = os.path.join(HERE, "build", "trails")
+    os.makedirs(trail_dir, exist_ok=True)
+    grid_card = live_grid(dev, trail_dir)
     grid_cpu = live_grid("cpu")
     for label, (obs, _, states) in grid_card.items():
         if obs != grid_cpu[label][0]:
@@ -4668,6 +4768,280 @@ def main() -> None:
     del runs, ev_run, ref_run
     torch.cuda.empty_cache()
     mark("cluster_mamba2")
+
+    # -- 14f. examples: the paper's §4.3 applications on the card --------
+    ex_t0 = time.perf_counter()
+    ex_apps = {"quickstart": quickstart, "cg_solver": cg_solver,
+               "jacobi": jacobi, "nbody": nbody,
+               "aligner_pipeline": aligner_pipeline}
+
+    def ex_main(fn, **kw):
+        """An example's ``main()``, its printed lines kept in what it
+        returns (``out["lines"]``) and not repeated here."""
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(**kw)
+
+    def ex_events(runner_):
+        return [(e.step, e.action, e.from_procs, e.to_procs,
+                 e.transfer.bytes_moved,
+                 {k_: v_.bytes_moved for k_, v_ in e.per_pattern.items()})
+                for e in runner_.events]
+
+    def ex_sizes(runner_, steps):
+        """The worker count each of ``steps`` steps ran at."""
+        at = {e.step: e.to_procs for e in runner_.events}
+        size, out_ = runner_.params.preferred, []
+        for i in range(steps):
+            size = at.get(i, size)
+            out_.append(size)
+        return out_
+
+    def ex_k1_want(c, sizes):
+        """K1's launches (forward, backward) by mask and by path that
+        Listing 2's loop must make: per layer, microbatch and step, the
+        forward once (twice under remat) and the backward once; one
+        ``offset`` launch a "model" worker where the step's mesh takes the
+        sequence path (its "model" size does not divide the heads), else
+        one ``causal``; fp32 on ``fma``."""
+        L_, mb_ = c.num_layers, max(1, c.train_microbatches)
+        shards = [factor_mesh(n_)[1] for n_ in sizes]
+        seq_ = [m_ for m_ in shards if m_ > 1 and c.num_heads % m_]
+        want_ = {}
+        for name_, n_ in (("flash_attention", 2 if c.remat else 1),
+                          ("flash_attention_bwd", 1)):
+            masks_ = {"offset": n_ * sum(seq_) * L_ * mb_,
+                      "causal": n_ * (len(sizes) - len(seq_)) * L_ * mb_}
+            want_[name_] = (sum(masks_.values()),
+                            {"fma": sum(masks_.values())},
+                            dict(dict.fromkeys(fa.MASKS, 0), **masks_))
+        return want_
+
+    def ex_k1_counts():
+        return {n_: (ops.KERNELS[n_].launches,
+                     {p_: v_ for p_, v_ in
+                      ops.KERNELS[n_].path_launches.items() if v_},
+                     dict(ops.KERNELS[n_].mask_launches))
+                for n_ in ("flash_attention", "flash_attention_bwd")}
+
+    def ex_maxdiff(a, b):
+        return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+    # the quickstart's two runs start from one state: its app's initial
+    # state on 4 CPU workers (params.preferred), copied to each run's device
+    ex_q0 = lm_train_app(get_config(quickstart.ARCH),
+                         quickstart.SHAPE).init_state(
+        make_job_mesh(logical_workers(4, "cpu")))
+
+    def ex_q_app(cfg_, shape_):
+        """``lm_train_app`` as the quickstart's ``main()`` calls it, its
+        initial state ``ex_q0`` on the mesh's device."""
+        app_ = lm_train_app(cfg_, shape_)
+        app_.init(lambda mesh_: T.tree_map(
+            lambda t_: t_.to(mesh_.device, copy=True), ex_q0))
+        return app_
+
+    ex_k1_total = 0
+    for ex_name, ex_mod in ex_apps.items():
+        ex_from = mock.patch.object(quickstart, "lm_train_app", ex_q_app) \
+            if ex_name == "quickstart" else contextlib.nullcontext()
+        with ex_from:
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            ex_card = ex_main(ex_mod.main)         # its default device: cuda
+            torch.cuda.synchronize()
+            ex_card_s = time.perf_counter() - t0
+            ex_counts = ops.launch_counts()
+            ex_k1 = ex_k1_counts()
+            t0 = time.perf_counter()
+            ex_cpu = ex_main(ex_mod.main, device="cpu")
+            ex_cpu_s = time.perf_counter() - t0
+        (r_c, st_c, out_c), (r_h, st_h, out_h) = ex_card, ex_cpu
+        if ex_events(r_c) != ex_events(r_h):
+            fail(f"examples:{ex_name}: resizes on the card {ex_events(r_c)} "
+                 f"vs the CPU's {ex_events(r_h)}")
+        ex_homes = {str(t_.device) for t_ in T.leaves(st_c)}
+        if ex_homes != {"cuda:0"} or not r_c.events:
+            fail(f"examples:{ex_name}: state on {ex_homes}, "
+                 f"{len(r_c.events)} resizes")
+        ex_fields = {}
+        if ex_name == "quickstart":
+            ex_qcfg = get_config(quickstart.ARCH)
+            ex_want = ex_k1_want(ex_qcfg,
+                                 ex_sizes(r_c, len(out_c["losses"])))
+            if ex_k1 != ex_want:
+                fail(f"examples:quickstart: K1 launched {ex_k1}, not "
+                     f"{ex_want}")
+            ex_k1_total = ex_k1["flash_attention"][0] + \
+                ex_k1["flash_attention_bwd"][0]
+            # both from ex_q0: the card's losses are the CPU's, step by
+            # step, within EX_QUICKSTART_LOSS_RTOL
+            lo_c, lo_h = (np.asarray(o_["losses"], np.float64)
+                          for o_ in (out_c, out_h))
+            ex_l_gap = float(np.max(np.abs(lo_c - lo_h) / np.abs(lo_h)))
+            if not (lo_c.shape == lo_h.shape == (14,) and
+                    np.all(np.isfinite(lo_c)) and lo_c[-1] < lo_c[0] and
+                    ex_l_gap <= EX_QUICKSTART_LOSS_RTOL):
+                fail(f"examples:quickstart: losses {lo_c.tolist()} on the "
+                     f"card, {lo_h.tolist()} on the CPU (from one state: "
+                     f"{ex_l_gap:.3e} relative, bound "
+                     f"{EX_QUICKSTART_LOSS_RTOL})")
+            ex_fields.update(
+                losses=f"{out_c['losses'][0]:.6f}->{out_c['losses'][-1]:.6f}",
+                cpu_losses=f"{out_h['losses'][0]:.6f}->"
+                           f"{out_h['losses'][-1]:.6f}",
+                loss_gap=f"{ex_l_gap:.3e}", tol=EX_QUICKSTART_LOSS_RTOL,
+                k1_masks=json.dumps({k_: v_[2] for k_, v_ in ex_k1.items()},
+                                    separators=(",", ":")))
+        elif ex_name in ("cg_solver", "jacobi"):
+            ex_gap = ex_maxdiff(st_c["x"], st_h["x"])
+            if ex_gap > EX_X_TOL:
+                fail(f"examples:{ex_name}: x {ex_gap:.3e} from the CPU's")
+            ex_fields.update(x_gap=f"{ex_gap:.3e}", tol=EX_X_TOL,
+                             err_vs_direct=f"{out_c['err']:.3e}")
+        elif ex_name == "nbody":
+            ex_e_gap = abs(out_c["e1"] - out_h["e1"]) / abs(out_h["e1"])
+            ex_p_gap = ex_maxdiff(st_c["pos"], st_h["pos"])
+            ex_one = {}
+            for d_ in (dev, "cpu"):
+                m_ = make_job_mesh(logical_workers(4, d_))
+                ex_one[d_] = nbody.app.make_step(m_)(
+                    nbody.app.init_state(m_), 0)[0]["vel"]
+            ex_v_gap = ex_maxdiff(ex_one[dev], ex_one["cpu"]) / \
+                float(ex_one["cpu"].abs().max())
+            if ex_e_gap > EX_NBODY_ENERGY_RTOL or \
+                    ex_p_gap > EX_NBODY_POS_ATOL or \
+                    ex_v_gap > EX_NBODY_STEP_RTOL:
+                fail(f"examples:nbody: energy {ex_e_gap:.3e}, positions "
+                     f"{ex_p_gap:.3e}, one step's velocities "
+                     f"{ex_v_gap:.3e} from the CPU's")
+            ex_fields.update(energy_gap=f"{ex_e_gap:.3e}",
+                             pos_gap=f"{ex_p_gap:.3e}",
+                             step_vel_gap=f"{ex_v_gap:.3e}",
+                             drift=f"{out_c['drift']:.4%}")
+        else:
+            ex_got = {k_: int(st_c[k_])
+                      for k_ in ("cursor", "matched", "total")}
+            if ex_got != {k_: int(st_h[k_]) for k_ in ex_got}:
+                fail(f"examples:aligner: counters {ex_got} vs the CPU's")
+            ex_fields.update(**ex_got, steps=len(out_c["done"]))
+        if ex_name != "quickstart" and any(ex_counts.values()):
+            fail(f"examples:{ex_name}: launched {ex_counts}: it calls no "
+                 f"kernel")
+        if ex_counts["repack"] or ex_counts["ssd_scan"] or \
+                ex_counts["ssd_scan_bwd"]:
+            fail(f"examples:{ex_name}: K2 or K3 launched: {ex_counts}")
+        phase(f"examples:{ex_name}", card_s=f"{ex_card_s:.3f}",
+              cpu_s=f"{ex_cpu_s:.3f}", check=out_c["lines"][-1].split(" ")[0],
+              resizes=",".join(f"{e.step}:{e.from_procs}->{e.to_procs}"
+                               for e in r_c.events),
+              bytes_moved=",".join(str(e.transfer.bytes_moved)
+                                   for e in r_c.events),
+              per_pattern=json.dumps([{k_: v_.bytes_moved for k_, v_ in
+                                       e.per_pattern.items()}
+                                      for e in r_c.events],
+                                     separators=(",", ":")),
+              k1=ex_counts["flash_attention"],
+              k1_bwd=ex_counts["flash_attention_bwd"],
+              k2=ex_counts["repack"], k3=ex_counts["ssd_scan"],
+              k3_bwd=ex_counts["ssd_scan_bwd"], cpu_equal=True, **ex_fields)
+        del ex_card, ex_cpu, r_c, st_c, r_h, st_h
+    torch.cuda.empty_cache()
+
+    # CG at full width: A is EX_CG_N^2 fp32, built on the card
+    torch.cuda.synchronize()
+    ex_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_counts()
+    t0 = time.perf_counter()
+    r_cg, st_cg, out_cg = ex_main(cg_solver.main, n=EX_CG_N)
+    torch.cuda.synchronize()
+    ex_cg_s = time.perf_counter() - t0
+    ex_cg_peak = torch.cuda.max_memory_allocated() - ex_base
+    if any(ops.launch_counts().values()):
+        fail(f"examples:cg:full: launched {ops.launch_counts()}")
+    if [(e.step, e.from_procs, e.to_procs) for e in r_cg.events] != \
+            [(10, 4, 8), (25, 8, 2)]:
+        fail(f"examples:cg:full: resizes {ex_events(r_cg)}")
+    ex_a_bytes = EX_CG_N * EX_CG_N * 4
+    for e in r_cg.events:
+        if e.per_pattern["default"].bytes_moved < ex_a_bytes:
+            fail(f"examples:cg:full: resize @{e.step} moved "
+                 f"{e.transfer.bytes_moved} bytes, less than A's {ex_a_bytes}")
+        phase("examples:cg:full:resize", step=e.step, action=e.action,
+              sizes=f"{e.from_procs}->{e.to_procs}",
+              bytes_moved=e.transfer.bytes_moved,
+              seconds=f"{e.transfer.seconds:.5f}",
+              gb_per_s=f"{2 * e.transfer.bytes_moved / e.transfer.seconds
+                          / 1e9:.1f}")
+    for i in range(5):                              # warm, then timed
+        st_cg, _ = r_cg.step(st_cg, 40 + i)
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    ev0.record()
+    for i in range(EX_CG_TIMED):
+        st_cg, _ = r_cg.step(st_cg, 45 + i)
+    ev1.record()
+    torch.cuda.synchronize()
+    ex_cg_ms = ev0.elapsed_time(ev1) / EX_CG_TIMED
+    ex_cg_bound = ex_a_bytes / H100_BYTES_PER_S * 1e3
+    phase("examples:cg:full", n=EX_CG_N, a_gb=f"{ex_a_bytes / 1e9:.2f}",
+          iterations=40, rel_residual=f"{out_cg['rel_residual']:.3e}",
+          tol=cg_solver.REL_RESIDUAL_TOL, ms_per_iter=f"{ex_cg_ms:.4f}",
+          bound_ms=f"{ex_cg_bound:.4f}", bound_by="bytes",
+          read_gb_per_s=f"{ex_a_bytes / ex_cg_ms / 1e6:.1f}",
+          wall_s=f"{ex_cg_s:.2f}", peak_gb=f"{ex_cg_peak / 1e9:.2f}",
+          held_before_gb=f"{ex_base / 1e9:.2f}")
+    del r_cg, st_cg, out_cg
+    torch.cuda.empty_cache()
+
+    class ExDropLastRowBlock(dmr.DefaultPattern):
+        """A planted fault: the moved leaf's last row block arrives as
+        zeros."""
+
+        def move(self, leaf, placement, ctx):
+            out_ = leaf.clone()
+            out_[-(leaf.shape[0] // ctx.to_procs):] = 0
+            return out_
+
+    def ex_faulty_app(n_):
+        """``make_app`` as CG's ``main()`` calls it, x moved by the faulty
+        pattern."""
+        app_ = ex_make_app(n_)
+        app_.patterns = {"x": ExDropLastRowBlock()}
+        return app_
+
+    ex_make_app = cg_solver.make_app
+    try:
+        with mock.patch.object(cg_solver, "make_app", ex_faulty_app):
+            ex_main(cg_solver.main, n=EX_CG_N)
+    except AssertionError as ex_err:
+        ex_caught = str(ex_err)
+    else:
+        fail("examples:cg:fault: a resize that lost a row block of x "
+             "passed the residual check")
+    torch.cuda.empty_cache()
+    phase("examples:cg:fault", planted="x loses its last row block at the "
+          "4->8 resize", caught=repr(ex_caught))
+
+    # phase 14's ex_trails, through the port's audit CLI
+    ex_trails = sorted(os.path.join(trail_dir, f_)
+                    for f_ in os.listdir(trail_dir) if f_.endswith(".json"))
+    ex_audit_out = io.StringIO()
+    with contextlib.redirect_stdout(ex_audit_out):
+        ex_audit_rc = analysis_cli(["audit", *ex_trails])
+    ex_audit_lines = ex_audit_out.getvalue().splitlines()
+    if ex_audit_rc != 0 or len(ex_trails) != len(LIVE_GRID) or \
+            len(ex_audit_lines) != len(ex_trails) or \
+            not all(" clean (" in l_ for l_ in ex_audit_lines):
+        fail(f"examples:audit: rc {ex_audit_rc} over {ex_trails}: "
+             f"{ex_audit_lines}")
+    phase("examples:audit", trails=len(ex_trails), rc=ex_audit_rc,
+          events=",".join(l_.split("(")[1].split(" ")[0]
+                          for l_ in ex_audit_lines))
+    ex_s = time.perf_counter() - ex_t0
+    phase("examples", apps=len(ex_apps), k1_quickstart=ex_k1_total,
+          seconds=f"{ex_s:.1f}", budget_s=60)
+    mark("examples")
 
     # -- 14c. fleet:inplace -- one live phi4 replica grown and shrunk in
     # place through the fleet's scale path --------------------------------

@@ -1,6 +1,5 @@
 """Schedule-trail race detector (port of ``repro/analysis/trail.py``, the
-dynamic half of the JAX package's ``repro.analysis``; its static lint half
-is not ported yet).
+dynamic half of ``repro_torch.analysis``; ``lint.py`` is the static half).
 
 The cluster's correctness-critical core is resource accounting: devices
 move between the shared idle pool and tenants only through grants and

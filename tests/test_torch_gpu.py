@@ -1798,3 +1798,31 @@ def test_sharded_smoke_step_on_card_matches_cpu(cuda, arch, n):
         if k in mc:
             assert abs(mg[k] - mc[k]) <= 1e-5 * abs(mc[k]) + 1e-7, k
     assert abs(mg["grad_norm"] - mc["grad_norm"]) <= 1e-4 * mc["grad_norm"]
+
+
+@pytest.mark.gpu
+def test_cg_example_on_card_matches_cpu(cuda):
+    """``repro_torch.examples.cg_solver.main()`` on its default device, the
+    card: the example's own check passes, its resize events (bytes per
+    pattern included) equal the CPU run's exactly, its state lives on the
+    card, and x is within 1e-6 of the CPU's (the parity bound of
+    ``tests/test_torch_examples.py``)."""
+    import contextlib
+    import io
+
+    from repro_torch.examples import cg_solver
+
+    def events(runner):
+        return [(e.step, e.action, e.from_procs, e.to_procs,
+                 e.transfer.bytes_moved,
+                 {k: v.bytes_moved for k, v in e.per_pattern.items()})
+                for e in runner.events]
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        card = cg_solver.main()
+        cpu = cg_solver.main(device="cpu")
+    assert card[2]["lines"][-1].startswith("OK")
+    assert events(card[0]) == events(cpu[0]) and len(card[0].events) == 2
+    assert {t.device.type for t in card[1].values()} == {"cuda"}
+    torch.testing.assert_close(card[1]["x"].cpu(), cpu[1]["x"], rtol=0,
+                               atol=1e-6)

@@ -20,8 +20,17 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 from repro_torch.kernels import _build
 assert not _build._LIBS, "importing the port loaded a kernel library"
+print("MODULES", " ".join(names))
 print("ISOLATED", len(names))
 """
+
+#: modules the walk must reach (the examples and the linter are imported
+#: like every other module: importing one runs no example)
+MUST_IMPORT = ["repro_torch.examples", "repro_torch.examples.quickstart",
+               "repro_torch.examples.cg_solver", "repro_torch.examples.jacobi",
+               "repro_torch.examples.nbody",
+               "repro_torch.examples.aligner_pipeline",
+               "repro_torch.analysis.lint", "repro_torch.analysis.__main__"]
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -33,7 +42,9 @@ def test_port_imports_no_jax_and_no_repro():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-4000:]
     n = int(proc.stdout.split("ISOLATED")[1])
-    assert n >= 25, proc.stdout                  # every module was imported
+    assert n >= 89, proc.stdout                  # every module was imported
+    walked = proc.stdout.split("MODULES")[1].split("\n")[0].split()
+    assert not set(MUST_IMPORT) - set(walked), walked
 
 
 def test_chip_smoke_imports_no_jax_and_no_repro():
