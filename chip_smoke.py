@@ -11,7 +11,7 @@ seed -- ``granite-3-2b`` (dense, K1; 10 of its 40 layers, see
 ``GRANITE_LAYERS``; training also at all 40), ``mamba2-370m`` (SSM, K3;
 serving at 12 of its 48 layers, ``MAMBA_SERVE_LAYERS``, training at all
 48), ``zamba2-2.7b`` (hybrid, K3 and K1
-at G = 1, D = 80; serving at 12 of its 54 layers, ``Z_SERVE_LAYERS``,
+at G = 1, D = 80; serving at 6 of its 54 layers, ``Z_SERVE_LAYERS``,
 training at all 54, elastic training at 12) -- and checks
 that each really ran through its kernels; then the paper's live
 multi-tenant cluster (``dmr.Cluster``) on eight workers of the card, with
@@ -204,8 +204,18 @@ Phases:
 12. one traced 10-layer training step (the static run's next): device
     busy time, idle share, K1's forward and backward device time and
     share, the largest device operators;
-13. the same training at all 40 layers: 2 static steps, s/step, peak GB,
-    every backward call on wgmma (40 a step);
+13. the same training (Listing 2) at all 40 layers: a static and an
+    elastic run of 3 steps each, the elastic one 4 -> 8 -> 2 under
+    ``ScriptedRMS`` with ``opt/nu`` moved by a user function and
+    ``opt/mu`` by a pattern family the script registers
+    (``dmr.register_pattern``); losses agree to 1e-4, K1 80 forward and 40
+    backward launches a step (all on mma / wgmma), each resize's bytes
+    and per-pattern bytes (``custom``, ``rowcopy:4``, ``default``) equal
+    the tree's accounting; the resizes donate the old state, so each
+    resize's peak stays within the bytes allocated before it plus the
+    largest leaf and ``RESIZE_SLACK_BYTES``, and the elastic run's peak
+    within the static run's plus the same (the memory line:
+    ``train:depth:memory``);
 13b. the SSM training path: the ``mamba2-370m-smoke`` step on the card
     against the CPU's (loss and gradient norm, fp32), and the gradients
     of the leaves that take theirs only through K3's backward, each
@@ -219,19 +229,19 @@ Phases:
 13d. one traced 48-layer step of the static run: device busy time, idle
     share, K3's forward and backward device time and share, the largest
     device operators;
-13e. the zamba2 serving path at ``Z_SERVE_LAYERS`` (12 of 54): granite's
+13e. the zamba2 serving path at ``Z_SERVE_LAYERS`` (6 of 54): granite's
     ``decode_demo`` schedule; tokens must agree, and each run launches K1
-    once per group per step (2 x 384), all on split_decode, and no K3;
+    once per group per step (1 x 384), all on split_decode, and no K3;
 13f. zamba2 prefill vs decode: ``make_prefill_step`` at B=16, S=1024 must
-    launch K3 once per layer (12, wgmma) and K1 once per group (2, mma);
+    launch K3 once per layer (6, wgmma) and K1 once per group (1, mma);
     then, at ``Z_CHECK_LAYERS`` (the first 12 layers of the same weights),
     fp32 full-sequence logits at every position against the fp32
     token-by-token decode, bf16 prefill and decode against fp32 (largest
     and rms gap, beside the fp32 model with bf16-rounded weights), faults
     planted in each decode's last step (``state_faults``: a state
     advanced twice; in fp32 also a KV slot one back and two KV heads
-    swapped) that the bounds must reject; one traced 24-layer prefill:
-    K3's and K1's shares, the top device kernels;
+    swapped) that the bounds must reject; one traced prefill at
+    ``Z_SERVE_LAYERS``: K3's and K1's shares, the top device kernels;
 13g. zamba2 training: the smoke step at two groups (4 layers, fp32) on
     the card against the CPU's, for loss, gradient norm and every leaf's
     gradient (``shared_attn`` among them); then ``Z_ELASTIC_LAYERS`` (12,
@@ -261,14 +271,14 @@ Phases:
 14b. real tenants: the ``steady`` workload of six jobs of six steps on the
     eight workers of the card (``device_count=8``), ``algorithm2``,
     moldable, each tenant ``lm_train_app`` of ``mamba2-370m`` at full
-    width and ``CLUSTER_LAYERS`` (12) of its 48 layers (global batch 8
+    width and ``CLUSTER_LAYERS`` (6) of its 48 layers (global batch 8
     of 1024 tokens, ``train_4k``'s
     4096 cut for the script's time; bf16 over fp32 master weights; AdamW
     1e-3; seeded by its jid), its TrainState on the card and moved by
     ``default`` on every resize; both engines, sanitized: every job
     finishes, the engines agree on ``summary()``, records and trail, the
     most resized tenant's losses are within 1e-4 of the same job run
-    alone, and K3 launches exactly 2 x 12 forward and 12 backward kernels
+    alone, and K3 launches exactly 2 x 6 forward and 6 backward kernels
     per tenant step (steps counted from the trail), all on ``wgmma``; wall
     seconds, the median seconds per tenant step, each resize's bytes and
     seconds, the peak of co-resident tenants and of
@@ -512,6 +522,18 @@ TRAIN_PARAMS, TRAIN_SCHEDULE = (2, 8, 4), {2: 8, 4: 2}
 #: embedding gradient's atomic adds (an accumulating index_put)
 TRAIN_LOSS_TOL = 1e-4
 PROFILE_TRAIN_TOP = 5
+#: phase 13, the paper's Listing 2 at granite's full depth (40 layers): a
+#: static and an elastic run of GRANITE_DEPTH_STEPS steps each, the elastic
+#: one expanding and shrinking (4 -> 8 -> 2) with opt/nu moved by a user
+#: function and opt/mu by a pattern family registered in the script
+GRANITE_DEPTH_STEPS, GRANITE_DEPTH_SCHEDULE = 3, {1: 8, 2: 2}
+#: a donated resize holds the state and the leaf it is copying: its peak
+#: may pass the bytes allocated just before it by the largest leaf (2.68
+#: GB at granite's full depth) and this slack at most, and the elastic
+#: run's peak the static run's by the same (the allocator rounds each
+#: block up, by under 1 MiB for a large one; two states would pass it by
+#: 30 GB)
+RESIZE_SLACK_BYTES = 256 * 2 ** 20
 
 MAMBA = "mamba2-370m"               # serving runs at granite's batch, prompt,
 M_PREFILL_S = 1024                  # decode length, workers and schedule
@@ -604,13 +626,15 @@ LIVE_JOBS, LIVE_STEPS, LIVE_DEVICE_COUNT, LIVE_SPAN = 6, 10, 4, 10
 #: pool, each a full-width mamba2-370m training job at CLUSTER_LAYERS of its
 #: 48 layers and TRAIN_BATCH x CLUSTER_SEQ tokens a step (train_4k's 4096
 #: cut to 1024 for the script's time).  A depth cut of an earlier path,
-#: twice: its tenant steps are host-bound (the card idles 0.40-0.65 of
-#: them) and both engines run the workload; at 48 layers it took 86-90 s
-#: of a script that reached 1147-1162 s on slow hosts, at 24 45 s; with
+#: three times: its tenant steps are host-bound (the card idles 0.40-0.65
+#: of them) and both engines run the workload; at 48 layers it took 86-90
+#: s of a script that reached 1147-1162 s on slow hosts, at 24 45 s; with
 #: the sharded training phases (3f-3i) one H100 host reached the seamless
-#: phases at ~960 s (826 s before them), on course for ~1,100 s: so 12.
-#: Every check counts from the config's layers
-CLUSTER_JOBS, CLUSTER_STEPS, CLUSTER_SEQ, CLUSTER_LAYERS = 6, 6, 1024, 12
+#: phases at ~960 s (826 s before them), on course for ~1,100 s: so 12
+#: (20.5-25.9 s of 881-1035 s runs), and 6 since phase 13 ran granite's
+#: 40 layers elastically.  Every check counts from the config's layers,
+#: and the resized tenant's gap to its run alone is exact at any depth
+CLUSTER_JOBS, CLUSTER_STEPS, CLUSTER_SEQ, CLUSTER_LAYERS = 6, 6, 1024, 6
 
 #: phase 14f, the §4.3 examples on the card against the same run on the CPU
 #: (the tolerances of tests/test_torch_examples.py, which holds the CPU
@@ -640,24 +664,26 @@ Z_BWD_TRAIN = (1, 32, 32, 4096, 80)
 #: training path's shapes (B, H, S, P, N, Q)
 Z_SSD_PREFILL = (BATCH, 80, M_PREFILL_S, 64, 64, 256)
 Z_SSD_TRAIN = (TRAIN_BATCH, 80, 4096, 64, 64, 256)
-#: zamba2's elastic training runs two groups (12 of its 54 layers): a
-#: resize clones the whole state, 29.1 GB at 54 layers, which with the
-#: step's own peak does not fit the card; the static run takes all 54
+#: zamba2's elastic training runs two groups (12 of its 54 layers); the
+#: static run takes all 54.  A resize donates the old state, so one at 54
+#: layers would hold 29.07 GB of state plus a 2.83 GB leaf, under the
+#: static step's 55.43 GB: it fits, but is not run here
 Z_ELASTIC_LAYERS = 12
-#: zamba2 serving and the prefill that counts its launches run 12 of its
-#: 54 layers (two groups; all 54 until the dense training phases joined:
+#: zamba2 serving and the prefill that counts its launches run 6 of its
+#: 54 layers (one group; all 54 until the dense training phases joined:
 #: its two 384-step decode loops are host-bound, 109-159 ms a step at 54
 #: layers on H100 hosts, and took 115 s of a 1162 s run on a 145-159 ms
 #: host, 38 s short of the limit; 24, 46 s of a 973 s run, until the
 #: sharded training phases 3f-3i put the script on course for ~1,100 s:
-#: see CLUSTER_LAYERS); the prefill-vs-decode logits checks
-#: run the first 12 (two groups) of the same weights: their two 1024-step
-#: decode loops are host-bound too and took 100-138 s of 823-1032 at 24
-#: layers.  Depth cuts of earlier checks: the serving check compares
-#: tokens, caches and launch counts exactly at any depth, and the logits
-#: bounds are set from 12-layer readings and shown to reject planted
-#: faults; zamba2 training keeps all 54
-Z_SERVE_LAYERS, Z_CHECK_LAYERS = 12, 12
+#: see CLUSTER_LAYERS; 12, 21.5-32.0 s of 881-1035 s runs, until phase 13
+#: ran granite's 40 layers elastically); the prefill-vs-decode logits
+#: checks run the first 12 (two groups) of the same weights: their two
+#: 1024-step decode loops are host-bound too and took 100-138 s of
+#: 823-1032 at 24 layers.  Depth cuts of earlier checks: the serving
+#: check compares tokens, caches and launch counts exactly at any depth,
+#: and the logits bounds are set from 12-layer readings and shown to
+#: reject planted faults; zamba2 training keeps all 54
+Z_SERVE_LAYERS, Z_CHECK_LAYERS = 6, 12
 #: zamba2 fp32 full-sequence logits vs the token-by-token decode at every
 #: one of the 1024 positions, at Z_CHECK_LAYERS, by the largest and the
 #: rms gap.  The same function in fp32 through the SSM layers and the
@@ -734,9 +760,10 @@ P_BF16_LOGITS_MAX, P_BF16_LOGITS_RMS = 0.6, 0.15
 #: their 32 and 94 layers: 47.5 and 42.3 GB of weights
 MIXTRAL, QWEN3 = "mixtral-8x7b", "qwen3-moe-235b-a22b"
 MOE_SERVE_LAYERS = 8
-#: mixtral training (17): elastic at 1 layer (a resize clones the 20.6 GB
-#: state; at 2 layers the 38.0 GB state and its clone would not fit beside
-#: the step), static at 2 for s/step and peak memory
+#: mixtral training (17): elastic at 1 layer, static at 2 for s/step and
+#: peak memory.  A resize donates the old state, so one at 2 layers would
+#: hold the 37.98 GB state plus a 3.76 GB leaf, under the 2-layer static
+#: step's 49 GB peak: it fits, but is not run here
 MX_ELASTIC_LAYERS, MX_DEPTH_LAYERS = 1, 2
 #: mixtral's elastic losses against static.  Its training steps run
 #: under their mesh's sharding context, and its rules split the expert
@@ -801,7 +828,7 @@ SEAMLESS, PIXTRAL = "seamless-m4t-medium", "pixtral-12b"
 S_ENC = CACHE
 #: pixtral serving runs 8 of its 40 layers (3.53 B parameters, 14.1 GB in
 #: fp32), as mixtral's; its elastic training 1 (1.62 B, a 19.5 GB state
-#: that a resize clones)
+#: that a resize moves)
 PX_SERVE_LAYERS, PX_TRAIN_LAYERS = 8, 1
 #: card against CPU in fp32 (phases 19, 21): seamless at 2 + 2 layers,
 #: pixtral at 2, full width; logits of a prefill and of decode steps (over
@@ -817,7 +844,7 @@ ZOO_CHECK_LAYERS, ZOO_FP32_ATOL, ZOO_CHECK_STEPS = 2, 1e-4, 8
 DENSE_TRAIN = {"phi4": PHI4, "qwen2.5": "qwen2.5-32b",
                "internlm2": "internlm2-20b"}
 #: phi4's elastic and static pair at 8 layers (1.420 B parameters: a 17.0
-#: GB state that a resize clones); TRAIN_SCHEDULE's two resizes take 5
+#: GB state that a resize moves); TRAIN_SCHEDULE's two resizes take 5
 #: steps.  Its static depth run takes the first of these cuts whose
 #: dry-run argument and gradient bytes, and the other temporaries
 #: measured at 8 layers (the peak less the argument and the gradients:
@@ -3861,12 +3888,14 @@ def main() -> None:
             cache = M.init_cache(cc, BATCH, S, device=dev)
             mx = sq = torch.zeros((), device=dev)
             prev = None
+            # the positions go up once: a scalar made on the host each step
+            # would be a blocking copy that waits for the step before it
+            pos = torch.arange(S, dtype=torch.int32, device=dev)
             for i in range(S):
                 if faults and i == S - 1:
                     prev = copy(cache)      # the cache before the last step
                 logits, cache = M.decode_step(
-                    params, cc, prompts[:, i:i + 1], cache,
-                    torch.tensor(i, dtype=torch.int32, device=dev))
+                    params, cc, prompts[:, i:i + 1], cache, pos[i])
                 if full is not None:
                     d_ = (logits[:, -1, :V].float() - full[:, i]).abs()
                     mx = torch.maximum(mx, d_.max())
@@ -4086,21 +4115,26 @@ def main() -> None:
                                  global_batch=TRAIN_BATCH)
     tokens_per_step = TRAIN_BATCH * tshape.seq_len
 
-    def train_run(c, schedule, steps):
+    def train_run(c, schedule, steps, patterns=None):
         """``steps`` steps of ``lm_train_app`` on ``c`` (Listing 2's loop);
         kernel counts are zeroed just before the loop and read just after.
         A step runs each layer once per microbatch (``c``'s
-        ``train_microbatches`` of the batch).  Returns the runner, its
-        state, losses (with a MoE model's ce_loss and aux_loss beside each
-        under ``runner.moe_losses``), seconds per step, counts (K1's by
-        path and by mask too)."""
+        ``train_microbatches`` of the batch); ``patterns`` go to the
+        runner.  Returns the runner, its state, losses (with a MoE model's
+        ce_loss and aux_loss beside each under ``runner.moe_losses``),
+        seconds per step, counts (K1's by path and by mask too).  The
+        peak counter is reset around each ``dmr.reconfig``:
+        ``runner.resize_mem`` holds, per resize, the bytes allocated just
+        before it and the peak during it, ``runner.peak_bytes`` the peak
+        over the whole run."""
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
         app = lm_train_app(c, tshape, AdamW(learning_rate=1e-3), seed=0)
         runner = dmr.MalleableRunner(
             app, dmr.MalleabilityParams(*TRAIN_PARAMS),
-            dmr.ScriptedRMS(schedule), devices=logical_workers(WORKERS, dev))
+            dmr.ScriptedRMS(schedule), devices=logical_workers(WORKERS, dev),
+            patterns=patterns)
         state = runner.init()
         torch.cuda.synchronize()
         # what the card holds of the run (its state, after init) and
@@ -4110,10 +4144,16 @@ def main() -> None:
         runner.state_bytes = sum(t.nbytes for t in T.leaves(state))
         ops.reset_counts()
         losses, secs = [], []
-        runner.moe_losses = []
+        runner.moe_losses, runner.resize_mem, peak = [], [], 0
         for i in range(steps):
             t0 = time.perf_counter()
+            n_ev, before = len(runner.events), torch.cuda.memory_allocated()
+            peak = max(peak, torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
             state = dmr.reconfig(runner, state, i)
+            if len(runner.events) > n_ev:
+                runner.resize_mem.append(
+                    (before, torch.cuda.max_memory_allocated()))
             state, m = runner.step(state, i)
             losses.append(float(m["loss"]))        # waits for the step
             secs.append(time.perf_counter() - t0)
@@ -4158,7 +4198,7 @@ def main() -> None:
         if not all(np.isfinite(losses)):
             fail(f"{L}-layer training losses {losses}")
         runner.secs = secs
-        runner.peak_bytes = torch.cuda.max_memory_allocated()
+        runner.peak_bytes = max(peak, torch.cuda.max_memory_allocated())
         return runner, state, losses, secs, counts
 
     def step_s(secs):
@@ -4167,13 +4207,15 @@ def main() -> None:
 
     def elastic_pair(c, tag, steps=TRAIN_STEPS, exact=False,
                      keep_state=True, tol=TRAIN_LOSS_TOL):
-        """``steps`` static and elastic (``TRAIN_SCHEDULE``) steps of
+        """``steps`` elastic (``TRAIN_SCHEDULE``) and static steps of
         ``c``, whose losses must agree to ``tol`` (bit for bit when
-        ``exact``).  Returns the static run's runner, state (freed
-        before the elastic run, and None, unless ``keep_state``) and
-        kernel counts."""
+        ``exact``).  Returns the static run's runner, state (None unless
+        ``keep_state``) and kernel counts.  The elastic run goes first, so
+        the static state kept for the caller is not resident during it:
+        until it did, the elastic run's ``peak_gb`` counted that state
+        too (the 8.51 GB of granite's 10 layers)."""
         out = {}
-        for label, schedule in (("static", {}), ("elastic", TRAIN_SCHEDULE)):
+        for label, schedule in (("elastic", TRAIN_SCHEDULE), ("static", {})):
             runner, state, losses, secs, counts = train_run(c, schedule,
                                                             steps)
             phase(f"{tag}:{label}", layers=c.num_layers,
@@ -4187,19 +4229,23 @@ def main() -> None:
                                       separators=(",", ":")),
                   paths=json.dumps(counts["paths"], separators=(",", ":")),
                   k1_masks=json.dumps(counts["masks"], separators=(",", ":")),
-                  peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}",
+                  base_gb=f"{runner.base_bytes / 1e9:.2f}",
+                  peak_gb=f"{runner.peak_bytes / 1e9:.2f}",
                   sizes=",".join(str(e.to_procs) for e in runner.events),
                   **({"ce_loss": ",".join(f"{a:.6f}" for a, _ in
                                           runner.moe_losses),
                       "aux_loss": ",".join(f"{b:.6f}" for _, b in
                                            runner.moe_losses)}
                      if c.is_moe else {}))
-            for ev in runner.events:
+            for ev, (before_, peak_) in zip(runner.events,
+                                            runner.resize_mem):
                 phase(f"{tag}:{label}:resize", step=ev.step,
                       action=ev.action,
                       sizes=f"{ev.from_procs}->{ev.to_procs}",
                       bytes_moved=ev.transfer.bytes_moved,
-                      seconds=f"{ev.transfer.seconds:.4f}")
+                      seconds=f"{ev.transfer.seconds:.4f}",
+                      allocated_before_gb=f"{before_ / 1e9:.4f}",
+                      peak_gb=f"{peak_ / 1e9:.4f}")
             out[label] = (runner, state if label == "static" and
                           keep_state else None, losses, counts)
             del state
@@ -4280,20 +4326,119 @@ def main() -> None:
     del runner, state
     mark("train_profile")
 
-    # -- 13. the training path at full depth ---------------------------------
+    # -- 13. Listing 2 at full depth: static and elastic, donated resizes ----
+    class RowCopy(dmr.Pattern):
+        """A user's pattern family, ``rowcopy:<blocks>``: a leaf copied
+        into fresh storage ``blocks`` slices at a time, accounted as
+        ``default`` (its resident bytes)."""
+        name = "rowcopy"
+
+        def __init__(self, blocks):
+            self.blocks = blocks
+
+        def spec(self):
+            return f"{self.name}:{self.blocks}"
+
+        def move(self, leaf, placement, ctx):
+            out = torch.empty_like(leaf)
+            for o_, l_ in zip(out.view(-1).chunk(self.blocks),
+                              leaf.view(-1).chunk(self.blocks)):
+                o_.copy_(l_)
+            return out
+
+    dmr.register_pattern("rowcopy", lambda arg: RowCopy(int(arg or 1)))
+    d_patterns = {"opt/nu": lambda leaf, placement, ctx: leaf.clone(),
+                  "opt/mu": "rowcopy:4"}
+    d_keys = {"opt/nu": "custom", "opt/mu": "rowcopy:4"}
     dcfg = get_config(ARCH)
-    runner, state, losses, secs, counts = train_run(dcfg, {}, DEPTH_STEPS)
+    d_runs = {}
+    for d_label, d_schedule in (("static", {}),
+                                ("elastic", GRANITE_DEPTH_SCHEDULE)):
+        gc.collect()
+        runner, state, losses, secs, counts = train_run(
+            dcfg, d_schedule, GRANITE_DEPTH_STEPS, patterns=d_patterns)
+        d_flat = [(p_, t.nbytes) for p_, t in T.flatten(state)]
+        d_state_b = sum(b_ for _, b_ in d_flat)
+        d_leaf_b = max(b_ for _, b_ in d_flat)
+        d_want = {}                 # what the accounting gives the tree
+        for p_, b_ in d_flat:
+            k_ = next((v_ for pre_, v_ in d_keys.items() if p_ == pre_ or
+                       p_.startswith(pre_ + "/")), "default")
+            d_want[k_] = d_want.get(k_, 0) + b_
+        phase(f"train:depth:{d_label}", layers=dcfg.num_layers,
+              batch=TRAIN_BATCH, seq=tshape.seq_len,
+              losses=",".join(f"{x:.6f}" for x in losses),
+              step_s=",".join(f"{x:.3f}" for x in secs),
+              s_per_step=f"{step_s(secs):.4f}",
+              tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
+              k1_fwd_per_step=counts["flash_attention"] / GRANITE_DEPTH_STEPS,
+              k1_bwd_per_step=counts["flash_attention_bwd"] /
+              GRANITE_DEPTH_STEPS,
+              paths=json.dumps(counts["paths"], separators=(",", ":")),
+              sizes=",".join(str(e.to_procs) for e in runner.events))
+        for ev, (d_before, d_peak) in zip(runner.events, runner.resize_mem):
+            d_got = {k_: v_.bytes_moved for k_, v_ in ev.per_pattern.items()}
+            d_bound = d_before + d_leaf_b + RESIZE_SLACK_BYTES
+            phase("train:depth:resize", step=ev.step, action=ev.action,
+                  sizes=f"{ev.from_procs}->{ev.to_procs}",
+                  bytes_moved=ev.transfer.bytes_moved,
+                  n_leaves=ev.transfer.n_leaves,
+                  per_pattern=json.dumps(d_got, separators=(",", ":")),
+                  seconds=f"{ev.transfer.seconds:.4f}",
+                  allocated_before_gb=f"{d_before / 1e9:.4f}",
+                  peak_gb=f"{d_peak / 1e9:.4f}",
+                  bound_gb=f"{d_bound / 1e9:.4f}", card=repr(smi_line))
+            if d_got != d_want or ev.transfer.bytes_moved != d_state_b or \
+                    ev.transfer.n_leaves != len(d_flat):
+                fail(f"40-layer resize at step {ev.step} moved {d_got} "
+                     f"({ev.transfer.bytes_moved} B, {ev.transfer.n_leaves} "
+                     f"leaves), the tree's accounting {d_want} "
+                     f"({d_state_b} B, {len(d_flat)} leaves)")
+            if d_peak > d_bound:
+                fail(f"40-layer resize at step {ev.step} peaked at "
+                     f"{d_peak} B, past {d_before} B allocated before it + "
+                     f"the largest leaf {d_leaf_b} + {RESIZE_SLACK_BYTES}")
+        d_runs[d_label] = dict(
+            losses=losses, secs=secs, events=list(runner.events),
+            resize_mem=list(runner.resize_mem), base=runner.base_bytes,
+            peak=runner.peak_bytes - runner.base_bytes,
+            k1=(counts["flash_attention"] / GRANITE_DEPTH_STEPS,
+                counts["flash_attention_bwd"] / GRANITE_DEPTH_STEPS))
+        del runner, state
+        torch.cuda.empty_cache()
+    d_st, d_el = d_runs["static"], d_runs["elastic"]
+    d_gap = max(abs(a - b) for a, b in zip(d_st["losses"], d_el["losses"]))
+    d_actions = [e.action for e in d_el["events"]]
+    # what a resize that copied without donating would hold: both states
+    d_clone_b = max(b_ for b_, _ in d_el["resize_mem"]) + d_state_b
+    phase("train:depth:memory", card=repr(smi_line),
+          state_gb=f"{d_state_b / 1e9:.4f}",
+          largest_leaf_gb=f"{d_leaf_b / 1e9:.4f}",
+          slack_gb=f"{RESIZE_SLACK_BYTES / 1e9:.4f}",
+          allocated_before_resize_gb=",".join(
+              f"{b_ / 1e9:.4f}" for b_, _ in d_el["resize_mem"]),
+          resize_peak_gb=",".join(
+              f"{p_ / 1e9:.4f}" for _, p_ in d_el["resize_mem"]),
+          static_peak_gb=f"{d_st['peak'] / 1e9:.4f}",
+          elastic_peak_gb=f"{d_el['peak'] / 1e9:.4f}",
+          base_gb=f"{d_st['base'] / 1e9:.4f},{d_el['base'] / 1e9:.4f}",
+          cloning_resize_gb=f"{d_clone_b / 1e9:.4f}")
+    if d_gap > TRAIN_LOSS_TOL or d_actions != ["expand", "shrink"]:
+        fail(f"40-layer elastic training: losses {d_el['losses']} vs static "
+             f"{d_st['losses']} (gap {d_gap:.3e} > {TRAIN_LOSS_TOL}?), "
+             f"actions {d_actions}")
+    if d_el["peak"] > d_st["peak"] + d_leaf_b + RESIZE_SLACK_BYTES:
+        fail(f"40-layer elastic run peaked at {d_el['peak']} B over its "
+             f"base, past the static run's {d_st['peak']} B + the largest "
+             f"leaf {d_leaf_b} + {RESIZE_SLACK_BYTES}")
     phase("train:depth", layers=dcfg.num_layers,
-          losses=",".join(f"{x:.6f}" for x in losses),
-          step_s=",".join(f"{x:.3f}" for x in secs),
-          s_per_step=f"{step_s(secs):.4f}",
-          tokens_per_s=f"{tokens_per_step / step_s(secs):.0f}",
-          k1_fwd_per_step=counts["flash_attention"] / DEPTH_STEPS,
-          k1_bwd_per_step=counts["flash_attention_bwd"] / DEPTH_STEPS,
-          state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}",
-          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
-    del runner, state
-    torch.cuda.empty_cache()
+          elastic_vs_static_max_gap=f"{d_gap:.3e}", tol=TRAIN_LOSS_TOL,
+          actions=",".join(d_actions),
+          k1_fwd_per_step=d_el["k1"][0], k1_bwd_per_step=d_el["k1"][1],
+          s_per_step=f"{step_s(d_st['secs']):.4f},"
+                     f"{step_s(d_el['secs']):.4f}",
+          state_gb=f"{d_state_b / 1e9:.2f}",
+          peak_gb=f"{d_st['peak'] / 1e9:.2f},{d_el['peak'] / 1e9:.2f}")
     mark("train_depth")
 
     # -- 13b. the SSM training path: the smoke model's step, card vs CPU ----
@@ -4383,22 +4528,24 @@ def main() -> None:
 
     # -- 13f. zamba2 prefill vs decode, and where the prefill's time goes ----
     torch.cuda.empty_cache()
-    zparams = M.init_params(zscfg, torch.Generator(dev).manual_seed(0), dev)
+    zparams = M.init_params(dataclasses.replace(
+        zcfg, num_layers=max(Z_SERVE_LAYERS, Z_CHECK_LAYERS)),
+        torch.Generator(dev).manual_seed(0), dev)
+    z_first = lambda n: dict(zparams, layers=T.tree_map(
+        lambda t: t[:n], zparams["layers"]))    # the first n layers' weights
     zprompts = torch.from_numpy(np.random.default_rng(2).integers(
         0, zscfg.vocab_size, (BATCH, M_PREFILL_S), dtype=np.int32)).to(dev)
     z_prefill = prefill_launches(
-        zscfg, zparams, {"tokens": zprompts}, "zamba2",
+        zscfg, z_first(Z_SERVE_LAYERS), {"tokens": zprompts}, "zamba2",
         {"ssd_scan": {"fma": 0, "wgmma": zscfg.num_layers},
          "flash_attention": dict(no_k1, mma=zgroups)},
         {"block": zgroups, "group": 0})
-    # the logits checks run the first Z_CHECK_LAYERS layers of these weights
     logits_check(dataclasses.replace(zscfg, num_layers=Z_CHECK_LAYERS),
-                 dict(zparams, layers=T.tree_map(
-                     lambda t: t[:Z_CHECK_LAYERS], zparams["layers"])),
+                 z_first(Z_CHECK_LAYERS),
                  zprompts, "zamba2", (Z_FP32_LOGITS_ATOL, Z_FP32_LOGITS_RMS),
                  (Z_BF16_LOGITS_MAX, Z_BF16_LOGITS_RMS), faults=True)
-    traced_prefill(zscfg, zparams, {"tokens": zprompts}, "zamba2",
-                   {"k3": is_k3_fwd, "k1": is_k1_fwd})
+    traced_prefill(zscfg, z_first(Z_SERVE_LAYERS), {"tokens": zprompts},
+                   "zamba2", {"k3": is_k3_fwd, "k1": is_k1_fwd})
     del zparams
     torch.cuda.empty_cache()
     mark("zamba2_prefill")
@@ -4471,7 +4618,7 @@ def main() -> None:
                                counts["paths"]}, separators=(",", ":")),
           paths=json.dumps(counts["paths"], separators=(",", ":")),
           state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}",
-          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+          peak_gb=f"{runner.peak_bytes / 1e9:.2f}")
     L, G_ = zcfg.num_layers, zcfg.num_layers // zcfg.shared_attention_every
     state, fields, _ = traced_step(runner, state, DEPTH_STEPS, {
         "k3_fwd": (is_k3_fwd, 2 * L),
@@ -5264,7 +5411,7 @@ def main() -> None:
                                counts["paths"]}, separators=(",", ":")),
           paths=json.dumps(counts["paths"], separators=(",", ":")),
           state_gb=f"{sum(t.nbytes for t in T.leaves(state)) / 1e9:.2f}",
-          peak_gb=f"{torch.cuda.max_memory_allocated() / 1e9:.2f}")
+          peak_gb=f"{runner.peak_bytes / 1e9:.2f}")
     nl = xd.num_layers * xd.train_microbatches     # layer passes a step
     state, fields, _ = traced_step(runner, state, TRAIN_STEPS, {
         "k1_fwd": (is_k1_fwd, 2 * nl), "k1_bwd": (is_k1_bwd, 3 * nl)},

@@ -56,6 +56,16 @@ def get_shape(name: str) -> ShapeConfig:
     raise KeyError(f"unknown shape {name!r}")
 
 
+def live_cells():
+    """All (arch, shape) dry-run cells with applicability verdicts."""
+    out = []
+    for an, cfg in all_configs().items():
+        for shp in SHAPES:
+            ok, why = shape_applicable(cfg, shp)
+            out.append((an, shp.name, ok, why))
+    return out
+
+
 __all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "phys_vocab", "reduced",
            "shape_applicable", "list_archs", "get_config", "all_configs",
-           "get_shape"]
+           "get_shape", "live_cells"]

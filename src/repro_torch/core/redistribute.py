@@ -1,6 +1,9 @@
 """Data redistribution helpers (port of ``repro/core/redistribute.py``).
 
-* ``TransferStats`` — what a resize moved.
+* ``TransferStats`` — what a resize moved; ``state_bytes``;
+  ``redistribute_state`` — a whole state tree onto new placements, every
+  leaf by the ``default`` pattern (``repro_torch.dmr.patterns``), donating
+  the old state unless asked not to.
 * Default (1-D uniform block) redistribution — paper Listing 3/4.
 * Block-cyclic redistribution — paper Table 1.  ``blockcyclic_split`` /
   ``blockcyclic_merge`` are the plain per-rank semantics;
@@ -12,11 +15,14 @@ Every helper takes numpy arrays or torch tensors and returns the same kind.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from typing import List, Sequence
+from typing import Any, Callable, List, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch import tree as T
 
 
 @dataclass
@@ -24,6 +30,25 @@ class TransferStats:
     bytes_moved: int
     seconds: float
     n_leaves: int
+
+
+def state_bytes(state) -> int:
+    return sum(int(l.nbytes) for l in T.leaves(state))
+
+
+def redistribute_state(state, new_placements, *, donate: bool = True):
+    """Move a job-state tree onto new placements.
+
+    Returns (new_state, TransferStats).  Values are bit-identical — the
+    paper's "robust restart": children resume exactly where parents
+    stopped.  Under ``donate`` the old state is given up as it moves and
+    must not be read again."""
+    from repro_torch.dmr.patterns import redistribute_tree
+    t0 = time.perf_counter()
+    moved, _, _ = redistribute_tree(state, new_placements, donate=donate)
+    dt = time.perf_counter() - t0
+    return moved, TransferStats(bytes_moved=state_bytes(moved), seconds=dt,
+                                n_leaves=len(T.leaves(moved)))
 
 
 def _cat(parts: Sequence):
@@ -158,3 +183,11 @@ def blockcyclic_redistribute(parts: List, new_nprocs: int,
     rows = [len(i) * block for i in idx]
     views = list(torch.split(out, rows, dim=0))
     return [v.numpy() for v in views] if as_numpy else views
+
+
+# ----------------------------------------------------------------------
+# Custom redistribution hook (the HPG-aligner case: user-supplied functions)
+# ----------------------------------------------------------------------
+
+RedistributeFn = Callable[[Any, Any], Any]
+# signature: (state, new_placements) -> new_state

@@ -7,6 +7,8 @@ The paper's call set, as in the JAX package's ``repro.dmr``:
     DMR_RECONFIG(...)                    dmr.reconfig(runner, state, i)
     Table-1 patterns                     dmr.get_pattern("blockcyclic:4"),
                                          App(patterns={"table": "replicate"})
+    user send/recv functions (custom)    App(patterns={"t": fn}),
+                                         dmr.register_pattern(name, factory)
     DMRlib <-> Slurm link (Fig. 1)       dmr.connect(...) / RMSConnector:
                                          ScriptedRMS, PolicyRMS, FileRMS,
                                          SimRMS (co-simulation)
@@ -29,9 +31,10 @@ from repro_torch.dmr.connectors import (FileRMS, PolicyRMS, RMSConnector,
                                         ScriptedRMS, connect)
 from repro_torch.dmr.cosim import SimRMS, SimWorkload
 from repro_torch.dmr.patterns import (PATTERNS, BlockCyclicPattern,
-                                      DefaultPattern, Pattern,
-                                      ReplicatePattern, ResizeContext,
-                                      get_pattern, redistribute_tree)
+                                      CallablePattern, DefaultPattern,
+                                      Pattern, ReplicatePattern,
+                                      ResizeContext, get_pattern,
+                                      redistribute_tree, register_pattern)
 from repro_torch.dmr.runner import MalleableRunner, ResizeEvent, reconfig
 from repro_torch.dmr.tenant import MalleableTenant
 
@@ -51,7 +54,8 @@ __all__ = [
     "App", "set_parameters", "reconfig", "MalleableRunner",
     # patterns
     "Pattern", "DefaultPattern", "BlockCyclicPattern", "ReplicatePattern",
-    "ResizeContext", "PATTERNS", "get_pattern", "redistribute_tree",
+    "CallablePattern", "ResizeContext", "PATTERNS", "get_pattern",
+    "register_pattern", "redistribute_tree",
     # connectors
     "RMSConnector", "ScriptedRMS", "PolicyRMS", "FileRMS", "SimRMS",
     "connect",

@@ -9,6 +9,11 @@ A pattern works at two levels that share one accounting model:
   new_nprocs)`` maps per-rank blocks (numpy arrays or tensors) from the old
   worker count to the new one.
 
+Specs are registry names (``"default"``, ``"blockcyclic:4"``,
+``"replicate"``, or a family added with ``register_pattern``), Pattern
+instances, or a user function ``fn(leaf, placement, ctx) -> leaf`` (the
+paper's user send/recv functions, Table 1's custom row).
+
 Accounting: ``default`` reports the full resident bytes of what it moved;
 ``blockcyclic`` the communication volume of the layout change (bytes in
 blocks whose owner rank changes); ``replicate`` the broadcast payload
@@ -17,6 +22,21 @@ blocks whose owner rank changes); ``replicate`` the broadcast payload
 device copy); ``replicate`` keeps the one copy a device holds (eight
 replicas of a 10 GB parameter set would not fit), so its bytes are the
 model's broadcast volume, not a copy.
+
+Donation (``donate=True``, the default, as in the reference): a resize
+gives the old state up as it moves it.  Each source leaf is swapped for a
+``meta`` tensor of its shape and dtype once every leaf of the state that
+views its storage has moved, so a read of the donated state raises and
+the storage goes back to the allocator when nothing else holds it: a
+resize holds the state plus about one leaf, not two states.  A source
+whose storage a moved leaf still uses (``replicate``, an identity
+function, a view) is kept.  The
+storage is not shrunk in place (``untyped_storage().resize_(0)``): torch
+reads a tensor over a zero-size storage unchecked, so a stale read would
+crash instead of raising.  A view of the state held outside it keeps that
+storage alive, and the memory of a tensor made by ``torch.from_numpy`` is
+its numpy array's: the tensor is given up, the buffer stays with numpy.
+``donate=False`` copies and leaves the source as it was.
 """
 from __future__ import annotations
 
@@ -32,14 +52,19 @@ from repro_torch.core.redistribute import (TransferStats,
                                            blockcyclic_redistribute,
                                            default_redistribution)
 
-PatternSpec = Union[str, "Pattern"]
+PatternSpec = Union[str, "Pattern", Callable]
 
 
 @dataclasses.dataclass(frozen=True)
 class ResizeContext:
-    """What a pattern may know about the resize it is serving."""
+    """What a pattern may know about the resize it is serving.  ``donor``
+    gives the sources up under ``donate`` (``redistribute_tree`` sets one
+    for the whole state; a pattern applied on its own makes its own)."""
     from_procs: int
     to_procs: int
+    donate: bool = True
+    donor: Optional["Donor"] = dataclasses.field(default=None, repr=False,
+                                                 compare=False)
 
 
 def _leaf_nbytes(leaf) -> int:
@@ -56,6 +81,78 @@ def _sync(leaves) -> None:
     for d in {l.device for l in leaves if isinstance(l, torch.Tensor)
               and l.device.type == "cuda"}:
         torch.cuda.synchronize(d)
+
+
+def _storage_key(t: torch.Tensor) -> Tuple[str, int]:
+    return str(t.device), t.untyped_storage().data_ptr()
+
+
+class Donor:
+    """The source leaves of one donating resize, grouped by storage.
+
+    ``moved(src, out)`` after each leaf's move: once every source that
+    views ``src``'s storage has moved, and unless a moved leaf uses that
+    storage (``replicate``, an identity function, a view), each of them
+    is swapped for a ``meta`` tensor (views before their bases, which
+    the views hold), so reading it raises and the storage is freed when
+    nothing else holds it.  ``finish`` gives up what a pattern with its
+    own ``apply`` did not report."""
+
+    def __init__(self, leaves: List):
+        self.sources: Dict[Tuple[str, int], List[torch.Tensor]] = {}
+        for l in leaves:
+            if isinstance(l, torch.Tensor):
+                self.sources.setdefault(_storage_key(l), []).append(l)
+        self.pending = {k: len(v) for k, v in self.sources.items()}
+        self.kept: set = set()           # storages the moved leaves use
+
+    def moved(self, src, out) -> None:
+        if isinstance(out, torch.Tensor):
+            self.kept.add(_storage_key(out))
+        if isinstance(src, torch.Tensor):
+            key = _storage_key(src)
+            self.pending[key] -= 1
+            if self.pending[key] == 0:
+                self._give_up(key)
+
+    def finish(self, moved: List) -> None:
+        self.kept.update(_storage_key(m) for m in moved
+                         if isinstance(m, torch.Tensor))
+        for key in list(self.sources):
+            self._give_up(key)
+
+    def _give_up(self, key) -> None:
+        sources = self.sources.pop(key)
+        if key in self.kept:
+            return
+        done = set()
+        for t in sorted(sources, key=lambda t: t._base is None):
+            if id(t) in done or t.is_meta:
+                continue
+            done.add(id(t))
+            try:
+                torch.utils.swap_tensors(
+                    t, torch.empty_like(t, device="meta"))
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"cannot donate a {tuple(t.shape)} {t.dtype} leaf "
+                    f"(something outside the state holds it; resize with "
+                    f"donate=False): {e}") from e
+
+
+def _detached(out, src):
+    """``out`` with no autograd history, requiring grad as ``src`` did: a
+    moved leaf whose graph reached the source would keep it alive."""
+    if not isinstance(src, torch.Tensor):
+        return out
+    if not isinstance(out, torch.Tensor):
+        raise TypeError(f"a pattern moved a {tuple(src.shape)} tensor to a "
+                        f"{type(out).__name__}")
+    if out.grad_fn is not None:
+        out = out.detach()
+    if out.requires_grad != src.requires_grad:
+        out.requires_grad_(src.requires_grad)
+    return out
 
 
 class Pattern:
@@ -78,9 +175,16 @@ class Pattern:
 
     def apply(self, leaves: List, placements: List,
               ctx: ResizeContext) -> Tuple[List, TransferStats]:
-        """Move a group of leaves onto their new placements."""
+        """Move a group of leaves onto their new placements, giving each
+        source up as it moves under ``ctx.donate``."""
         t0 = time.perf_counter()
-        moved = [self.move(l, p, ctx) for l, p in zip(leaves, placements)]
+        donor = ctx.donor or (Donor(leaves) if ctx.donate else None)
+        moved = []
+        with torch.no_grad():
+            for l, p in zip(leaves, placements):
+                moved.append(_detached(self.move(l, p, ctx), l))
+                if donor is not None:
+                    donor.moved(l, moved[-1])
         _sync(moved)
         dt = time.perf_counter() - t0
         nbytes = sum(self.leaf_bytes(l, ctx) for l in moved)
@@ -198,6 +302,26 @@ class ReplicatePattern(Pattern):
                                   seconds=dt, n_leaves=new_nprocs)
 
 
+class CallablePattern(Pattern):
+    """Adapter for a user function ``fn(leaf, placement, ctx) -> leaf``
+    (the paper's user-supplied send/recv functions, leaf at a time); its
+    bytes are the resident bytes of what ``fn`` returned.  ``fn`` runs
+    under ``torch.no_grad``; under ``ctx.donate`` it may return its leaf,
+    a view of it, or new storage, and must not keep the leaf otherwise."""
+
+    name = "custom"
+
+    def __init__(self, fn: Callable, name: Optional[str] = None):
+        self.fn = fn
+        if name:
+            self.name = name
+        elif getattr(fn, "__name__", None) not in (None, "<lambda>"):
+            self.name = f"custom:{fn.__name__}"
+
+    def move(self, leaf, placement, ctx):
+        return self.fn(leaf, placement, ctx)
+
+
 # ----------------------------------------------------------------------
 # Registry
 # ----------------------------------------------------------------------
@@ -210,11 +334,23 @@ PATTERNS: Dict[str, Callable[[Optional[str]], Pattern]] = {
 }
 
 
+def register_pattern(name: str,
+                     factory: Callable[[Optional[str]], Pattern]) -> None:
+    """Register a custom pattern family under ``name`` (``factory`` receives
+    the text after ``name:`` in the spec, or ``None``)."""
+    if ":" in name:
+        raise ValueError(f"pattern name must not contain ':': {name!r}")
+    PATTERNS[name] = factory
+
+
 def get_pattern(spec: PatternSpec) -> Pattern:
-    """Resolve a pattern spec: a Pattern instance or a registry name such
-    as ``"default"`` / ``"blockcyclic:4"`` / ``"replicate"``."""
+    """Resolve a pattern spec: a Pattern instance, a registry name such as
+    ``"default"`` / ``"blockcyclic:4"`` / ``"replicate"``, or a callable
+    ``fn(leaf, placement, ctx) -> leaf``."""
     if isinstance(spec, Pattern):
         return spec
+    if callable(spec):
+        return CallablePattern(spec)
     name, _, arg = str(spec).partition(":")
     try:
         factory = PATTERNS[name]
@@ -245,7 +381,8 @@ def _match_spec(path: str, patterns: Dict[str, PatternSpec],
 def redistribute_tree(state, new_placements, *,
                       patterns: Optional[Dict[str, PatternSpec]] = None,
                       default: PatternSpec = "default",
-                      from_procs: int = 0, to_procs: int = 0
+                      from_procs: int = 0, to_procs: int = 0,
+                      donate: bool = True
                       ) -> Tuple[Any, TransferStats,
                                  Dict[str, TransferStats]]:
     """Move a state tree onto new placements, pattern-by-pattern.
@@ -253,10 +390,15 @@ def redistribute_tree(state, new_placements, *,
     ``patterns`` maps path prefixes (``"table"``, ``"opt/mu"``, ``"*"``) to
     pattern specs; unmatched subtrees use ``default``.  Returns
     ``(new_state, aggregate_stats, per_pattern_stats)`` where the breakdown
-    is keyed by each pattern's ``spec()`` string.
+    is keyed by each pattern's ``spec()`` string.  Under ``donate`` the
+    old state is given up as it moves (see the module's docstring): the
+    caller must not read it again.
     """
-    ctx = ResizeContext(from_procs=from_procs, to_procs=to_procs)
     paths_leaves = T.flatten(state)
+    sources = [leaf for _, leaf in paths_leaves]
+    donor = Donor(sources) if donate else None
+    ctx = ResizeContext(from_procs=from_procs, to_procs=to_procs,
+                        donate=donate, donor=donor)
     place_leaves = T.leaves(new_placements)
     if len(place_leaves) != len(paths_leaves):
         raise ValueError("placements are not congruent with the state")
@@ -267,6 +409,10 @@ def redistribute_tree(state, new_placements, *,
     by_id: Dict[int, Pattern] = {}
     for i, (path, _leaf) in enumerate(paths_leaves):
         spec = _match_spec(path, patterns, default)
+        # dedup string specs by value, everything else (callables, Pattern
+        # instances) by identity; group by *pattern* identity so two
+        # distinct callables stay distinct even if their spec() strings
+        # collide (e.g. two lambdas, both "custom")
         key = spec if isinstance(spec, str) else id(spec)
         pat = resolved.get(key)
         if pat is None:
@@ -286,6 +432,8 @@ def redistribute_tree(state, new_placements, *,
         while key in per_pattern:          # spec-string collision: suffix
             key, n = f"{pat.spec()}#{n}", n + 1
         per_pattern[key] = stats
+    if donor is not None:
+        donor.finish(out_leaves)
 
     total = TransferStats(
         bytes_moved=sum(s.bytes_moved for s in per_pattern.values()),

@@ -1826,3 +1826,42 @@ def test_cg_example_on_card_matches_cpu(cuda):
     assert {t.device.type for t in card[1].values()} == {"cuda"}
     torch.testing.assert_close(card[1]["x"].cpu(), cpu[1]["x"], rtol=0,
                                atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("donate", [True, False])
+def test_donated_resize_holds_one_leaf_on_card(cuda, donate):
+    """A donated ``redistribute_tree`` over several leaves raises the
+    card's peak allocation by at most its largest leaf (each source goes
+    once its copy is made); ``donate=False`` by the whole tree (both
+    copies at once).  Values are equal either way."""
+    from repro_torch import dmr
+    from repro_torch import tree as T
+
+    mib = 2 ** 20
+    state = {"a": torch.randn(16 * mib // 4, device=cuda),
+             "b": {"c": torch.randn(8 * mib // 4, device=cuda),
+                   "d": torch.randn(4 * mib // 2, device=cuda,
+                                    dtype=torch.bfloat16)},
+             "e": torch.randn(12 * mib // 4, device=cuda)}
+    want = [t.cpu() for t in T.leaves(state)]
+    leaf_b = max(t.nbytes for t in T.leaves(state))
+    tree_b = sum(t.nbytes for t in T.leaves(state))
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, tot, _ = dmr.redistribute_tree(
+        state, T.tree_map(lambda _: None, state),
+        patterns={"b/c": lambda l, s, c: l.clone()}, donate=donate)
+    rise = torch.cuda.max_memory_allocated() - before
+    slack = 2 * mib                  # the allocator's rounding of a block
+    if donate:
+        assert rise <= leaf_b + slack
+        assert torch.cuda.memory_allocated() - before <= slack
+        assert all(t.is_meta for t in T.leaves(state))
+    else:
+        assert tree_b <= rise <= tree_b + slack
+        assert torch.cuda.memory_allocated() - before >= tree_b
+    assert tot.bytes_moved == tree_b
+    for a, b in zip(T.leaves(out), want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
