@@ -28,6 +28,10 @@ from repro_torch.models.train import TrainState, init_state, make_train_step
 from repro_torch.optim.adamw import AdamW
 from repro_torch.parallel.context import sharding_context
 from repro_torch.parallel.sharding import rules_for, state_shardings
+from repro_torch.spans import span
+
+#: the profiler span of a step's batch upload, host to device
+BATCH_SPAN = "train.batch"
 
 
 class _LMTrainImpl:
@@ -63,8 +67,9 @@ class _LMTrainImpl:
                batch: Optional[Dict[str, np.ndarray]] = None):
             if batch is None:
                 batch = ds.batch_at(step_i * ds.global_batch)
-            batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
-                     for k, v in batch.items()}
+            with span(BATCH_SPAN):
+                batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+                         for k, v in batch.items()}
             with sharding_context(mesh, rules):
                 return train_step(state, batch)
 

@@ -15,7 +15,6 @@ Every helper takes numpy arrays or torch tensors and returns the same kind.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Any, Callable, List, Sequence
 
@@ -42,12 +41,12 @@ def redistribute_state(state, new_placements, *, donate: bool = True):
     Returns (new_state, TransferStats).  Values are bit-identical — the
     paper's "robust restart": children resume exactly where parents
     stopped.  Under ``donate`` the old state is given up as it moves and
-    must not be read again."""
+    must not be read again.  ``seconds`` is the moves' time, as the
+    tree's total gives it."""
     from repro_torch.dmr.patterns import redistribute_tree
-    t0 = time.perf_counter()
-    moved, _, _ = redistribute_tree(state, new_placements, donate=donate)
-    dt = time.perf_counter() - t0
-    return moved, TransferStats(bytes_moved=state_bytes(moved), seconds=dt,
+    moved, total, _ = redistribute_tree(state, new_placements, donate=donate)
+    return moved, TransferStats(bytes_moved=state_bytes(moved),
+                                seconds=total.seconds,
                                 n_leaves=len(T.leaves(moved)))
 
 

@@ -51,8 +51,16 @@ from repro_torch import tree as T
 from repro_torch.core.redistribute import (TransferStats,
                                            blockcyclic_redistribute,
                                            default_redistribution)
+from repro_torch.spans import span
 
 PatternSpec = Union[str, "Pattern", Callable]
+
+#: profiler spans (``repro_torch.spans``): a whole state tree's
+#: redistribution (pattern grouping, every move, the donor's last
+#: give-ups), and inside it each pattern's moves, named by the pattern's
+#: ``per_pattern`` key (``dmr.pattern.default``, ...)
+REDISTRIBUTE_SPAN = "dmr.redistribute"
+PATTERN_SPAN_PREFIX = "dmr.pattern."
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,6 +89,35 @@ def _sync(leaves) -> None:
     for d in {l.device for l in leaves if isinstance(l, torch.Tensor)
               and l.device.type == "cuda"}:
         torch.cuda.synchronize(d)
+
+
+class _MoveClock:
+    """The time of a group of moves.  On a card: two events on the
+    current stream around the moves, read after ``_sync`` (work queued
+    before the moves is not counted, and no sync is added); on the CPU,
+    the host clock."""
+
+    def __init__(self, leaves):
+        dev = next((l.device for l in leaves if isinstance(l, torch.Tensor)
+                    and l.device.type == "cuda"), None)
+        self.stream = None if dev is None else torch.cuda.current_stream(dev)
+        self.start = self._mark()
+
+    def _mark(self):
+        if self.stream is None:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev
+
+    def stop(self) -> None:
+        self.end = self._mark()
+
+    def seconds(self) -> float:
+        """After ``stop`` and the sync of the moved leaves."""
+        if self.stream is None:
+            return self.end - self.start
+        return self.start.elapsed_time(self.end) / 1e3
 
 
 def _storage_key(t: torch.Tensor) -> Tuple[str, int]:
@@ -176,8 +213,9 @@ class Pattern:
     def apply(self, leaves: List, placements: List,
               ctx: ResizeContext) -> Tuple[List, TransferStats]:
         """Move a group of leaves onto their new placements, giving each
-        source up as it moves under ``ctx.donate``."""
-        t0 = time.perf_counter()
+        source up as it moves under ``ctx.donate``.  ``seconds`` is the
+        moves' time (see ``_MoveClock``)."""
+        clock = _MoveClock(leaves)
         donor = ctx.donor or (Donor(leaves) if ctx.donate else None)
         moved = []
         with torch.no_grad():
@@ -185,10 +223,11 @@ class Pattern:
                 moved.append(_detached(self.move(l, p, ctx), l))
                 if donor is not None:
                     donor.moved(l, moved[-1])
+        clock.stop()
         _sync(moved)
-        dt = time.perf_counter() - t0
         nbytes = sum(self.leaf_bytes(l, ctx) for l in moved)
-        return moved, TransferStats(bytes_moved=int(nbytes), seconds=dt,
+        return moved, TransferStats(bytes_moved=int(nbytes),
+                                    seconds=clock.seconds(),
                                     n_leaves=len(moved))
 
     # -- host level (Table-1 per-rank semantics) -----------------------
@@ -394,49 +433,52 @@ def redistribute_tree(state, new_placements, *,
     old state is given up as it moves (see the module's docstring): the
     caller must not read it again.
     """
-    paths_leaves = T.flatten(state)
-    sources = [leaf for _, leaf in paths_leaves]
-    donor = Donor(sources) if donate else None
-    ctx = ResizeContext(from_procs=from_procs, to_procs=to_procs,
-                        donate=donate, donor=donor)
-    place_leaves = T.leaves(new_placements)
-    if len(place_leaves) != len(paths_leaves):
-        raise ValueError("placements are not congruent with the state")
-    patterns = patterns or {}
+    with span(REDISTRIBUTE_SPAN):
+        paths_leaves = T.flatten(state)
+        sources = [leaf for _, leaf in paths_leaves]
+        donor = Donor(sources) if donate else None
+        ctx = ResizeContext(from_procs=from_procs, to_procs=to_procs,
+                            donate=donate, donor=donor)
+        place_leaves = T.leaves(new_placements)
+        if len(place_leaves) != len(paths_leaves):
+            raise ValueError("placements are not congruent with the state")
+        patterns = patterns or {}
 
-    resolved: Dict[Any, Pattern] = {}      # spec value/id -> Pattern (dedup)
-    groups: Dict[int, List[int]] = {}      # id(pattern) -> leaf indices
-    by_id: Dict[int, Pattern] = {}
-    for i, (path, _leaf) in enumerate(paths_leaves):
-        spec = _match_spec(path, patterns, default)
-        # dedup string specs by value, everything else (callables, Pattern
-        # instances) by identity; group by *pattern* identity so two
-        # distinct callables stay distinct even if their spec() strings
-        # collide (e.g. two lambdas, both "custom")
-        key = spec if isinstance(spec, str) else id(spec)
-        pat = resolved.get(key)
-        if pat is None:
-            pat = resolved[key] = get_pattern(spec)
-        by_id[id(pat)] = pat
-        groups.setdefault(id(pat), []).append(i)
+        resolved: Dict[Any, Pattern] = {}  # spec value/id -> Pattern (dedup)
+        groups: Dict[int, List[int]] = {}  # id(pattern) -> leaf indices
+        by_id: Dict[int, Pattern] = {}
+        for i, (path, _leaf) in enumerate(paths_leaves):
+            spec = _match_spec(path, patterns, default)
+            # dedup string specs by value, everything else (callables,
+            # Pattern instances) by identity; group by *pattern* identity
+            # so two distinct callables stay distinct even if their spec()
+            # strings collide (e.g. two lambdas, both "custom")
+            key = spec if isinstance(spec, str) else id(spec)
+            pat = resolved.get(key)
+            if pat is None:
+                pat = resolved[key] = get_pattern(spec)
+            by_id[id(pat)] = pat
+            groups.setdefault(id(pat), []).append(i)
 
-    out_leaves: List = [None] * len(paths_leaves)
-    per_pattern: Dict[str, TransferStats] = {}
-    for pat_id, idxs in groups.items():
-        pat = by_id[pat_id]
-        moved, stats = pat.apply([paths_leaves[i][1] for i in idxs],
-                                 [place_leaves[i] for i in idxs], ctx)
-        for i, leaf in zip(idxs, moved):
-            out_leaves[i] = leaf
-        key, n = pat.spec(), 2
-        while key in per_pattern:          # spec-string collision: suffix
-            key, n = f"{pat.spec()}#{n}", n + 1
-        per_pattern[key] = stats
-    if donor is not None:
-        donor.finish(out_leaves)
+        out_leaves: List = [None] * len(paths_leaves)
+        per_pattern: Dict[str, TransferStats] = {}
+        for pat_id, idxs in groups.items():
+            pat = by_id[pat_id]
+            key, n = pat.spec(), 2
+            while key in per_pattern:      # spec-string collision: suffix
+                key, n = f"{pat.spec()}#{n}", n + 1
+            with span(PATTERN_SPAN_PREFIX + key):
+                moved, stats = pat.apply(
+                    [paths_leaves[i][1] for i in idxs],
+                    [place_leaves[i] for i in idxs], ctx)
+            for i, leaf in zip(idxs, moved):
+                out_leaves[i] = leaf
+            per_pattern[key] = stats
+        if donor is not None:
+            donor.finish(out_leaves)
 
-    total = TransferStats(
-        bytes_moved=sum(s.bytes_moved for s in per_pattern.values()),
-        seconds=sum(s.seconds for s in per_pattern.values()),
-        n_leaves=sum(s.n_leaves for s in per_pattern.values()))
-    return T.unflatten(state, out_leaves), total, per_pattern
+        total = TransferStats(
+            bytes_moved=sum(s.bytes_moved for s in per_pattern.values()),
+            seconds=sum(s.seconds for s in per_pattern.values()),
+            n_leaves=sum(s.n_leaves for s in per_pattern.values()))
+        return T.unflatten(state, out_leaves), total, per_pattern

@@ -30,8 +30,19 @@ from repro_torch.core.policy import Action, ClusterView, get_policy
 from repro_torch.core.redistribute import TransferStats
 from repro_torch.dmr.app import MalleableApp, ensure_app
 from repro_torch.dmr.connectors import PolicyRMS, RMSConnector, connect
-from repro_torch.dmr.patterns import PatternSpec, redistribute_tree
+from repro_torch.dmr.patterns import (REDISTRIBUTE_SPAN, PatternSpec,
+                                     redistribute_tree)
 from repro_torch.parallel.mesh import logical_workers, make_job_mesh
+from repro_torch.spans import span
+
+#: profiler spans of the runner (``repro_torch.spans``): a DMR_RECONFIG
+#: call, the inhibitor check included; the RMS round trip inside it; a
+#: resize, whole (clamp, mesh, placements, redistribution, closure swap,
+#: event, listener); one step's dispatch
+RECONFIG_SPAN = "dmr.reconfig"
+QUERY_SPAN = "dmr.query"
+RESIZE_SPAN = "dmr.resize"
+STEP_SPAN = "dmr.step"
 
 
 @dataclasses.dataclass
@@ -41,7 +52,6 @@ class ResizeEvent:
     from_procs: int
     to_procs: int
     transfer: TransferStats
-    recompile_s: float
     #: TransferStats per named redistribution pattern (keyed by pattern
     #: spec, e.g. "default" / "blockcyclic:4"); empty for a custom
     #: whole-tree ``redistribute`` callable.
@@ -237,20 +247,24 @@ class MalleableRunner:
     def maybe_reconfig(self, state, step: int):
         """Algorithm 1: check the §3.2 inhibitors, query the RMS, resize if
         told to."""
-        if not self.query_due(step):
-            return state
-        self._last_query_step = step
-        self._last_query_time = time.monotonic()
+        with span(RECONFIG_SPAN):
+            if not self.query_due(step):
+                return state
+            self._last_query_step = step
+            self._last_query_time = time.monotonic()
 
-        action = self.rms.query(step=step, current=self.current,
-                                params=self.params)
-        if action.kind == "none" or action.target == self.current:
-            return state
-        return self.apply_resize(state, step, action)
+            with span(QUERY_SPAN):
+                action = self.rms.query(step=step, current=self.current,
+                                        params=self.params)
+            if action.kind == "none" or action.target == self.current:
+                return state
+            return self.apply_resize(state, step, action)
 
     def _redistribute(self, state, new_shardings, target: int):
         if self._custom_redistribute is not None:
-            state, stats = self._custom_redistribute(state, new_shardings)
+            with span(REDISTRIBUTE_SPAN):
+                state, stats = self._custom_redistribute(state,
+                                                         new_shardings)
             return state, stats, {}
         return redistribute_tree(state, new_shardings,
                                  patterns=self.patterns,
@@ -269,31 +283,30 @@ class MalleableRunner:
         changed under the job, e.g. after a failure), which do move state
         and are logged.
         """
-        target = self._pool_clamp(self.params.clamp(action.target))
-        if target == self.current and not force:
+        with span(RESIZE_SPAN):
+            target = self._pool_clamp(self.params.clamp(action.target))
+            if target == self.current and not force:
+                return state
+            new_mesh = self._mesh_for(target)
+            new_shardings = self.app.state_shardings(new_mesh)
+            state, stats, per_pattern = self._redistribute(
+                state, new_shardings, target)
+            self._step_fn(target)          # build (cached across resizes)
+            kind = action.kind if target != self.current else "migrate"
+            event = ResizeEvent(
+                step=step, action=kind, from_procs=self.current,
+                to_procs=target, transfer=stats, per_pattern=per_pattern)
+            self.events.append(event)
+            if self.event_listener is not None:
+                self.event_listener(event)
+            self.current = target
+            self.mesh = new_mesh
             return state
-        new_mesh = self._mesh_for(target)
-        new_shardings = self.app.state_shardings(new_mesh)
-        state, stats, per_pattern = self._redistribute(state, new_shardings,
-                                                       target)
-        t0 = time.perf_counter()
-        self._step_fn(target)          # build (cached across resizes)
-        recompile = time.perf_counter() - t0
-        kind = action.kind if target != self.current else "migrate"
-        event = ResizeEvent(
-            step=step, action=kind, from_procs=self.current,
-            to_procs=target, transfer=stats, recompile_s=recompile,
-            per_pattern=per_pattern)
-        self.events.append(event)
-        if self.event_listener is not None:
-            self.event_listener(event)
-        self.current = target
-        self.mesh = new_mesh
-        return state
 
     # ------------------------------------------------------------------
     def step(self, state, step: int, *args):
-        return self._step_fn(self.current)(state, step, *args)
+        with span(STEP_SPAN):
+            return self._step_fn(self.current)(state, step, *args)
 
     # fault tolerance: forced shrink onto survivors
     def handle_failure(self, state, step: int, failed_devices) -> Any:

@@ -87,7 +87,7 @@ def main(argv=None):
     for e in runner.events:
         print(f"# resize @step {e.step}: {e.action} {e.from_procs}->"
               f"{e.to_procs}, moved {e.transfer.bytes_moved/1e6:.1f} MB in "
-              f"{e.transfer.seconds*1e3:.1f} ms, recompile {e.recompile_s:.2f}s")
+              f"{e.transfer.seconds*1e3:.1f} ms")
     print("# done")
 
 

@@ -20,6 +20,7 @@ from repro_torch.models import model as M
 from repro_torch.models.layers import unembed
 from repro_torch.models.params import torch_dtype
 from repro_torch.optim.adamw import AdamW, OptState
+from repro_torch.spans import span
 
 
 class TrainState(NamedTuple):
@@ -71,12 +72,15 @@ LOSS_CHUNK = 1024   # sequence chunk for the CE loss (0 => unchunked)
 #: the backward too); the autograd records of its backward carry its
 #: operators' sequence numbers
 CE_SPAN = "chunked_ce"
+#: the profiler span of the optimizer's update: AdamW's global norm, clip,
+#: moments and parameters
+OPTIMIZER_SPAN = "train.optimizer"
 
 
 def _ce_chunk(embed_params, x_c, labels_c, mask_c, cfg: ArchConfig):
     """Cross-entropy over one sequence chunk; logits never leave the chunk.
     ``logz`` runs over the physical (padded) vocab, as the reference's."""
-    with torch.profiler.record_function(CE_SPAN):
+    with span(CE_SPAN):
         logits = unembed(embed_params, x_c, cfg).float()
         logz = torch.logsumexp(logits, dim=-1)
         ll = torch.gather(logits, -1, labels_c[..., None].long())[..., 0]
@@ -163,8 +167,10 @@ def make_train_step(cfg: ArchConfig, optimizer: AdamW):
             loss = torch.stack(losses).mean()
             metrics = {k: torch.stack([m[k] for m in ms]).mean()
                        for k in ms[0]}
-        new_params, new_opt, gnorm = optimizer.update(
-            T.unflatten(state.params, list(grads)), state.opt, state.params)
+        with span(OPTIMIZER_SPAN):
+            new_params, new_opt, gnorm = optimizer.update(
+                T.unflatten(state.params, list(grads)), state.opt,
+                state.params)
         new_state = TrainState(
             params=new_params, opt=new_opt, step=state.step + 1,
             rng=state.rng, data_cursor=state.data_cursor + B)

@@ -242,7 +242,7 @@ class ReplicaSetRunner:
             ev = ResizeEvent(step=step,
                              action="expand" if to > frm else "shrink",
                              from_procs=frm, to_procs=to,
-                             transfer=_NULL_TRANSFER, recompile_s=0.0)
+                             transfer=_NULL_TRANSFER)
             self.events.append(ev)
             if self.event_listener is not None:
                 self.event_listener(ev)

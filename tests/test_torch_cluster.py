@@ -311,8 +311,12 @@ def _package(torch_side):
         from repro.core.params import MalleabilityParams as params
         from repro.core.policy import Action
         from repro.core.redistribute import TransferStats
-        from repro.dmr.runner import ResizeEvent
+        from repro.dmr.runner import ResizeEvent as _Event
         from repro.rms.workload import AppProfile
+
+        def ResizeEvent(**kw):
+            # the JAX package's event also records a compile time
+            return _Event(recompile_s=0.0, **kw)
     return dict(SUB_JID_BASE=SUB_JID_BASE, Action=Action,
                 TransferStats=TransferStats, ResizeEvent=ResizeEvent,
                 AppProfile=AppProfile, MalleabilityParams=params)
@@ -444,8 +448,7 @@ class _FleetRunner:
                 step=step, action="expand" if to > frm else "shrink",
                 from_procs=frm, to_procs=to,
                 transfer=self.ns["TransferStats"](bytes_moved=0,
-                                                  seconds=0.0, n_leaves=0),
-                recompile_s=0.0)
+                                                  seconds=0.0, n_leaves=0))
             self.events.append(ev)
             if self.event_listener is not None:
                 self.event_listener(ev)

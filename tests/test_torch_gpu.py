@@ -1865,3 +1865,47 @@ def test_donated_resize_holds_one_leaf_on_card(cuda, donate):
     assert tot.bytes_moved == tree_b
     for a, b in zip(T.leaves(out), want):
         assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+#: the card's memory bandwidth (NVIDIA's data sheet, H100 SXM)
+HBM_BYTES_PER_S = 3.35e12
+
+
+@pytest.mark.gpu
+def test_transfer_seconds_time_the_moves_not_the_queue_on_card(cuda):
+    """A 4 -> 8 resize of a 1 GiB leaf issued behind at least 20 ms of
+    queued matmuls, with no sync between: its ``transfer.seconds`` counts
+    the copy from when the stream reached it, so it stays under the
+    queue's time and within 2x of the copy's bandwidth bound (the leaf
+    read once and written once)."""
+    from repro_torch import dmr
+    from repro_torch.parallel.mesh import Placement, logical_workers
+
+    leaf_bytes = 2 ** 30
+    app = dmr.App(
+        init=lambda mesh: {"w": torch.randn(leaf_bytes // 4, device=cuda)},
+        shardings=lambda mesh: {"w": Placement(mesh, 0)},
+        step=lambda mesh: (lambda state, i: (state, None)), name="leaf")
+    runner = dmr.MalleableRunner(app, dmr.set_parameters(2, 8, 4), {0: 8},
+                                 devices=logical_workers(8, cuda))
+    state = runner.init()
+    a = torch.randn(8192, 8192, device=cuda)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    a @ a
+    end.record()
+    torch.cuda.synchronize()
+    repeats = int(25.0 / start.elapsed_time(end)) + 1
+    start.record()
+    for _ in range(repeats):
+        a @ a
+    end.record()
+    state = dmr.reconfig(runner, state, 0)
+    torch.cuda.synchronize()
+    queued_s = start.elapsed_time(end) / 1e3
+    (event,) = runner.events
+    seconds, bound = event.transfer.seconds, 2 * leaf_bytes / HBM_BYTES_PER_S
+    assert (event.from_procs, event.to_procs) == (4, 8)
+    assert queued_s >= 0.020
+    assert seconds < queued_s
+    assert bound / 2 <= seconds <= 2 * bound, (seconds, bound)
